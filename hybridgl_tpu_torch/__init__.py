@@ -1,0 +1,23 @@
+"""hybridgl_tpu_torch — the PyTorch/CUDA port of hybridgl_tpu for NVIDIA Hopper.
+
+The JAX package ``hybridgl_tpu`` is the reference; this package mirrors its
+layout and function names module for module, so every port module has an
+obvious counterpart:
+
+  core/      parameter trees (same keys and shapes as the reference's)
+  kernels/   hand-written sm_90a CUDA kernels (csrc/) behind thin wrappers,
+             each with a plain PyTorch version beside it, plus the plain
+             tensor primitives (resize, blur, NMS, mask analytics)
+  models/    sam (encoder, prompt encoder, decoder, AMG), clip (ViT, text,
+             G2L fusion), gem
+  pipeline/  crops, guidance, host cleanup and the runner
+  eval/      IoU accumulators
+
+The port imports ``torch`` and never ``jax``. It reuses only the
+reference's jax-free modules (configs, tokenizer, expression parser, the
+native region-cleanup binding, env helpers). A kernel wrapper runs its
+plain version for a CPU tensor and launches its CUDA kernel (or raises) for
+a CUDA tensor.
+"""
+
+__version__ = "0.1.0"

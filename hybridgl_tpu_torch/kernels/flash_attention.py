@@ -1,0 +1,98 @@
+"""Decomposed relative-position attention for the SAM image encoder (K1, K2).
+
+Both wrappers launch one CUDA kernel (``csrc/attention.cu``, REL_POS mode):
+
+  * :func:`flash_windowed_fused` replaces the Pallas kernel of the same name
+    (``hybridgl_tpu/kernels/flash_attention.py:276``): the 28 windowed ViT-H
+    blocks, 25 windows x 16 heads of S = 196 tokens, G = 14;
+  * :func:`flash_attention_fused` replaces the Pallas kernel of the same name
+    (``hybridgl_tpu/kernels/flash_attention.py:171``): the 4 global blocks,
+    16 heads of S = 4096 tokens, G = 64. The [S, S] score matrix never
+    reaches device memory.
+
+Math (reference: segment_anything image_encoder.py:325-361):
+
+  out = softmax(scale * q k^T + bias) v,  bias[q, k] = rel_h[q, k // G] + rel_w[q, k % G]
+
+Inputs are q, k, v [BH, S, hd] (bf16 or f32, unscaled q) and the two rank-G
+terms rel_h, rel_w [BH, S, G] in f32; the output is [BH, S, hd] in q's dtype.
+On a CPU tensor the wrappers run :func:`reference_attention_rel_pos`, the
+plain PyTorch version of the same function; on a CUDA tensor they launch the
+kernel or raise. What bounds the kernel on the card, and its design, are
+described in the CUDA source.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _build
+
+SUPPORTED_HEAD_DIMS = (16, 32, 64, 80)
+MAX_GRID_SIDE = 64
+
+
+def reference_attention_rel_pos(q, k, v, rel_h, rel_w, grid_side: int, scale: float):
+    """Plain PyTorch version of K1/K2: the [BH, S, S] scores materialised in f32."""
+    BH, S, _ = q.shape
+    s = torch.matmul(q.float(), k.float().transpose(1, 2)) * scale
+    bias = (rel_h.float()[:, :, :, None] + rel_w.float()[:, :, None, :]).reshape(BH, S, S)
+    p = torch.softmax(s + bias, dim=-1)
+    return torch.matmul(p, v.float()).to(q.dtype)
+
+
+def _check(name, q, k, v, rel_h, rel_w, grid_side):
+    BH, S, hd = q.shape
+    G = grid_side
+    if k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"{name}: q/k/v shapes differ {q.shape} {k.shape} {v.shape}")
+    if S != G * G:
+        raise ValueError(f"{name}: S={S} is not grid_side**2 ({G}**2)")
+    if rel_h.shape != (BH, S, G) or rel_w.shape != (BH, S, G):
+        raise ValueError(f"{name}: rel terms must be [{BH}, {S}, {G}], got {rel_h.shape} {rel_w.shape}")
+    if q.dtype not in (torch.bfloat16, torch.float32) or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"{name}: q/k/v must share dtype bf16 or f32, got {q.dtype} {k.dtype} {v.dtype}")
+    if rel_h.dtype != torch.float32 or rel_w.dtype != torch.float32:
+        raise TypeError(f"{name}: rel terms must be f32 (the bias is kept in f32)")
+    if hd not in SUPPORTED_HEAD_DIMS:
+        raise ValueError(f"{name}: head dim {hd} not in {SUPPORTED_HEAD_DIMS}")
+    if G > MAX_GRID_SIDE:
+        raise ValueError(f"{name}: grid side {G} > {MAX_GRID_SIDE}")
+    for t in (q, k, v, rel_h, rel_w):
+        if t.device != q.device:
+            raise ValueError(f"{name}: tensors on different devices")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: inputs must be contiguous")
+
+
+def _rel_pos_call(wrapper, q, k, v, rel_h, rel_w, grid_side, scale):
+    if q.device.type == "cpu":
+        return reference_attention_rel_pos(q, k, v, rel_h, rel_w, grid_side, scale)
+    if q.device.type != "cuda":
+        raise RuntimeError(f"{wrapper.__name__}: unsupported device {q.device}")
+    _check(wrapper.__name__, q, k, v, rel_h, rel_w, grid_side)
+    BH, S, hd = q.shape
+    out = torch.empty_like(q)
+    lib = _build.library()
+    code = lib.hgl_rel_pos_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), rel_h.data_ptr(), rel_w.data_ptr(),
+        out.data_ptr(), BH, S, hd, grid_side, float(scale),
+        int(q.dtype == torch.bfloat16), _build.stream_handle(q.device),
+    )
+    _build.check(code, wrapper.__name__)
+    wrapper.launches += 1
+    return out
+
+
+def flash_windowed_fused(q, k, v, rel_h, rel_w, grid_side: int, scale: float):
+    """K1: whole-window rel-pos attention for the windowed encoder blocks."""
+    return _rel_pos_call(flash_windowed_fused, q, k, v, rel_h, rel_w, grid_side, scale)
+
+
+def flash_attention_fused(q, k, v, rel_h, rel_w, grid_side: int, scale: float):
+    """K2: tiled online-softmax rel-pos attention for the global encoder blocks."""
+    return _rel_pos_call(flash_attention_fused, q, k, v, rel_h, rel_w, grid_side, scale)
+
+
+flash_windowed_fused.launches = 0
+flash_attention_fused.launches = 0

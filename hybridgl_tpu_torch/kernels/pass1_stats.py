@@ -1,0 +1,103 @@
+"""AMG pass-1 statistics (K5).
+
+:func:`pass1_stats_half` replaces the Pallas kernel of the same name
+(``hybridgl_tpu/kernels/pass1_stats.py:257``, its ``_stats_call`` with
+``pre_half=True``). Pass 1 needs four things per (point, mask) candidate:
+the two stability threshold counts, the row/column occupancy profiles (for
+the box), and non-emptiness. The canonical-frame logits they derive from are
+``Wy @ tmp`` where ``tmp = low @ Wx^T`` is the column half-transform (a plain
+matmul outside the kernel, :func:`half_transform`); the kernel
+(``csrc/pass1_stats.cu``) completes the row transform one tile at a time
+inside the placement window and reduces in place, so the [B, C, C] frame is
+never stored.
+
+Dtype policy (reference ``use_bf16_stats``, pass1_stats.py:39-55): the
+half-transform and the row matmul take bf16 operands with f32 sums by
+default, even with f32 params; ``$HYBRIDGL_STATS_BF16=0`` selects f32.
+
+On a CPU tensor :func:`pass1_stats_half` runs
+:func:`reference_pass1_stats_half`; on a CUDA tensor it launches the kernel
+or raises.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from hybridgl_tpu.utils.env import env_flag
+
+from . import _build
+
+
+def use_bf16_stats() -> bool:
+    """bf16 operands for the stats chain (default); opt out with
+    ``$HYBRIDGL_STATS_BF16=0`` (same switch as the reference)."""
+    return env_flag("HYBRIDGL_STATS_BF16", default=True)
+
+
+def stats_dtype() -> torch.dtype:
+    return torch.bfloat16 if use_bf16_stats() else torch.float32
+
+
+def half_transform(low: torch.Tensor, WxT: torch.Tensor) -> torch.Tensor:
+    """Column half-transform ``low @ WxT`` ([B, n, n2] x [n2, C] -> [B, n, C])
+    with operands rounded to the stats dtype, f32 sums, and the result
+    stored in the stats dtype (the reference's half_transform_blocked, on
+    the interleaved logits)."""
+    dt = stats_dtype()
+    return torch.matmul(low.to(dt).float(), WxT.to(dt).float()).to(dt)
+
+
+def _window(window):
+    return tuple(float(w) for w in window)
+
+
+def reference_pass1_stats_half(tmp, Wy, window, thresh: float, offset: float):
+    """Plain PyTorch version of K5: materialises the [B, C, C] logits."""
+    y0, x0, dh, dw = _window(window)
+    C = Wy.shape[0]
+    lt = torch.matmul(Wy.float(), tmp.float())  # [B, C, C]
+    idx = torch.arange(C, device=tmp.device, dtype=torch.float32)
+    valid = ((idx >= y0) & (idx < y0 + dh))[:, None] & ((idx >= x0) & (idx < x0 + dw))[None, :]
+    hi = ((lt > thresh + offset) & valid).sum(dim=(-2, -1)).float()
+    lo = ((lt > thresh - offset) & valid).sum(dim=(-2, -1)).float()
+    m = (lt > thresh) & valid
+    return hi / lo.clamp(min=1.0), m.any(dim=-1), m.any(dim=-2)
+
+
+def pass1_stats_half(tmp, Wy, window, thresh: float, offset: float):
+    """tmp [B, n, C] (pre-applied column half-transform), Wy [C, n] composed
+    row weights, window (y0, x0, dh, dw) -> (stab [B] f32, row_any [B, C]
+    bool, col_any [B, C] bool), stab = hi / max(lo, 1)."""
+    dt = stats_dtype()
+    tmp = tmp.to(dt)
+    Wy = Wy.to(dt)
+    if tmp.device.type == "cpu":
+        return reference_pass1_stats_half(tmp, Wy, window, thresh, offset)
+    if tmp.device.type != "cuda":
+        raise RuntimeError(f"pass1_stats_half: unsupported device {tmp.device}")
+    if tmp.ndim != 3:
+        raise ValueError(f"pass1_stats_half: tmp must be [B, n, C], got {tuple(tmp.shape)}")
+    B, n, C = tmp.shape
+    if Wy.shape != (C, n):
+        raise ValueError(f"pass1_stats_half: Wy must be [{C}, {n}], got {tuple(Wy.shape)}")
+    if Wy.device != tmp.device:
+        raise ValueError("pass1_stats_half: tmp and Wy on different devices")
+    if not (tmp.is_contiguous() and Wy.is_contiguous()):
+        raise ValueError("pass1_stats_half: inputs must be contiguous")
+    y0, x0, dh, dw = _window(window)
+    counts = torch.empty((B, 2), dtype=torch.float32, device=tmp.device)
+    row_any = torch.empty((B, C), dtype=torch.bool, device=tmp.device)
+    col_any = torch.empty((B, C), dtype=torch.bool, device=tmp.device)
+    lib = _build.library()
+    code = lib.hgl_pass1_stats(
+        tmp.data_ptr(), Wy.data_ptr(), B, n, C, y0, x0, dh, dw,
+        float(thresh), float(offset), counts.data_ptr(), row_any.data_ptr(),
+        col_any.data_ptr(), int(dt == torch.bfloat16), _build.stream_handle(tmp.device),
+    )
+    _build.check(code, "pass1_stats_half")
+    pass1_stats_half.launches += 1
+    return counts[:, 0] / counts[:, 1].clamp(min=1.0), row_any, col_any
+
+
+pass1_stats_half.launches = 0

@@ -40,6 +40,9 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "quick: fast tier (run with -m quick); auto-applied to non-slow tests"
     )
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card; skips where torch.cuda.is_available() is False"
+    )
 
 
 def pytest_collection_modifyitems(config, items):
