@@ -6,21 +6,30 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
 Phases (every phase asserts; any failure exits non-zero):
   1. environment: the card's name and power limit, torch/CUDA/nvcc versions;
-  2. build: compiles the port's CUDA kernels from csrc/ (nvcc, sm_90a);
-  3. kernels: each CUDA kernel against its plain PyTorch version at the
-     main path's shapes, bf16 inputs, TF32 off, with median times;
+  2. build: compiles the port's CUDA kernels from csrc/ (one nvcc per
+     source, all at once, sm_90a);
+  3. kernels: each of the eight CUDA kernels against its plain PyTorch
+     version at the main paths' shapes, bf16 inputs, TF32 off, with median
+     times;
   4. small-input parity: the port on the card against the port on the CPU
-     (the kernels' plain versions) at a small f32 configuration that
-     routes through all four kernels: same proposals and selections;
-  5. pipeline: HybridGLPipeline.run_image at full width (SAM ViT-H +
+     (the kernels' plain versions) at two small f32 configurations, single
+     crop (K1, K2, K5, K6 and the default decoder route, K3 + K4) and
+     multicrop (pass 2 through K7 + K8): same proposals and selections;
+  5. RefCOCO pipeline: HybridGLPipeline.run_image at full width (SAM ViT-H +
      CLIP ViT-B/16, random bf16 weights from seed 0, AMG at RefCOCO
      settings with the quality thresholds zeroed as the reference bench
      does) on one warm-up and three measured synthetic images, checking
-     finite outputs and that every kernel of the path launched.
-The second-to-last line is a JSON object with one entry per kernel; the last
-line is the JSON contract line. ``--profile`` adds a breakdown of one more
-image (stage wall times, device time by kernel from torch.profiler) and
-the scoring stages on a full bucket of 64 synthetic proposals.
+     finite outputs and that every kernel of the path launched;
+  6. PhraseCut pipeline: the same at AMG_PHRASECUT (pps 64, one crop layer,
+     P = 128, canonical 1024), one warm-up and two measured images.
+The decoder runs its default route: the HYBRIDGL_FUSED_* switches are
+removed from the environment at start. The second-to-last line is a JSON
+object with one entry per kernel; the last line is the JSON contract line.
+``--profile`` adds a breakdown of one more RefCOCO image (stage wall times,
+device time by kernel from torch.profiler), the scoring stages on a full
+bucket of 64 synthetic proposals, the RefCOCO ms/img with the four decoder
+switches at 0 beside the default route, the decoder chunk times, and the
+multicrop stage times.
 """
 
 from __future__ import annotations
@@ -34,6 +43,9 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, REPO)
+DECODER_SWITCHES = tuple(f"HYBRIDGL_FUSED_{k}" for k in ("PASS", "I2T", "T2I", "UPSCALE"))
+for _k in DECODER_SWITCHES:  # the contract run takes the default decoder route
+    os.environ.pop(_k, None)
 
 KERNELS = {
     "flash_windowed_fused": (
@@ -52,16 +64,38 @@ KERNELS = {
         "hybridgl_tpu_torch/csrc/attention.cu",
         "hybridgl_tpu/kernels/clip_attention.py:78",
     ),
+    "i2t_ln_then_t2i": (
+        "hybridgl_tpu_torch/csrc/decoder_attn.cu",
+        "hybridgl_tpu/kernels/decoder_pass.py:209",
+    ),
+    "upscale_hyper_blocked": (
+        "hybridgl_tpu_torch/csrc/upscale_hyper.cu",
+        "hybridgl_tpu/kernels/upscale_hyper.py:153",
+    ),
+    "i2t_ln_update": (
+        "hybridgl_tpu_torch/csrc/decoder_attn.cu",
+        "hybridgl_tpu/kernels/decoder_attn.py:95",
+    ),
+    "t2i_ctx": (
+        "hybridgl_tpu_torch/csrc/decoder_attn.cu",
+        "hybridgl_tpu/kernels/decoder_attn_t2i.py:82",
+    ),
 }
-# per-image launches on the main path (one launch per call): 28 windowed and
-# 4 global SAM blocks, one pass-1 chunk of 64 points, 9 trunk + 3 x 2 G2L
-# stream CLIP blocks
+# per-image launches on the RefCOCO path (one launch per call): 28 windowed
+# and 4 global SAM blocks, one pass-1 chunk of 64 points (two K3 layer
+# passes, one K4 tail), 9 trunk + 3 x 2 G2L stream CLIP blocks
 MIN_LAUNCHES_PER_IMAGE = {
     "flash_windowed_fused": 28,
     "flash_attention_fused": 4,
     "pass1_stats_half": 1,
     "clip_attention": 15,
+    "i2t_ln_then_t2i": 2,
+    "upscale_hyper_blocked": 1,
 }
+# the PhraseCut path adds the pass-2 re-decode on the per-prompt route: two
+# K7 image->token updates and three K8 token->image attentions; its five
+# encoder passes and 128 pass-1 chunks launch the others many times over
+MIN_LAUNCHES_PER_PHRASECUT_IMAGE = dict(MIN_LAUNCHES_PER_IMAGE, i2t_ln_update=2, t2i_ctx=3)
 
 
 def log(msg: str) -> None:
@@ -224,6 +258,133 @@ def phase_kernels():
     plain_ms = time_ms(lambda: reference_pass1_stats_half(tmp, Wyb, window, 0.0, 1.0))
     results["pass1_stats_half"] = dict(max_abs_err=ds, ms=ms, plain_ms=plain_ms)
     log(f"  pass1_stats_half [{Bc}, {n}, {C}] bf16: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+
+    # K5 at PhraseCut: canonical 1024 and the window of a layer-1 crop of a
+    # 480x640 image (origin (159, 239), 321x401, SAM frame 820x1024)
+    C, window = 1024, (159, 239, 321, 401)
+    Wy = _composed_axis_weights(C, n, 1024, 820, window[0], window[2], dev)
+    Wx = _composed_axis_weights(C, n, 1024, 1024, window[1], window[3], dev)
+    tmp = half_transform(low, Wx.T)
+    stab, ra, ca = pass1_stats_half(tmp, Wy, window, 0.0, 1.0)
+    stab0, ra0, ca0 = reference_pass1_stats_half(tmp, Wy.to(tmp.dtype), window, 0.0, 1.0)
+    torch.cuda.synchronize()
+    ds = float((stab - stab0).abs().max())
+    db = float((box_from_profiles(ra, ca) - box_from_profiles(ra0, ca0)).abs().max())
+    ok = ds <= 1e-3 and db <= 1.0 and bool(torch.isfinite(stab).all()) and bool(ra.any())
+    log(f"{'PASS' if ok else 'FAIL'} pass1_stats_half (crop window {window}, C = {C}): stability max|d| {ds:.6f} "
+        f"box edge max|d| {db:.1f} px")
+    if not ok:
+        fail("pass1_stats_half disagrees with its plain version on a crop window")
+    Wyb = Wy.to(tmp.dtype)
+    ms = time_ms(lambda: pass1_stats_half(tmp, Wyb, window, 0.0, 1.0))
+    plain_ms = time_ms(lambda: reference_pass1_stats_half(tmp, Wyb, window, 0.0, 1.0))
+    log(f"  pass1_stats_half [{Bc}, {n}, {C}] crop window bf16: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+    del low, tmp, coarse
+    results.update(phase_decoder_kernels(dev, gen))
+    return results
+
+
+def _i2t_ops(dev, gen, B, Cq, C=256, heads=8, tp=8, T=7):
+    """Token-side operands of K3/K7 at SAM's decoder widths: w [B, Cq, 64]
+    f32, off (-1e30 on the padding lane t = 7), vo [B, 64, C] bf16, const/LN."""
+    import torch
+
+    def r(*shape, std):
+        return torch.randn(shape, generator=gen, device=dev) * std
+
+    off = r(B, heads, tp, std=0.5)
+    off[:, :, T:] = -1e30
+    return dict(w=r(B, Cq, heads * tp, std=Cq**-0.5 * 2), off=off.reshape(B, -1),
+                vo=r(B, heads * tp, C, std=0.5).to(torch.bfloat16), const=r(C, std=0.1),
+                ln_scale=1.0 + r(C, std=0.1), ln_bias=r(C, std=0.1))
+
+
+def phase_decoder_kernels(dev, gen):
+    """K3, K7, K8 and K4 against their plain versions at full width: C = 256,
+    8 heads, tp = 8 (GT = 64), S = 4096; B = 64 (a pass-1 chunk) for K3/K4,
+    B = 128 (PhraseCut's pass 2) for K7/K8."""
+    import torch
+
+    from hybridgl_tpu_torch.kernels.decoder_attn import i2t_ln_update, reference_i2t_ln_update
+    from hybridgl_tpu_torch.kernels.decoder_attn_t2i import reference_t2i_ctx, t2i_ctx
+    from hybridgl_tpu_torch.kernels.decoder_pass import i2t_ln_then_t2i, reference_i2t_ln_then_t2i
+    from hybridgl_tpu_torch.kernels.upscale_hyper import reference_upscale_hyper, upscale_hyper
+
+    bf, S, C = torch.bfloat16, 4096, 256
+
+    def randn(*shape, std=1.0, dtype=bf):
+        return (torch.randn(shape, generator=gen, device=dev) * std).to(dtype)
+
+    results = {}
+    # K3: pass A (shared once-projected queries [1, S, 128], raw image and pe
+    # [1, S, 256]) and pass B (per-prompt keys [64, S, 256])
+    B = 64
+    pe = randn(1, S, C)
+    k3 = {}
+    for mode, shared in (("pass A", True), ("pass B", False)):
+        Cq = 128 if shared else C
+        ops = _i2t_ops(dev, gen, B, Cq)
+        qside = randn(1 if shared else B, S, Cq)
+        base = randn(1, S, C) if shared else qside
+        qw = randn(B, C, 64, std=C**-0.5 * 2, dtype=torch.float32)
+
+        def run(fn):
+            return fn(qside, base, pe, **ops, qw_next=qw, heads=8, tp=8, shared_qside=shared)
+
+        (keys, ctx), (keys0, ctx0) = run(i2t_ln_then_t2i), run(reference_i2t_ln_then_t2i)
+        torch.cuda.synchronize()
+        err = max(_attention_verdict(f"i2t_ln_then_t2i {mode} keys'", keys, keys0),
+                  _attention_verdict(f"i2t_ln_then_t2i {mode} ctx", ctx, ctx0))
+        ms, plain_ms = time_ms(lambda: run(i2t_ln_then_t2i)), time_ms(lambda: run(reference_i2t_ln_then_t2i))
+        log(f"  i2t_ln_then_t2i {mode} B = {B}, qside [{qside.shape[0]}, {S}, {Cq}] bf16: kernel {ms:.3f} ms, "
+            f"plain {plain_ms:.3f} ms")
+        k3[mode] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+        del keys, ctx, keys0, ctx0, qside, base
+    # the JSON line carries pass B, the per-prompt stream; pass A is logged
+    results["i2t_ln_then_t2i"] = dict(k3["pass B"], max_abs_err=max(v["max_abs_err"] for v in k3.values()))
+
+    # K7 and K8 at PhraseCut's pass 2: P = 128 survivors, per-prompt keys
+    B = 128
+    keys = randn(B, S, C)
+    ops = _i2t_ops(dev, gen, B, C)
+    got = i2t_ln_update(keys, keys, **ops, heads=8, tp=8, pe=pe)
+    want = reference_i2t_ln_update(keys, keys, **ops, heads=8, tp=8, pe=pe)
+    torch.cuda.synchronize()
+    err = _attention_verdict("i2t_ln_update", got, want)
+    del got, want
+    ms = time_ms(lambda: i2t_ln_update(keys, keys, **ops, heads=8, tp=8, pe=pe))
+    plain_ms = time_ms(lambda: reference_i2t_ln_update(keys, keys, **ops, heads=8, tp=8, pe=pe))
+    results["i2t_ln_update"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    log(f"  i2t_ln_update B = {B}, keys [{B}, {S}, {C}] + pe bf16: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+    qw = randn(B, C, 64, std=C**-0.5 * 2, dtype=torch.float32)
+    qw[:, :, 7::8] = 0.0  # padding columns
+    got, want = t2i_ctx(keys, pe, qw), reference_t2i_ctx(keys, pe, qw)
+    torch.cuda.synchronize()
+    err = _attention_verdict("t2i_ctx", got, want)
+    ms, plain_ms = time_ms(lambda: t2i_ctx(keys, pe, qw)), time_ms(lambda: reference_t2i_ctx(keys, pe, qw))
+    results["t2i_ctx"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    log(f"  t2i_ctx B = {B}, keys [{B}, {S}, {C}] bf16 -> [{B}, 64, {C}]: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+    del keys
+
+    # K4: a pass-1 chunk's tail, B = 64, g = 64, c4 = 64, c8 = 32, m = 3
+    B = 64
+    args = (randn(B, S, C), randn(C, 256, std=C**-0.5, dtype=torch.float32), randn(64, std=0.1, dtype=torch.float32),
+            1.0 + randn(64, std=0.1, dtype=torch.float32), randn(64, std=0.1, dtype=torch.float32),
+            randn(64, 128, std=64**-0.5, dtype=torch.float32), randn(32, std=0.1, dtype=torch.float32),
+            randn(B, 3, 32, std=0.5))
+    got, want = upscale_hyper(*args), reference_upscale_hyper(*args)
+    torch.cuda.synchronize()
+    d = float((got - want).abs().max())
+    agree = float(((got > 0) == (want > 0)).float().mean())
+    ok = bool(torch.isfinite(got).all()) and d < 0.1 and agree > 0.995
+    log(f"{'PASS' if ok else 'FAIL'} upscale_hyper_blocked: logits max|d| {d:.5f}, sign agreement {agree:.6f}")
+    if not ok:
+        fail("upscale_hyper_blocked disagrees with its plain version")
+    del got, want
+    ms, plain_ms = time_ms(lambda: upscale_hyper(*args)), time_ms(lambda: reference_upscale_hyper(*args))
+    results["upscale_hyper_blocked"] = dict(max_abs_err=d, ms=ms, plain_ms=plain_ms)
+    log(f"  upscale_hyper_blocked src [{B}, {S}, {C}] bf16 -> [{B}, 3, 256, 256] f32: kernel {ms:.3f} ms, "
+        f"plain {plain_ms:.3f} ms")
     return results
 
 
@@ -280,9 +441,14 @@ def _check_results(tag, results, props, n_sentences):
 
 def phase_small_parity():
     """The port on the card (CUDA kernels) against the port on the CPU (the
-    kernels' plain versions), f32, at a small configuration whose SAM grid
-    routes through K1 (window 8) and K2 (grid 32) and whose CLIP blocks route
-    through K6: same proposals and the same selections."""
+    kernels' plain versions), f32, at two small configurations: single crop,
+    whose SAM grid routes through K1 (window 8) and K2 (grid 32), whose
+    decoder takes the default route (K3 + K4) and whose CLIP blocks route
+    through K6; and multicrop (one crop layer), whose pass 2 runs the
+    decoder's per-prompt route (K7 + K8). Same proposals and the same
+    selections, and every one of the eight kernels launched on the card."""
+    import dataclasses
+
     import numpy as np
     import torch
 
@@ -298,13 +464,10 @@ def phase_small_parity():
         mask_in_chans=8,
     )
     clip_cfg = clip_preset("test-tiny")
-    cfg = PipelineConfig(
-        clip_config=clip_cfg, sam_config=sam_cfg, canonical_size=128, crop_size=clip_cfg.image_size,
-        amg=AmgConfig(points_per_side=4, points_per_batch=8, pred_iou_thresh=0.0,
-                      stability_score_thresh=0.0, min_mask_region_area=40, max_proposals=8),
-        gem=GemConfig(img_size=32, depth=2),
-    )
-    cfg = cfg.replace(guidance=cfg.guidance.__class__(masking_block=1))
+    single = AmgConfig(points_per_side=4, points_per_batch=8, pred_iou_thresh=0.0,
+                       stability_score_thresh=0.0, min_mask_region_area=40, max_proposals=8)
+    multicrop = dataclasses.replace(single, crop_n_layers=1, crop_n_points_downscale_factor=2, max_proposals=16,
+                                    max_candidates_per_crop=16)
     g = torch.Generator().manual_seed(3)
     sam_p, clip_p = init_sam(g, sam_cfg), init_clip(g, clip_cfg)
     for blk in sam_p["encoder"]["blocks"]:  # nonzero rel-pos so the bias matters
@@ -312,56 +475,78 @@ def phase_small_parity():
             blk["attn"][key] = torch.randn(blk["attn"][key].shape, generator=g) * 0.2
     rng = np.random.default_rng(7)
     sample = _sample(rng, 512, 128, 96, 128, 384, 512, (20, 30, 70, 90))
-    out = {}
-    for dev in ("cpu", "cuda"):
-        move = lambda _, t: t.to(dev)  # noqa: E731
-        pipe = HybridGLPipeline(cfg, tree_map(move, sam_p), tree_map(move, clip_p),
-                                HeuristicParser(), _TinyVocabTokenizer(), device=dev)
-        reset_launch_counts()
-        results = pipe.run_image(sample, pipe.init_state())
-        props = pipe.last_proposals
-        _check_results(f"small/{dev}", results, props, len(SENTENCES))
-        out[dev] = (results, props, launch_counts())
-    (r_cpu, p_cpu, _), (r_gpu, p_gpu, counts) = out["cpu"], out["cuda"]
-    agree = float((p_cpu.masks == p_gpu.masks.cpu()).float().mean())
-    same_valid = bool((p_cpu.valid == p_gpu.valid.cpu()).all())
-    same_sel = [(a.pure_index, a.final_index) for a in r_cpu] == [(b.pure_index, b.final_index) for b in r_gpu]
-    d_iou = max(abs(a.final_iou - b.final_iou) for a, b in zip(r_cpu, r_gpu))
-    ok = agree >= 0.999 and same_valid and same_sel and d_iou <= 1e-4 and all(counts.values())
-    log(f"{'PASS' if ok else 'FAIL'} small-input parity (card vs cpu plain): mask agreement {agree:.6f}, "
-        f"same valid {same_valid}, same selections {same_sel}, IoU max|d| {d_iou:.2e}, launches {counts}")
-    if not ok:
-        fail("small-input parity between the card and the CPU reference failed")
+    total = dict.fromkeys(KERNELS, 0)
+    for tag, amg_cfg in (("single crop", single), ("multicrop", multicrop)):
+        cfg = PipelineConfig(
+            clip_config=clip_cfg, sam_config=sam_cfg, canonical_size=128, crop_size=clip_cfg.image_size,
+            amg=amg_cfg, gem=GemConfig(img_size=32, depth=2),
+        )
+        cfg = cfg.replace(guidance=cfg.guidance.__class__(masking_block=1))
+        out = {}
+        for dev in ("cpu", "cuda"):
+            move = lambda _, t: t.to(dev)  # noqa: E731
+            pipe = HybridGLPipeline(cfg, tree_map(move, sam_p), tree_map(move, clip_p),
+                                    HeuristicParser(), _TinyVocabTokenizer(), device=dev)
+            reset_launch_counts()
+            results = pipe.run_image(sample, pipe.init_state())
+            props = pipe.last_proposals
+            _check_results(f"small {tag}/{dev}", results, props, len(SENTENCES))
+            out[dev] = (results, props, launch_counts())
+        (r_cpu, p_cpu, _), (r_gpu, p_gpu, counts) = out["cpu"], out["cuda"]
+        total = {k: total[k] + counts[k] for k in total}
+        agree = float((p_cpu.masks == p_gpu.masks.cpu()).float().mean())
+        same_valid = bool((p_cpu.valid == p_gpu.valid.cpu()).all())
+        same_sel = [(a.pure_index, a.final_index) for a in r_cpu] == [(b.pure_index, b.final_index) for b in r_gpu]
+        d_iou = max(abs(a.final_iou - b.final_iou) for a, b in zip(r_cpu, r_gpu))
+        ok = agree >= 0.999 and same_valid and same_sel and d_iou <= 1e-4 and int(p_gpu.num) > 0
+        log(f"{'PASS' if ok else 'FAIL'} small-input parity, {tag} (card vs cpu plain): proposals {p_gpu.num}, "
+            f"mask agreement {agree:.6f}, same valid {same_valid}, same selections {same_sel}, "
+            f"IoU max|d| {d_iou:.2e}, launches {counts}")
+        if not ok:
+            fail(f"small-input parity ({tag}) between the card and the CPU reference failed")
+    missing = [k for k, v in total.items() if v == 0]
+    if missing:
+        fail(f"small-input parity: kernels never launched on the card: {missing}")
 
 
-def phase_pipeline():
-    """The port's main path at full width: SAM ViT-H + CLIP ViT-B/16, bf16."""
-    import numpy as np
+def full_width_weights():
+    """SAM ViT-H + CLIP ViT-B/16 random weights from seed 0, bf16, on the card."""
     import torch
 
-    from hybridgl_tpu.core.config import AmgConfig, PipelineConfig
-    from hybridgl_tpu.lang import HeuristicParser
+    from hybridgl_tpu.core.config import PipelineConfig
     from hybridgl_tpu_torch.core.params import cast_tree, init_clip, init_sam, param_count
-    from hybridgl_tpu_torch.kernels import launch_counts, reset_launch_counts
-    from hybridgl_tpu_torch.pipeline.runner import HybridGLPipeline
 
-    dev = torch.device("cuda")
-    # RefCOCO AMG (pps 8, one crop, P = 64) with the quality thresholds
-    # zeroed as the reference bench does (random weights pass none of them)
-    cfg = PipelineConfig(sam_model="vit_h", clip_model="ViT-B/16", fusion_mode="G2L",
-                         amg=AmgConfig(pred_iou_thresh=0.0, stability_score_thresh=0.0))
+    cfg = PipelineConfig(sam_model="vit_h", clip_model="ViT-B/16")
     t0 = time.perf_counter()
-    gen = torch.Generator(device=dev).manual_seed(0)
+    gen = torch.Generator(device="cuda").manual_seed(0)
     sam_p = cast_tree(init_sam(gen, cfg.sam), torch.bfloat16)
     clip_p = cast_tree(init_clip(gen, cfg.clip), torch.bfloat16)
     torch.cuda.synchronize()
-    log(f"pipeline: random weights SAM {param_count(sam_p) / 1e6:.1f}M + CLIP {param_count(clip_p) / 1e6:.1f}M "
+    log(f"weights: random SAM {param_count(sam_p) / 1e6:.1f}M + CLIP {param_count(clip_p) / 1e6:.1f}M "
         f"params (bf16) in {time.perf_counter() - t0:.1f} s")
-    pipe = HybridGLPipeline(cfg, sam_p, clip_p, HeuristicParser(), _tokenizer(), device=dev)
-    rng = np.random.default_rng(0)
-    samples = [_sample(rng, 1024, 640, 480, 640, 768, 1024, (100, 150, 300, 400)) for _ in range(4)]
+    return sam_p, clip_p
 
-    reset_launch_counts()
+
+def phase_pipeline(tag, amg, canonical, n_images, min_launches, weights):
+    """One main path at full width: SAM ViT-H + CLIP ViT-B/16, bf16, the
+    given AMG with the quality thresholds zeroed as the reference bench does
+    (random weights pass none of them), synthetic 480x640 images in the
+    canonical frame; one warm-up image, then ``n_images`` measured."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from hybridgl_tpu.core.config import PipelineConfig
+    from hybridgl_tpu.lang import HeuristicParser
+    from hybridgl_tpu_torch.kernels import launch_counts
+    from hybridgl_tpu_torch.pipeline.runner import HybridGLPipeline
+
+    cfg = PipelineConfig(sam_model="vit_h", clip_model="ViT-B/16", fusion_mode="G2L", canonical_size=canonical,
+                         amg=dataclasses.replace(amg, pred_iou_thresh=0.0, stability_score_thresh=0.0))
+    pipe = HybridGLPipeline(cfg, *weights, HeuristicParser(), _tokenizer(), device=torch.device("cuda"))
+    rng = np.random.default_rng(0)
+    samples = [_sample(rng, 1024, canonical, 480, 640, 768, 1024, (100, 150, 300, 400)) for _ in range(n_images + 1)]
     state = pipe.init_state()
     torch.cuda.reset_peak_memory_stats()
     times = []
@@ -374,19 +559,19 @@ def phase_pipeline():
         ms = (time.perf_counter() - t0) * 1e3
         props = pipe.last_proposals
         delta = {k: v - before[k] for k, v in launch_counts().items()}
-        tag = "warm-up" if i == 0 else f"image {i}"
+        name = f"{tag} warm-up" if i == 0 else f"{tag} image {i}"
         if i:
             times.append(ms)
-        log(f"  {tag}: {ms:.1f} ms, proposals {props.num} (bucket {props.masks.shape[0]}), "
+        log(f"  {name}: {ms:.1f} ms, proposals {props.num} (bucket {props.masks.shape[0]}), "
             f"selected {[(r.pure_index, r.final_index) for r in results]}, launches {delta}")
-        _check_results(tag, results, props, len(SENTENCES))
-        short = {k: (delta[k], n) for k, n in MIN_LAUNCHES_PER_IMAGE.items() if delta[k] < n}
+        _check_results(name, results, props, len(SENTENCES))
+        short = {k: (delta[k], n) for k, n in min_launches.items() if delta[k] < n}
         if short:
-            fail(f"{tag}: kernels launched fewer times than the main path needs: {short}")
+            fail(f"{name}: kernels launched fewer times than the path needs: {short}")
     acc = [float(v) for v in (*state.pure, *state.final)]
     if not all(np.isfinite(acc)) or int(state.pure.count) != 2 * len(samples):
-        fail(f"accumulators wrong: {state}")
-    log(f"pipeline: median {statistics.median(times):.1f} ms/img over {len(times)} images "
+        fail(f"{tag}: accumulators wrong: {state}")
+    log(f"{tag} pipeline: median {statistics.median(times):.1f} ms/img over {len(times)} images "
         f"(per image {[round(t, 1) for t in times]}), peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     return pipe, samples
@@ -455,21 +640,123 @@ def phase_profile(pipe, samples):
         log(f"  device {e.self_device_time_total / 1e3:8.2f} ms  x{e.count:<5d} {e.key[:90]}")
 
 
+def _wall_ms(fn):
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3, out
+
+
+def phase_routes(pipe, samples):
+    """RefCOCO ms/img and one decoder chunk (64 points) on the default route
+    against the four switches at 0, in turns (default, off, off, default)."""
+    import numpy as np
+    import torch
+
+    from hybridgl_tpu_torch.models.sam.amg import build_point_grid
+    from hybridgl_tpu_torch.models.sam.prompt_encoder import dense_pe, no_mask_dense
+    from hybridgl_tpu_torch.models.sam.sam import encode, predict_points, preprocess_padded
+
+    cfg, p_sam = pipe.cfg, pipe.sam_params
+    sample = samples[1]
+    x = preprocess_padded(torch.from_numpy(sample.image_1024).cuda(), (sample.rh, sample.rw), cfg.sam)
+    emb = encode(p_sam, x, cfg.sam)
+    pe, dense = dense_pe(p_sam["prompt"], cfg.sam), no_mask_dense(p_sam["prompt"], cfg.sam, 1)[0]
+    pts = torch.from_numpy(build_point_grid(8) * np.float32([sample.rw, sample.rh])).cuda()[:, None, :]
+    labels = torch.ones((64, 1), device="cuda")
+    per_route = {"default": [], "switches at 0": []}
+    chunk = {"default": [], "switches at 0": []}
+    for route in ("default", "switches at 0", "switches at 0", "default"):
+        for k in DECODER_SWITCHES:
+            if route == "default":
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = "0"
+        chunk[route].append(time_ms(lambda: predict_points(p_sam, emb, pts, labels, cfg.sam, True, pe=pe, dense=dense),
+                                    reps=5))
+        state = pipe.init_state()
+        for smp in samples[1:3]:
+            per_route[route].append(_wall_ms(lambda: pipe.run_image(smp, state))[0])
+    for k in DECODER_SWITCHES:
+        os.environ.pop(k, None)
+    for route in per_route:
+        log(f"  RefCOCO route {route}: median {statistics.median(per_route[route]):.1f} ms/img "
+            f"({[round(t, 1) for t in per_route[route]]}); decoder chunk of 64 points "
+            f"{[round(t, 2) for t in chunk[route]]} ms")
+
+
+def phase_multicrop_stages(pipe, samples):
+    """Stage times of one PhraseCut image: the five encoder passes, pass 1
+    (full-image crop: 64 chunks; one layer-1 crop: 16 chunks), the pass-2
+    re-decode of P = 128 survivors, and the whole proposal and scoring stages."""
+    import torch
+
+    from hybridgl_tpu_torch.models.sam import amg
+    from hybridgl_tpu_torch.models.sam.decoder import predict_masks
+    from hybridgl_tpu_torch.models.sam.prompt_encoder import dense_pe, embed_points, no_mask_dense
+    from hybridgl_tpu_torch.models.sam.sam import encode, preprocess_padded
+
+    cfg, p_sam = pipe.cfg, pipe.sam_params
+    sample = samples[1]
+    x = preprocess_padded(torch.from_numpy(sample.image_1024).cuda(), (sample.rh, sample.rw), cfg.sam)
+    stages = {"encoder, one frame (x5 per image)": _wall_ms(lambda: encode(p_sam, x, cfg.sam))[0]}
+    emb = encode(p_sam, x, cfg.sam)
+    hw = (sample.h, sample.w)
+    full_grid = amg.build_point_grid(cfg.amg.points_per_side)
+    crop_grid = amg.build_point_grid(cfg.amg.points_per_side // cfg.amg.crop_n_points_downscale_factor)
+    cy0, cx0, ch, cw = amg._crop_boxes_layer1(*hw, cfg.amg.crop_overlap_ratio)[3]
+    for name, grid, origin, extent, rhw in (
+        ("pass 1, full-image crop (64 chunks)", full_grid, (0, 0), hw, (sample.rh, sample.rw)),
+        ("pass 1, one layer-1 crop (16 chunks, x4 per image)", crop_grid, (cy0, cx0), (ch, cw), (sample.rh, sample.rw)),
+    ):
+        stages[name] = _wall_ms(lambda: amg._score_candidates(p_sam, emb, grid, origin, extent, rhw, hw, cfg.sam,
+                                                              cfg.amg, cfg.canonical_size))[0]
+    P, g = cfg.amg.max_proposals, cfg.sam.embed_grid
+    coords = torch.rand((P, 1, 2), device="cuda") * 1000
+    sparse = embed_points(p_sam["prompt"], coords, torch.ones((P, 1), device="cuda"), cfg.sam)
+    dense = emb[None].expand(P, g, g, -1) + no_mask_dense(p_sam["prompt"], cfg.sam, P)
+    pe = dense_pe(p_sam["prompt"], cfg.sam)
+    redecode = lambda: predict_masks(p_sam["decoder"], torch.zeros_like(emb), pe, sparse, cfg.sam,  # noqa: E731
+                                     dense_prompts=dense, multimask_output=True)
+    redecode()
+    stages[f"pass 2 re-decode, P = {P} (K7 + K8 + K4)"] = _wall_ms(redecode)[0]
+    for _ in range(2):  # the second pass is kept
+        t_prop, props = _wall_ms(lambda: pipe.propose(sample))
+        t_score, _ = _wall_ms(lambda: pipe._score_image(sample, props, pipe.init_state()))
+    stages["proposals (5 encoder passes + multicrop AMG + cleanup)"] = t_prop
+    stages[f"features + sentences (live bucket {props.masks.shape[0]})"] = t_score
+    for k, v in stages.items():
+        log(f"  PhraseCut stage {k}: {v:.1f} ms")
+
+
 def main(argv):
     card = phase_environment()
     phase_build()
     results = phase_kernels()
+    from hybridgl_tpu.core.config import AMG_PHRASECUT, AMG_REFCOCO
     from hybridgl_tpu_torch.kernels import launch_counts, reset_launch_counts
 
     phase_small_parity()
-    reset_launch_counts()  # the main path's count starts here
-    pipe, samples = phase_pipeline()
-    counts = launch_counts()
-    missing = [k for k, v in counts.items() if v == 0]
-    if missing:
-        fail(f"kernels of the main path never launched: {missing}")
+    weights = full_width_weights()
+    counts, paths = {}, {}
+    # each main path: the counts are set to 0 just before it and read just after
+    for tag, amg, canonical, n_images, mins in (
+        ("RefCOCO", AMG_REFCOCO, 640, 3, MIN_LAUNCHES_PER_IMAGE),
+        ("PhraseCut", AMG_PHRASECUT, 1024, 2, MIN_LAUNCHES_PER_PHRASECUT_IMAGE),
+    ):
+        reset_launch_counts()
+        paths[tag] = phase_pipeline(tag, amg, canonical, n_images, mins, weights)
+        counts[tag] = launch_counts()
+        missing = [k for k in mins if counts[tag][k] == 0]
+        if missing:
+            fail(f"kernels of the {tag} path never launched: {missing}")
     if "--profile" in argv:  # opt-in: CUPTI tracing is not part of the contract run
-        phase_profile(pipe, samples)
+        phase_profile(*paths["RefCOCO"])
+        phase_routes(*paths["RefCOCO"])
+        phase_multicrop_stages(*paths["PhraseCut"])
 
     import torch
 
@@ -477,7 +764,7 @@ def main(argv):
     for name, (source, replaces) in KERNELS.items():
         kernels.append(
             dict(name=name, route="cuda", source=source, replaces=replaces,
-                 launches=counts[name], **results[name])
+                 launches=sum(c[name] for c in counts.values()), **results[name])
         )
     log(card)
     print(json.dumps({"kernels": kernels}))

@@ -1,6 +1,7 @@
 """Kernels of the port.
 
-``flash_attention``, ``clip_attention`` and ``pass1_stats`` wrap the
+``flash_attention``, ``clip_attention``, ``pass1_stats``, ``decoder_attn``,
+``decoder_attn_t2i``, ``decoder_pass`` and ``upscale_hyper`` wrap the
 hand-written CUDA kernels in ``csrc/`` (built by ``_build``); the other
 modules are the plain tensor primitives the reference wrote as XLA.
 
@@ -14,14 +15,22 @@ from __future__ import annotations
 def kernel_wrappers():
     """{name: wrapper} for every CUDA kernel of the main path."""
     from .clip_attention import clip_attention
+    from .decoder_attn import i2t_ln_update
+    from .decoder_attn_t2i import t2i_ctx
+    from .decoder_pass import i2t_ln_then_t2i
     from .flash_attention import flash_attention_fused, flash_windowed_fused
     from .pass1_stats import pass1_stats_half
+    from .upscale_hyper import upscale_hyper
 
     return {
         "flash_windowed_fused": flash_windowed_fused,
         "flash_attention_fused": flash_attention_fused,
         "pass1_stats_half": pass1_stats_half,
         "clip_attention": clip_attention,
+        "i2t_ln_then_t2i": i2t_ln_then_t2i,
+        "upscale_hyper_blocked": upscale_hyper,
+        "i2t_ln_update": i2t_ln_update,
+        "t2i_ctx": t2i_ctx,
     }
 
 

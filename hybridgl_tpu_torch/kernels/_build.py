@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into one
-shared library with a plain C interface, and loaded with ``ctypes``. No
-PyTorch headers are involved, so a cold build takes seconds. The build runs
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` for ``sm_90a``, all
+at once, and the objects are linked into one shared library with a plain C
+interface, loaded with ``ctypes``. No PyTorch headers are involved, so a
+cold build takes seconds. The build runs
 at the first CUDA launch, from the package's own sources, into
 ``hybridgl_tpu_torch/_build/``; the library name carries a hash of the
 sources, so an edited source is rebuilt and a stale library is never
@@ -28,7 +29,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 _lib: Optional[ctypes.CDLL] = None
@@ -39,6 +40,8 @@ _SIGNATURES = {
     "hgl_rel_pos_attention": [_vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _f, _i, _vp],
     "hgl_cls_attention": [_vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _f, _i, _vp],
     "hgl_pass1_stats": [_vp, _vp, _i, _i, _i, _f, _f, _f, _f, _f, _f, _vp, _vp, _vp, _i, _vp],
+    "hgl_decoder_attn": [_i] + [_vp] * 15 + [_i] * 13 + [_vp],
+    "hgl_upscale_hyper": [_vp] * 9 + [_i] * 9 + [_vp],
 }
 
 
@@ -73,12 +76,25 @@ def build() -> Path:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
+    nvcc = nvcc_path()
+    objs = [out.with_suffix(f".{src.stem}.{os.getpid()}.o") for src in sources()]
     t0 = time.perf_counter()
-    done = subprocess.run(cmd, capture_output=True, text=True)
-    (BUILD_DIR / "build.log").write_text(" ".join(cmd) + "\n" + done.stdout + done.stderr)
-    if done.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({done.returncode}):\n{done.stderr[-4000:]}")
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)] for src, obj in zip(sources(), objs)]
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for cmd in cmds]
+    outputs = [proc.communicate()[0] for proc in procs]
+    log = [" ".join(cmd) + "\n" + text for cmd, text in zip(cmds, outputs)]
+    failed = [text for proc, text in zip(procs, outputs) if proc.returncode != 0]
+    if not failed:
+        link = [nvcc, "-shared", "-gencode", "arch=compute_90a,code=sm_90a", "-o", str(tmp), *map(str, objs)]
+        done = subprocess.run(link, capture_output=True, text=True)
+        log.append(" ".join(link) + "\n" + done.stdout + done.stderr)
+        if done.returncode != 0:
+            failed.append(done.stderr)
+    (BUILD_DIR / "build.log").write_text("\n".join(log))
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(f[-4000:] for f in failed))
     os.replace(tmp, out)  # atomic: a concurrent build of the same sources is harmless
     build_seconds = time.perf_counter() - t0
     return out

@@ -59,6 +59,40 @@ def resize_bilinear(img: torch.Tensor, out_hw, src_hw=None, axis: int = 0) -> to
     return top + (bot - top) * wyb
 
 
+def place_region(img: torch.Tensor, src_hw, out_frame, dst_origin, dst_hw, fill=0.0, src_origin=(0, 0)):
+    """Resize img[sy0:sy0+sh, sx0:sx0+sw] to (dh, dw) placed at (y0, x0) of a
+    fill-padded (OH, OW) frame (reference :187): multicrop AMG cuts each crop
+    from the canonical frame and long-side-resizes it with this."""
+    OH, OW = out_frame
+    dev = img.device
+    y0, x0, dh, dw, sh, sw, sy0, sx0 = (
+        _f32(v, dev) for v in (*dst_origin, *dst_hw, *src_hw, *src_origin)
+    )
+
+    def coords(n, o, d, s, so):
+        i = torch.arange(n, dtype=torch.float32, device=dev)
+        c = so + torch.minimum(torch.clamp((i - o + 0.5) * (s / d) - 0.5, min=0.0), s - 1.0)
+        lo = torch.floor(c).long()
+        hi = torch.minimum(lo + 1, (so + s).long() - 1)
+        return i, lo, hi, c - lo
+
+    i, ylo, yhi, wy = coords(OH, y0, dh, sh, sy0)
+    j, xlo, xhi, wx = coords(OW, x0, dw, sw, sx0)
+    compute = img if img.is_floating_point() else img.float()
+    trail = (1,) * (img.ndim - 2)
+    wxb = wx.reshape((1, OW) + trail)
+
+    def lerp_rows(rows):
+        left = rows.index_select(1, xlo)
+        return left + (rows.index_select(1, xhi) - left) * wxb
+
+    top = lerp_rows(compute.index_select(0, ylo))
+    bot = lerp_rows(compute.index_select(0, yhi))
+    out = top + (bot - top) * wy.reshape((OH, 1) + trail)
+    inside = ((i >= y0) & (i < y0 + dh))[:, None] & ((j >= x0) & (j < x0 + dw))[None, :]
+    return torch.where(inside.reshape((OH, OW) + trail), out, torch.as_tensor(fill, dtype=out.dtype, device=dev))
+
+
 def _resample_weights(out_frame: int, in_frame: int, in_extent, out_extent, antialias: bool, device):
     """Dense [out_frame, in_frame] 1-D resampling matrix (reference :247)."""
     i = torch.arange(out_frame, dtype=torch.float32, device=device)[:, None]

@@ -6,13 +6,27 @@ token->image cross-attention, MLP, image->token cross-attention} layers with
 attention downsample rate 2, a final token->image attention, 4x
 transposed-conv upscaling and per-token hypernetwork MLPs.
 
-This is the reference's plain path (what it runs with
-``HYBRIDGL_FUSED_PASS/I2T/T2I/UPSCALE=0``): the shared-image layer 0
-(decoder.py:741-797), the later layers (:799-864) and the upscale +
-hypernetwork tail (:1013-1030). The reference's side-switched attention
-forms, prepared weight products and blocked layouts are TPU work savers,
-not semantics, and are left out: attention here is the standard projected
-form.
+Routes, chosen by the reference's four switches (default ON; ``=0`` opts
+out), exactly as decoder.py:737-864, 981 choose them:
+
+  * ``HYBRIDGL_FUSED_PASS``: the shared-image transformer runs as two fused
+    layer passes (K3, ``kernels/decoder_pass.py``), each an i2t + norm4
+    sweep that also accumulates the next t2i (_two_way_fused_passes);
+  * ``HYBRIDGL_FUSED_I2T``: every image->token update + norm4 is K7
+    (``kernels/decoder_attn.py``);
+  * ``HYBRIDGL_FUSED_T2I``: every token->image attention on the per-prompt
+    stream is K8 (``kernels/decoder_attn_t2i.py``);
+  * ``HYBRIDGL_FUSED_UPSCALE``: the upscale + hypernetwork tail is K4
+    (``kernels/upscale_hyper.py``).
+
+The kernels take the reference's side-switched operands: the image-side
+projections are folded onto the ~7 prompt tokens (_i2t_prep_generic,
+_i2t_prep_shared_q, _t2i_qw), so the [B, g*g, C] image stream is only read
+by the kernels. Those token-side operand functions are tiny einsums in plain torch,
+as in the reference. With a switch off, its stage runs the standard
+projected attention form (or the plain upscale chain). The reference's
+serving-time weight hoisting (prepare_decoder_params) and its TPU layouts
+(blocked masks, kron-expanded weights) are not ported.
 """
 
 from __future__ import annotations
@@ -21,7 +35,12 @@ import torch
 import torch.nn.functional as F
 
 from hybridgl_tpu.core.config import SamConfig
+from hybridgl_tpu.utils.env import env_flag
 
+from ...kernels.decoder_attn import i2t_ln_update
+from ...kernels.decoder_attn_t2i import t2i_ctx
+from ...kernels.decoder_pass import i2t_ln_then_t2i
+from ...kernels.upscale_hyper import upscale_hyper
 from .image_encoder import layer_norm_2d
 
 LN_EPS = 1e-5  # decoder transformer norms are default torch LayerNorm
@@ -64,6 +83,184 @@ def _mlp_relu(p_fc, p_proj, x):
     return _lin(p_proj, torch.relu(_lin(p_fc, x)))
 
 
+def use_fused_pass() -> bool:
+    """Fused layer passes (K3); opt out with $HYBRIDGL_FUSED_PASS=0."""
+    return env_flag("HYBRIDGL_FUSED_PASS", default=True)
+
+
+def use_fused_i2t() -> bool:
+    """Fused image->token update + norm4 (K7); opt out with $HYBRIDGL_FUSED_I2T=0."""
+    return env_flag("HYBRIDGL_FUSED_I2T", default=True)
+
+
+def use_fused_t2i() -> bool:
+    """Flash token->image attention (K8); opt out with $HYBRIDGL_FUSED_T2I=0."""
+    return env_flag("HYBRIDGL_FUSED_T2I", default=True)
+
+
+def use_fused_upscale() -> bool:
+    """Fused upscale + hypernetwork tail (K4); opt out with $HYBRIDGL_FUSED_UPSCALE=0."""
+    return env_flag("HYBRIDGL_FUSED_UPSCALE", default=True)
+
+
+def _tp_for(T: int) -> int:
+    """Padded tokens per head group (>= T, a power of two, at least 8)."""
+    tp = 8
+    while tp < T:
+        tp *= 2
+    return tp
+
+
+def _heads_w(p_lin, num_heads: int):
+    """Projection weight/bias in the per-head view: [C, heads, hd], [heads, hd]."""
+    C, D = p_lin["w"].shape
+    return p_lin["w"].reshape(C, num_heads, D // num_heads), p_lin["b"].reshape(num_heads, D // num_heads)
+
+
+def _prep_t2i(p, num_heads: int):
+    """Token->image site (reference decoder.py:156): score weights
+    A = W_q W_k^T and bias a = b_q W_k^T (scale folded; b_k cancels in the
+    softmax), readout wvo = W_v W_out and const = b_v W_out + b_out."""
+    wq, bq = _heads_w(p["q"], num_heads)
+    wk, _ = _heads_w(p["k"], num_heads)
+    scale = wq.shape[-1] ** -0.5
+    A = torch.einsum("chd,ehd->hce", wq.float(), wk.float()) * scale
+    a = torch.einsum("hd,ehd->he", bq.float(), wk.float()) * scale
+    wv, bv = _heads_w(p["v"], num_heads)
+    wo = p["out"]["w"].reshape(num_heads, wq.shape[-1], -1).float()
+    wvo = torch.einsum("chd,hde->hce", wv.float(), wo)
+    const = torch.einsum("hd,hde->e", bv.float(), wo) + p["out"]["b"].float()
+    dt = p["q"]["w"].dtype
+    return {
+        "score_w": A.permute(1, 0, 2).reshape(A.shape[1], -1).to(dt),  # [C, h*C]
+        "score_b": a.reshape(-1),
+        "wvo_flat": wvo.reshape(-1, wvo.shape[-1]).to(dt),  # [h*C, C]
+        "const": const,
+    }
+
+
+def _t2i_qw(p, q_tok, num_heads: int):
+    """The t2i score weights in the kernel layout, QW [B, C, heads*tp] f32
+    (zero on the padding columns), plus the epilogue's (wvo, const, T, tp)."""
+    prep = _prep_t2i(p, num_heads)
+    B, T = q_tok.shape[:2]
+    sw = prep["score_w"]
+    qw = torch.matmul(q_tok.to(sw.dtype).float(), sw.float()) + prep["score_b"]
+    qw = qw.reshape(B, T, num_heads, -1).permute(0, 2, 1, 3)  # [B, h, T, C]
+    tp = _tp_for(T)
+    qw = F.pad(qw, (0, 0, 0, tp - T))
+    QW = qw.permute(0, 3, 1, 2).reshape(B, qw.shape[-1], num_heads * tp)
+    return QW, prep["wvo_flat"], prep["const"], T, tp
+
+
+def _t2i_epilogue(ctx, wvo_flat, const, T: int, tp: int, num_heads: int, dt):
+    """ctx [B, heads*tp, C] f32 -> the attention output [B, T, C]."""
+    B, _, C = ctx.shape
+    ctx = ctx.reshape(B, num_heads, tp, C)[:, :, :T].permute(0, 2, 1, 3).to(dt).reshape(B, T, num_heads * C)
+    return ctx @ wvo_flat.to(dt) + const.to(dt)
+
+
+def _t2i_fused(p, q_tok, keys, pe, num_heads: int):
+    """Token->image attention through K8 (reference decoder.py:534)."""
+    QW, wvo, const, T, tp = _t2i_qw(p, q_tok, num_heads)
+    return _t2i_epilogue(t2i_ctx(keys, pe, QW), wvo, const, T, tp, num_heads, q_tok.dtype)
+
+
+def _i2t_prep_generic(p, k_tok, v_tok, num_heads: int, tp: int):
+    """(w [B, C, GT], off [B, GT], vo [B, GT, C], const [C]) f32 for the
+    image->token site whose score side is the unprojected kpe: the query
+    projection folded onto the token keys, scale folded in, the token axis
+    padded to tp per head with off = -1e30 (reference decoder.py:547)."""
+    kh, vh = _lin(p["k"], k_tok), _lin(p["v"], v_tok)
+    B, T, D = kh.shape
+    hd = D // num_heads
+    kh = kh.reshape(B, T, num_heads, hd).float()
+    wq, bq = _heads_w(p["q"], num_heads)
+    wk = torch.einsum("chd,bthd->bhtc", wq.float(), kh) * hd**-0.5
+    off = torch.einsum("hd,bthd->bht", bq.float(), kh) * hd**-0.5
+    wo = p["out"]["w"].reshape(num_heads, hd, -1).float()
+    vo = torch.einsum("bthd,hde->bhte", vh.reshape(B, T, num_heads, hd).float(), wo)
+    pad = tp - T
+    w = F.pad(wk, (0, 0, 0, pad)).permute(0, 3, 1, 2).reshape(B, k_tok.shape[-1], num_heads * tp)
+    off = F.pad(off, (0, pad), value=-1e30).reshape(B, num_heads * tp)
+    vo = F.pad(vo, (0, 0, 0, pad)).reshape(B, num_heads * tp, -1)
+    return w, off, vo, p["out"]["b"].float()
+
+
+def _i2t_prep_shared_q(p, k_tok, v_tok, num_heads: int, tp: int):
+    """The same operands for the layer-0 site whose score side is the once-
+    projected image queries: w is the block-diagonal per-head key projection
+    (reference decoder.py:584)."""
+    kh, vh = _lin(p["k"], k_tok), _lin(p["v"], v_tok)
+    B, T, D = kh.shape
+    hd = D // num_heads
+    kh = kh.reshape(B, T, num_heads, hd).float() * hd**-0.5
+    eye = torch.eye(num_heads, dtype=torch.float32, device=kh.device)
+    w = F.pad(torch.einsum("btnd,nm->bndmt", kh, eye), (0, tp - T)).reshape(B, D, num_heads * tp)
+    off = torch.zeros((B, num_heads, tp), dtype=torch.float32, device=kh.device)
+    off[:, :, T:] = -1e30
+    wo = p["out"]["w"].reshape(num_heads, hd, -1).float()
+    vo = torch.einsum("btnd,nde->bnte", vh.reshape(B, T, num_heads, hd).float(), wo)
+    vo = F.pad(vo, (0, 0, 0, tp - T)).reshape(B, num_heads * tp, -1)
+    return w, off.reshape(B, num_heads * tp), vo, p["out"]["b"].float()
+
+
+def _layer0_tokens(layer0, point_embedding, k_img, image_embedding, h: int):
+    """Layer 0 up to norm3 on the token side; its t2i attends the shared image.
+    Layer 0 REPLACES queries with the self-attention output, no residual
+    (reference transformer.py:155-156, skip_first_layer_pe)."""
+    queries = _attn(layer0["self_attn"], point_embedding, point_embedding, point_embedding, h)
+    queries = _ln(layer0["norm1"], queries)
+    queries = queries + _attn(layer0["cross_t2i"], queries + point_embedding, k_img, image_embedding, h)
+    queries = _ln(layer0["norm2"], queries)
+    queries = queries + _mlp_relu(layer0["mlp_fc"], layer0["mlp_proj"], queries)
+    return _ln(layer0["norm3"], queries)
+
+
+def _two_way_fused_passes(p, image_embedding, image_pe, point_embedding, cfg: SamConfig):
+    """two_way_transformer(shared_image=True) as fused layer passes (K3,
+    reference decoder.py:617): layer i's i2t + norm4 sweep also accumulates
+    layer i+1's (or the final attention's) t2i, whose query side (the next
+    layer's self-attention and norm1) is token work done before the pass."""
+    h = cfg.decoder_heads
+    layers = p["layers"]
+    dt = point_embedding.dtype
+    k_img = image_embedding + image_pe
+    queries = _layer0_tokens(layers[0], point_embedding, k_img, image_embedding, h)
+    tp = _tp_for(queries.shape[1])
+    pe_b = image_pe[None].to(dt).contiguous()
+    keys = None
+    for i, layer in enumerate(layers):
+        q = queries + point_embedding
+        if i == 0:
+            p0 = layer["cross_i2t"]
+            w, off, vo, const = _i2t_prep_shared_q(p0, q, queries, h, tp)
+            qside = _lin(p0["q"], k_img.to(dt))[None].contiguous()  # projected once
+            base, shared = image_embedding[None].to(dt).contiguous(), True
+        else:
+            w, off, vo, const = _i2t_prep_generic(layer["cross_i2t"], q, queries, h, tp)
+            qside, base, shared = keys, keys, False
+        if i + 1 < len(layers):
+            nxt = layers[i + 1]
+            qn = queries + point_embedding
+            queries_n = _ln(nxt["norm1"], queries + _attn(nxt["self_attn"], qn, qn, queries, h))
+            t2i = nxt["cross_t2i"]
+        else:
+            queries_n, t2i = queries, p["final_attn"]
+        QW, wvo, const_t, T, tp2 = _t2i_qw(t2i, queries_n + point_embedding, h)
+        keys, ctx = i2t_ln_then_t2i(qside, base, pe_b, w, off, vo, const, layer["norm4"]["scale"],
+                                    layer["norm4"]["bias"], QW, h, tp, shared_qside=shared)
+        queries_n = queries_n + _t2i_epilogue(ctx, wvo, const_t, T, tp2, h, dt)
+        if i + 1 < len(layers):
+            queries_n = _ln(nxt["norm2"], queries_n)
+            queries_n = queries_n + _mlp_relu(nxt["mlp_fc"], nxt["mlp_proj"], queries_n)
+            queries_n = _ln(nxt["norm3"], queries_n)
+        else:
+            queries_n = _ln(p["norm_final"], queries_n)
+        queries = queries_n
+    return queries, keys
+
+
 def two_way_transformer(p, image_embedding, image_pe, point_embedding, cfg: SamConfig, shared_image: bool = False):
     """Returns (queries [B, T, C], keys [B, g*g, C]) (transformer.py:62-106).
 
@@ -73,32 +270,31 @@ def two_way_transformer(p, image_embedding, image_pe, point_embedding, cfg: SamC
     image->token output. Same math as the batched path."""
     h = cfg.decoder_heads
     queries = point_embedding
+    if shared_image and use_fused_pass():
+        return _two_way_fused_passes(p, image_embedding, image_pe, point_embedding, cfg)
     if shared_image:
         layer0 = p["layers"][0]
-        # layer 0 REPLACES queries with the self-attention output — no
-        # residual (reference transformer.py:155-156, skip_first_layer_pe)
-        queries = _attn(layer0["self_attn"], queries, queries, queries, h)
-        queries = _ln(layer0["norm1"], queries)
-
-        q = queries + point_embedding
         k_img = image_embedding + image_pe  # [g*g, C], shared
-        queries = queries + _attn(layer0["cross_t2i"], q, k_img, image_embedding, h)
-        queries = _ln(layer0["norm2"], queries)
-        queries = queries + _mlp_relu(layer0["mlp_fc"], layer0["mlp_proj"], queries)
-        queries = _ln(layer0["norm3"], queries)
-
-        # image -> token: the shared image queries broadcast against the
-        # per-prompt token keys/values
+        queries = _layer0_tokens(layer0, point_embedding, k_img, image_embedding, h)
         q = queries + point_embedding
         pi = layer0["cross_i2t"]
-        out = _sdpa(_lin(pi["q"], k_img)[None], _lin(pi["k"], q), _lin(pi["v"], queries), h)
-        keys = image_embedding[None] + _lin(pi["out"], out)
-        keys = _ln(layer0["norm4"], keys)
+        if use_fused_i2t():
+            # K7 over the once-projected shared image queries
+            tp = _tp_for(q.shape[1])
+            w, off, vo, const = _i2t_prep_shared_q(pi, q, queries, h, tp)
+            qproj = _lin(pi["q"], k_img.to(queries.dtype))[None].contiguous()
+            keys = i2t_ln_update(qproj, image_embedding[None].to(queries.dtype).contiguous(), w, off, vo, const,
+                                 layer0["norm4"]["scale"], layer0["norm4"]["bias"], h, tp)
+        else:
+            # the shared image queries broadcast against the per-prompt tokens
+            out = _sdpa(_lin(pi["q"], k_img)[None], _lin(pi["k"], q), _lin(pi["v"], queries), h)
+            keys = _ln(layer0["norm4"], image_embedding[None] + _lin(pi["out"], out))
         image_pe = image_pe[None]
         layers, first = p["layers"][1:], 1
     else:
         keys = image_embedding
         layers, first = p["layers"], 0
+    image_pe = image_pe.contiguous()
 
     for i, layer in enumerate(layers, first):
         if i == 0:
@@ -109,20 +305,29 @@ def two_way_transformer(p, image_embedding, image_pe, point_embedding, cfg: SamC
         queries = _ln(layer["norm1"], queries)
 
         q = queries + point_embedding
-        kpe = keys + image_pe
-        queries = queries + _attn(layer["cross_t2i"], q, kpe, keys, h)
+        if use_fused_t2i():
+            queries = queries + _t2i_fused(layer["cross_t2i"], q, keys, image_pe, h)
+        else:
+            queries = queries + _attn(layer["cross_t2i"], q, keys + image_pe, keys, h)
         queries = _ln(layer["norm2"], queries)
         queries = queries + _mlp_relu(layer["mlp_fc"], layer["mlp_proj"], queries)
         queries = _ln(layer["norm3"], queries)
 
         q = queries + point_embedding
-        kpe = keys + image_pe
-        keys = keys + _attn(layer["cross_i2t"], kpe, q, queries, h)
-        keys = _ln(layer["norm4"], keys)
+        if use_fused_i2t():
+            tp = _tp_for(q.shape[1])
+            w, off, vo, const = _i2t_prep_generic(layer["cross_i2t"], q, queries, h, tp)
+            keys = i2t_ln_update(keys, keys, w, off, vo, const, layer["norm4"]["scale"], layer["norm4"]["bias"],
+                                 h, tp, pe=image_pe)
+        else:
+            kpe = keys + image_pe
+            keys = _ln(layer["norm4"], keys + _attn(layer["cross_i2t"], kpe, q, queries, h))
 
     q = queries + point_embedding
-    kpe = keys + image_pe
-    queries = queries + _attn(p["final_attn"], q, kpe, keys, h)
+    if use_fused_t2i():
+        queries = queries + _t2i_fused(p["final_attn"], q, keys, image_pe, h)
+    else:
+        queries = queries + _attn(p["final_attn"], q, keys + image_pe, keys, h)
     queries = _ln(p["norm_final"], queries)
     return queries, keys
 
@@ -175,18 +380,22 @@ def predict_masks(p_dec, image_embedding, image_pe, sparse_prompts, cfg: SamConf
 
     # upscale 4x (mask_decoder.py:53-59): both transposed convs have kernel
     # == stride == 2, so each is a per-pixel matmul onto a 2x2 sub-grid
-    u1, u2 = p_dec["upscale"]["deconv1"], p_dec["upscale"]["deconv2"]
+    u1, u2, ln = p_dec["upscale"]["deconv1"], p_dec["upscale"]["deconv2"], p_dec["upscale"]["ln"]
     c4, c8 = u1["w"].shape[-1], u2["w"].shape[-1]
     w1 = u1["w"].permute(2, 0, 1, 3).reshape(C, 4 * c4).to(dt)  # [C, (i j c4)]
     w2 = u2["w"].permute(2, 0, 1, 3).reshape(c4, 4 * c8).to(dt)  # [c4, (e f c8)]
-    x = src.reshape(B, g, g, C) @ w1
-    x = x.reshape(B, g, g, 2, 2, c4) + u1["b"].to(dt)
-    x = layer_norm_2d(p_dec["upscale"]["ln"], x)
-    x = F.gelu(x, approximate="none")
-    x = (x @ w2).reshape(B, g, g, 2, 2, 2, 2, c8) + u2["b"].to(dt)
-    x = F.gelu(x, approximate="none")  # [b, h, w, i, j, e, f, c]
-    # rows are (h, i, e) -> 4h+2i+e, cols (w, j, f) -> 4w+2j+f
-    masks = torch.einsum("bmc,bhwijefc->bmhiewjf", hyper.float(), x.float())
-    masks = masks.reshape(B, n_sel, 4 * g, 4 * g)
+    if use_fused_upscale():
+        masks = upscale_hyper(src.reshape(B, g * g, C).contiguous(), w1, u1["b"], ln["scale"], ln["bias"], w2,
+                              u2["b"], hyper)
+    else:
+        x = src.reshape(B, g, g, C) @ w1
+        x = x.reshape(B, g, g, 2, 2, c4) + u1["b"].to(dt)
+        x = layer_norm_2d(ln, x)
+        x = F.gelu(x, approximate="none")
+        x = (x @ w2).reshape(B, g, g, 2, 2, 2, 2, c8) + u2["b"].to(dt)
+        x = F.gelu(x, approximate="none")  # [b, h, w, i, j, e, f, c]
+        # rows are (h, i, e) -> 4h+2i+e, cols (w, j, f) -> 4w+2j+f
+        masks = torch.einsum("bmc,bhwijefc->bmhiewjf", hyper.float(), x.float())
+        masks = masks.reshape(B, n_sel, 4 * g, 4 * g)
     iou_pred = _mlp_stack(p_dec["iou_head"], iou_token_out).float()
     return masks, iou_pred[:, sel]

@@ -1,8 +1,10 @@
 """End-to-end zero-shot referring segmentation (port of hybridgl_tpu/pipeline/runner.py).
 
 Per image:
-  proposal stage  SAM encoder + single-crop AMG (models/sam/amg.py), then
-                  the host small-region cleanup (pipeline/postprocess.py)
+  proposal stage  SAM encoder + AMG (models/sam/amg.py: single crop for
+                  RefCOCO, one crop layer for PhraseCut, chosen by
+                  cfg.amg.crop_n_layers), then the host small-region cleanup
+                  (pipeline/postprocess.py)
   feature stage   crops (pipeline/preprocess.py) -> G2L fusion features
                   (models/clip/fusion.py) -> GEM patch features
   sentence stage  text encoding (+ noun-phrase ensemble and negatives) ->
@@ -33,7 +35,7 @@ from ..kernels.resize import place_valid_region_antialias, resize_bilinear, vali
 from ..models.clip.fusion import calculate_score, hybrid_forward
 from ..models.clip.text import encode_text
 from ..models.gem.gem import gem_image_features, gem_preprocess
-from ..models.sam.amg import Proposals, generate_proposals
+from ..models.sam.amg import Proposals, generate_proposals, generate_proposals_multicrop
 from .guidance import dir_flag_id, gem_mask_scores, normalize_heatmap, rela_flag_id, select_candidates
 from .postprocess import postprocess_small_regions
 from .preprocess import build_crops
@@ -79,8 +81,8 @@ def _next_pow2(n: int, base: int = 8) -> int:
 
 class HybridGLPipeline:
     def __init__(self, cfg: PipelineConfig, sam_params, clip_params, parser: Optional[ExpressionParser] = None, tokenizer=None, device=None):
-        if cfg.amg.crop_n_layers != 0:
-            raise NotImplementedError("multicrop AMG (crop_n_layers >= 1) is not ported yet; see ROADMAP.md")
+        if cfg.amg.crop_n_layers > 1:
+            raise NotImplementedError("AMG with more than one crop layer is not supported (nor by the reference)")
         if cfg.fusion_mode != "G2L":
             raise NotImplementedError(f"fusion mode {cfg.fusion_mode!r} is not ported yet; see ROADMAP.md")
         self.cfg = cfg
@@ -107,17 +109,24 @@ class HybridGLPipeline:
         """SAM proposals + the host small-region cleanup, which the reference
         applies whenever min_mask_region_area > 0 (automatic_mask_generator.py:166-171)."""
         cfg = self.cfg
-        props = generate_proposals(
-            self.sam_params,
-            torch.from_numpy(np.asarray(sample.image_1024)).to(self.device),
-            sample.rh, sample.rw, sample.h, sample.w,
-            cfg.sam, cfg.amg, cfg.canonical_size,
-        )
+        image_1024 = torch.from_numpy(np.asarray(sample.image_1024)).to(self.device)
+        if cfg.amg.crop_n_layers >= 1:
+            image_c = torch.from_numpy(np.asarray(sample.image_canonical)).to(self.device)
+            props = generate_proposals_multicrop(
+                self.sam_params, image_1024, sample.rh, sample.rw, image_c, sample.h, sample.w,
+                cfg.sam, cfg.amg, cfg.canonical_size,
+            )
+        else:
+            props = generate_proposals(
+                self.sam_params, image_1024, sample.rh, sample.rw, sample.h, sample.w,
+                cfg.sam, cfg.amg, cfg.canonical_size,
+            )
         if props.overflow > 0 and not self._warned_overflow:
             # the reference keeps every NMS survivor; a full bucket drops some
             warnings.warn(
                 f"proposal bucket overflow: {props.overflow} NMS survivor(s) dropped "
-                f"(max_proposals={cfg.amg.max_proposals})",
+                f"(max_proposals={cfg.amg.max_proposals}, "
+                f"max_candidates_per_crop={cfg.amg.max_candidates_per_crop})",
                 stacklevel=2,
             )
             self._warned_overflow = True

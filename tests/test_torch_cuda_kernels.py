@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card,
-at small and ragged shapes (partial tiles, every supported head dim), in f32
-and bf16. Marked ``cuda``; each test skips where no CUDA card is present.
+at small and ragged shapes (partial tiles, every supported head dim; for the
+decoder kernels S = 300, tp in {8, 16}, heads in {2, 8}, Cq != C, B = 3), in
+f32 and bf16. Marked ``cuda``; each test skips where no CUDA card is present.
 Run on a machine with a card:
 
     python -m pytest tests/test_torch_cuda_kernels.py -m cuda -q
@@ -13,6 +14,9 @@ import pytest
 import torch
 
 from hybridgl_tpu_torch.kernels.clip_attention import clip_attention, reference_clip_attention
+from hybridgl_tpu_torch.kernels.decoder_attn import i2t_ln_update, reference_i2t_ln_update
+from hybridgl_tpu_torch.kernels.decoder_attn_t2i import reference_t2i_ctx, t2i_ctx
+from hybridgl_tpu_torch.kernels.decoder_pass import i2t_ln_then_t2i, reference_i2t_ln_then_t2i
 from hybridgl_tpu_torch.kernels.flash_attention import (
     flash_attention_fused,
     flash_windowed_fused,
@@ -20,6 +24,7 @@ from hybridgl_tpu_torch.kernels.flash_attention import (
 )
 from hybridgl_tpu_torch.kernels.pass1_stats import pass1_stats_half, reference_pass1_stats_half
 from hybridgl_tpu_torch.kernels.resize import _composed_axis_weights
+from hybridgl_tpu_torch.kernels.upscale_hyper import reference_upscale_hyper, upscale_hyper
 
 pytestmark = pytest.mark.cuda
 
@@ -86,6 +91,96 @@ def test_pass1_stats_half(dev, monkeypatch, bf16, window):
     assert float((r != r0).float().mean()) <= 0.01 and float((c != c0).float().mean()) <= 0.01
 
 
+DEC_B, DEC_S, DEC_C, DEC_T = 3, 300, 64, 7
+
+
+def dec_operands(dev, dtype, Cq, heads, tp, seed, GT2=None):
+    """Random decoder-kernel operands: image streams in ``dtype``, token-side
+    weights f32, off = -1e30 on the padding lanes t >= T."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def r(*shape, std=0.5):
+        return torch.randn(shape, generator=g, device=dev) * std
+
+    GT = heads * tp
+    off = r(DEC_B, heads, tp)
+    off[:, :, DEC_T:] = -1e30
+    return dict(w=r(DEC_B, Cq, GT, std=0.3), off=off.reshape(DEC_B, GT), vo=r(DEC_B, GT, DEC_C).to(dtype),
+                const=r(DEC_C), ln_scale=1.0 + r(DEC_C, std=0.1), ln_bias=r(DEC_C, std=0.1)), r
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("heads,tp", [(2, 8), (8, 16)])
+@pytest.mark.parametrize("site", ["generic_pe", "shared"])
+def test_i2t_ln_update(dev, dtype, heads, tp, site):
+    """K7 with pe on per-prompt keys, and at the shared site with broadcast
+    [1, S, .] qside/base and Cq = 32 != C = 64."""
+    Cq = DEC_C if site == "generic_pe" else 32
+    ops, r = dec_operands(dev, dtype, Cq, heads, tp, heads * tp)
+    if site == "generic_pe":
+        qside = r(DEC_B, DEC_S, DEC_C).to(dtype)
+        base, pe = qside, r(1, DEC_S, DEC_C).to(dtype)
+    else:
+        qside, base, pe = r(1, DEC_S, Cq).to(dtype), r(1, DEC_S, DEC_C).to(dtype), None
+    before = i2t_ln_update.launches
+    got = i2t_ln_update(qside, base, **ops, heads=heads, tp=tp, pe=pe)
+    assert i2t_ln_update.launches == before + 1
+    close(got, reference_i2t_ln_update(qside, base, **ops, heads=heads, tp=tp, pe=pe), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("GT,scale", [(16, 1.0), (128, 1.0), (64, 40.0)])
+def test_t2i_ctx(dev, dtype, GT, scale):
+    """K8, including scores x40 where the online softmax must hold."""
+    g = torch.Generator(device=dev).manual_seed(GT)
+    keys = (torch.randn((DEC_B, DEC_S, DEC_C), generator=g, device=dev) * 0.5).to(dtype)
+    pe = (torch.randn((1, DEC_S, DEC_C), generator=g, device=dev) * 0.5).to(dtype)
+    qw = torch.randn((DEC_B, DEC_C, GT), generator=g, device=dev) * 0.3 * scale
+    qw[:, :, 7::8] = 0.0  # padding columns
+    before = t2i_ctx.launches
+    got = t2i_ctx(keys, pe, qw)
+    assert t2i_ctx.launches == before + 1
+    close(got, reference_t2i_ctx(keys, pe, qw), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("heads,tp", [(2, 8), (8, 16)])
+@pytest.mark.parametrize("shared", [True, False])
+def test_i2t_ln_then_t2i(dev, dtype, heads, tp, shared):
+    """K3 in both modes: keys' and ctx against the plain version."""
+    Cq = 32 if shared else DEC_C
+    ops, r = dec_operands(dev, dtype, Cq, heads, tp, 7 * heads + tp)
+    qside = r(1 if shared else DEC_B, DEC_S, Cq).to(dtype)
+    base = r(1, DEC_S, DEC_C).to(dtype) if shared else qside
+    pe = r(1, DEC_S, DEC_C).to(dtype)
+    qw = r(DEC_B, DEC_C, heads * tp, std=0.3)
+    before = i2t_ln_then_t2i.launches
+    keys, ctx = i2t_ln_then_t2i(qside, base, pe, **ops, qw_next=qw, heads=heads, tp=tp, shared_qside=shared)
+    assert i2t_ln_then_t2i.launches == before + 1
+    keys0, ctx0 = reference_i2t_ln_then_t2i(qside, base, pe, **ops, qw_next=qw, heads=heads, tp=tp,
+                                            shared_qside=shared)
+    close(keys, keys0, dtype)
+    close(ctx, ctx0, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("g_,C,c4,c8,m", [(5, 32, 8, 4, 3), (16, 64, 16, 8, 1), (9, 128, 32, 16, 3)])
+def test_upscale_hyper(dev, dtype, g_, C, c4, c8, m):
+    """K4 at ragged grids (g*g not a multiple of the 16-pixel tile)."""
+    gen = torch.Generator(device=dev).manual_seed(C + g_)
+
+    def r(*shape, std=0.5):
+        return torch.randn(shape, generator=gen, device=dev) * std
+
+    args = (r(DEC_B, g_ * g_, C).to(dtype), r(C, 4 * c4, std=C**-0.5), r(c4), 1.0 + r(c4, std=0.1), r(c4, std=0.1),
+            r(c4, 4 * c8, std=c4**-0.5), r(c8), r(DEC_B, m, c8))
+    before = upscale_hyper.launches
+    got = upscale_hyper(*args)
+    assert upscale_hyper.launches == before + 1
+    assert got.shape == (DEC_B, m, 4 * g_, 4 * g_)
+    close(got, reference_upscale_hyper(*args), dtype)
+
+
 def test_wrappers_raise_on_bad_input(dev):
     q = torch.zeros((2, 64, 24), device=dev)  # unsupported head dim
     r = torch.zeros((2, 64, 8), device=dev)
@@ -96,3 +191,18 @@ def test_wrappers_raise_on_bad_input(dev):
         flash_attention_fused(q, q, q, r.half(), r.half(), 8, 1.0)
     with pytest.raises(ValueError, match="contiguous"):
         flash_attention_fused(q.transpose(1, 2).contiguous().transpose(1, 2), q, q, r, r, 8, 1.0)
+    ops, r = dec_operands(dev, torch.float32, DEC_C, 2, 8, 0)
+    keys = r(DEC_B, DEC_S, DEC_C)
+    with pytest.raises(ValueError, match="contiguous"):
+        i2t_ln_update(keys.transpose(0, 1).contiguous().transpose(0, 1), keys, **ops, heads=2, tp=8)
+    with pytest.raises(ValueError, match="base"):
+        i2t_ln_update(keys, keys[:, :-1].contiguous(), **ops, heads=2, tp=8)
+    with pytest.raises(ValueError, match="unsupported widths"):
+        t2i_ctx(keys, keys[:1], r(DEC_B, DEC_C, 6))
+    with pytest.raises(TypeError, match="bf16 or f32"):
+        i2t_ln_then_t2i(keys.half(), keys.half(), keys[:1].half(), **ops, qw_next=r(DEC_B, DEC_C, 16), heads=2,
+                        tp=8, shared_qside=False)
+    with pytest.raises(ValueError, match="hyper"):
+        upscale_hyper(r(2, 16, 32), r(32, 32), r(8), r(8), r(8), r(8, 16), r(4), r(3, 3, 4))
+    with pytest.raises(ValueError, match="shared memory"):  # f32 w1 at full width does not fit
+        upscale_hyper(r(1, 16, 256), r(256, 256), r(64), r(64), r(64), r(64, 128), r(32), r(1, 3, 32))

@@ -62,23 +62,39 @@ def test_encoder_matches_jax(name):
     assert np.abs(got - want).max() <= 1e-4
 
 
+ROUTES = {
+    "all_on": {},
+    "pass_off": {"HYBRIDGL_FUSED_PASS": "0"},
+    "all_off": {f"HYBRIDGL_FUSED_{k}": "0" for k in ("PASS", "I2T", "T2I", "UPSCALE")},
+}
+
+
+@pytest.mark.parametrize("dense", ["shared", "per_prompt"])
+@pytest.mark.parametrize("route", list(ROUTES))
 @pytest.mark.parametrize("multimask", [True, False])
-def test_predict_masks_matches_jax(multimask):
-    """The port's plain decoder against the reference with its default flags
-    (fused i2t/t2i pass and upscale kernels, interpret mode): logits within 1e-3."""
+def test_predict_masks_matches_jax(monkeypatch, multimask, route, dense):
+    """The port's decoder against the reference on each switch route
+    (default: K3 passes + K4; FUSED_PASS=0: K7/K8 + K4; all off), with the
+    dense prompt shared ([g, g, C]) or per prompt ([B, g, g, C], the
+    multicrop pass-2 form). The switches are set for both packages; the
+    JAX kernels run in interpret mode. Logits within 1e-3, IoU within 1e-4."""
+    for k, v in ROUTES[route].items():
+        monkeypatch.setenv(k, v)
     cfg = sam_preset("test-tiny")
     p_dec = noisy_params(cfg, 2)["decoder"]
     rng = np.random.default_rng(3)
     g, C, B = cfg.embed_grid, cfg.prompt_dim, 4
-    emb, pe, dense = (rng.standard_normal((g, g, C)).astype(np.float32) * 0.5 for _ in range(3))
+    emb, pe = (rng.standard_normal((g, g, C)).astype(np.float32) * 0.5 for _ in range(2))
+    shape = (g, g, C) if dense == "shared" else (B, g, g, C)
+    dense_p = rng.standard_normal(shape).astype(np.float32) * 0.5
     sparse = rng.standard_normal((B, 3, C)).astype(np.float32) * 0.5
     want_m, want_i = jax_predict_masks(
         jax_tree(p_dec), jnp.asarray(emb), jnp.asarray(pe), jnp.asarray(sparse), cfg,
-        dense_prompts=jnp.asarray(dense), multimask_output=multimask,
+        dense_prompts=jnp.asarray(dense_p), multimask_output=multimask,
     )
     got_m, got_i = predict_masks(
         from_numpy_tree(p_dec), torch.from_numpy(emb), torch.from_numpy(pe), torch.from_numpy(sparse),
-        cfg, dense_prompts=torch.from_numpy(dense), multimask_output=multimask,
+        cfg, dense_prompts=torch.from_numpy(dense_p), multimask_output=multimask,
     )
     assert got_m.shape == want_m.shape
     assert np.abs(got_m.numpy() - np.asarray(want_m)).max() <= 1e-3
