@@ -8,20 +8,32 @@ Phases (every phase asserts; any failure exits non-zero):
   1. environment: the card's name and power limit, torch/CUDA/nvcc versions;
   2. build: compiles the port's CUDA kernels from csrc/ (one nvcc per
      source, all at once, sm_90a);
-  3. kernels: each of the eight CUDA kernels against its plain PyTorch
-     version at the main paths' shapes, bf16 inputs, TF32 off, with median
-     times;
+  3. kernel check: ``hybridgl_tpu_torch.tools.check_kernels`` over all ten
+     CUDA kernels against their plain PyTorch versions at production
+     geometry, bf16 inputs, TF32 off, with median times. It is the path of
+     K9 (flash_attention_rel_pos) and K10 (pass1_stats), which no serving
+     path runs, as in the reference;
   4. small-input parity: the port on the card against the port on the CPU
      (the kernels' plain versions) at two small f32 configurations, single
      crop (K1, K2, K5, K6 and the default decoder route, K3 + K4) and
      multicrop (pass 2 through K7 + K8): same proposals and selections;
+     then the six fusion modes on the single-crop proposals: same
+     selections;
   5. RefCOCO pipeline: HybridGLPipeline.run_image at full width (SAM ViT-H +
      CLIP ViT-B/16, random bf16 weights from seed 0, AMG at RefCOCO
      settings with the quality thresholds zeroed as the reference bench
      does) on one warm-up and three measured synthetic images, checking
      finite outputs and that every kernel of the path launched;
   6. PhraseCut pipeline: the same at AMG_PHRASECUT (pps 64, one crop layer,
-     P = 128, canonical 1024), one warm-up and two measured images.
+     P = 128, canonical 1024), one warm-up and two measured images;
+  7. fusion modes: all six at full width on one RefCOCO image's proposals
+     and on a bucket of 64 live synthetic proposals: finite features, and
+     K6 launched as often as each mode's blocks need (the CLS-row bias in
+     attn_masking, L2G and G2L&L2G);
+  8. dataset path: run_dataset equals run_image on the three RefCOCO
+     images, then the port's CLI (``hybridgl_tpu_torch.cli.main``) at full
+     width on a synthetic REFER tree: the reference's result log, one
+     parity record per sentence, ms/img.
 The decoder runs its default route: the HYBRIDGL_FUSED_* switches are
 removed from the environment at start. The second-to-last line is a JSON
 object with one entry per kernel; the last line is the JSON contract line.
@@ -47,40 +59,10 @@ DECODER_SWITCHES = tuple(f"HYBRIDGL_FUSED_{k}" for k in ("PASS", "I2T", "T2I", "
 for _k in DECODER_SWITCHES:  # the contract run takes the default decoder route
     os.environ.pop(_k, None)
 
-KERNELS = {
-    "flash_windowed_fused": (
-        "hybridgl_tpu_torch/csrc/attention.cu",
-        "hybridgl_tpu/kernels/flash_attention.py:276",
-    ),
-    "flash_attention_fused": (
-        "hybridgl_tpu_torch/csrc/attention.cu",
-        "hybridgl_tpu/kernels/flash_attention.py:171",
-    ),
-    "pass1_stats_half": (
-        "hybridgl_tpu_torch/csrc/pass1_stats.cu",
-        "hybridgl_tpu/kernels/pass1_stats.py:257",
-    ),
-    "clip_attention": (
-        "hybridgl_tpu_torch/csrc/attention.cu",
-        "hybridgl_tpu/kernels/clip_attention.py:78",
-    ),
-    "i2t_ln_then_t2i": (
-        "hybridgl_tpu_torch/csrc/decoder_attn.cu",
-        "hybridgl_tpu/kernels/decoder_pass.py:209",
-    ),
-    "upscale_hyper_blocked": (
-        "hybridgl_tpu_torch/csrc/upscale_hyper.cu",
-        "hybridgl_tpu/kernels/upscale_hyper.py:153",
-    ),
-    "i2t_ln_update": (
-        "hybridgl_tpu_torch/csrc/decoder_attn.cu",
-        "hybridgl_tpu/kernels/decoder_attn.py:95",
-    ),
-    "t2i_ctx": (
-        "hybridgl_tpu_torch/csrc/decoder_attn.cu",
-        "hybridgl_tpu/kernels/decoder_attn_t2i.py:82",
-    ),
-}
+# the kernel-check entry point is the only path of K9 and K10 (as in the
+# reference, whose serving paths run K2 and K5 instead); K1-K8 count the
+# launches of the pipeline paths
+KERNEL_CHECK_ONLY = ("flash_attention_rel_pos", "pass1_stats")
 # per-image launches on the RefCOCO path (one launch per call): 28 windowed
 # and 4 global SAM blocks, one pass-1 chunk of 64 points (two K3 layer
 # passes, one K4 tail), 9 trunk + 3 x 2 G2L stream CLIP blocks
@@ -96,6 +78,13 @@ MIN_LAUNCHES_PER_IMAGE = {
 # K7 image->token updates and three K8 token->image attentions; its five
 # encoder passes and 128 pass-1 chunks launch the others many times over
 MIN_LAUNCHES_PER_PHRASECUT_IMAGE = dict(MIN_LAUNCHES_PER_IMAGE, i2t_ln_update=2, t2i_ctx=3)
+# K6 launches of one hybrid_forward at ViT-B/16 (12 blocks, masking block 9,
+# last layer 10), one per block call: crop runs the 12 blocks once;
+# token_masking 9 + 3; attn_masking stops one block early (9 + 2, the
+# reference's quirk); L2G and G2L run the 9 trunk blocks on the fused 2P
+# batch and two streams through the 3 tail blocks; G2L&L2G four streams.
+# attn_masking, L2G and G2L&L2G pass the CLS-row bias in their tail blocks.
+K6_LAUNCHES_PER_MODE = {"crop": 12, "token_masking": 12, "attn_masking": 11, "L2G": 15, "G2L": 15, "G2L&L2G": 21}
 
 
 def log(msg: str) -> None:
@@ -105,23 +94,6 @@ def log(msg: str) -> None:
 def fail(msg: str) -> None:
     print(f"FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
-
-
-def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        torch.cuda.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
 
 
 def phase_environment():
@@ -155,236 +127,14 @@ def phase_build():
             log(f"  ptxas: {line.strip()}")
 
 
-def _attention_verdict(name, got, want):
-    g, w = got.float().flatten(), want.float().flatten()
-    if not bool(g.isfinite().all()):
-        fail(f"{name}: non-finite kernel output")
-    cos = float((g @ w) / (g.norm() * w.norm() + 1e-30))
-    d = (g - w).abs()
-    rel = float(d.mean() / (w.abs().mean() + 1e-30))
-    ok = cos >= 0.999 and rel < 0.02
-    log(f"{'PASS' if ok else 'FAIL'} {name}: cos {cos:.6f} mean|d|/mean|plain| {rel:.5f} max|d| {float(d.max()):.5f}")
-    if not ok:
-        fail(f"{name} disagrees with its plain version")
-    return float(d.max())
-
-
 def phase_kernels():
-    import torch
+    """All ten kernels through the kernel-check entry point."""
+    from hybridgl_tpu_torch.tools.check_kernels import run_checks
 
-    from hybridgl_tpu_torch.kernels.clip_attention import clip_attention, reference_clip_attention
-    from hybridgl_tpu_torch.kernels.flash_attention import (
-        flash_attention_fused,
-        flash_windowed_fused,
-        reference_attention_rel_pos,
-    )
-    from hybridgl_tpu_torch.kernels.masks import box_from_profiles
-    from hybridgl_tpu_torch.kernels.pass1_stats import (
-        half_transform,
-        pass1_stats_half,
-        reference_pass1_stats_half,
-    )
-    from hybridgl_tpu_torch.kernels.resize import _composed_axis_weights
-
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(1)
-    bf = torch.bfloat16
-
-    def randn(*shape, std=1.0, dtype=bf):
-        return (torch.randn(shape, generator=gen, device=dev) * std).to(dtype)
-
-    results = {}
-
-    # K1 / K2: ViT-H windowed (25 windows x 16 heads, S = 196, G = 14) and
-    # global (16 heads, S = 4096, G = 64) blocks, hd = 80, nonzero rel terms
-    for name, fn, BH, G in (
-        ("flash_windowed_fused", flash_windowed_fused, 25 * 16, 14),
-        ("flash_attention_fused", flash_attention_fused, 16, 64),
-    ):
-        S, hd = G * G, 80
-        q, k, v = randn(BH, S, hd), randn(BH, S, hd), randn(BH, S, hd)
-        rh = randn(BH, S, G, std=0.5, dtype=torch.float32)
-        rw = randn(BH, S, G, std=0.5, dtype=torch.float32)
-        scale = hd**-0.5
-        got = fn(q, k, v, rh, rw, G, scale)
-        want = reference_attention_rel_pos(q, k, v, rh, rw, G, scale)
-        torch.cuda.synchronize()
-        err = _attention_verdict(name, got, want)
-        ms = time_ms(lambda: fn(q, k, v, rh, rw, G, scale))
-        plain_ms = time_ms(lambda: reference_attention_rel_pos(q, k, v, rh, rw, G, scale))
-        results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
-        log(f"  {name} [{BH}, {S}, {hd}] bf16: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
-        del q, k, v, rh, rw, got, want
-
-    # K6: 2P = 128 crop streams x 12 heads, L = 197, hd = 64; the CLS-row
-    # bias masks about half the patches with finfo(float32).min
-    N, H, L, hd = 128, 12, 197, 64
-    q, k, v = randn(N * H, L, hd), randn(N * H, L, hd), randn(N * H, L, hd)
-    allowed = torch.rand((N, L), generator=gen, device=dev) > 0.5
-    allowed[:, 0] = True
-    cls_bias = torch.where(allowed, 0.0, torch.finfo(torch.float32).min).float().contiguous()
-    scale = hd**-0.5
-    got = clip_attention(q, k, v, cls_bias, H, scale)
-    want = reference_clip_attention(q, k, v, cls_bias, H, scale)
-    torch.cuda.synchronize()
-    err = _attention_verdict("clip_attention", got, want)
-    ms = time_ms(lambda: clip_attention(q, k, v, cls_bias, H, scale))
-    plain_ms = time_ms(lambda: reference_clip_attention(q, k, v, cls_bias, H, scale))
-    results["clip_attention"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
-    log(f"  clip_attention [{N * H}, {L}, {hd}] bf16: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
-    del q, k, v, got, want
-
-    # K5: 64 points x 3 masks of 256^2 logits placed into the 640 canonical
-    # frame of a 480x640 image (rh, rw = 768, 1024 in SAM's 1024 frame)
-    Bc, n, C, h, w, rh_, rw_ = 192, 256, 640, 480, 640, 768, 1024
-    coarse = torch.randn((Bc, 1, 12, 12), generator=gen, device=dev) * 4.0
-    low = torch.nn.functional.interpolate(coarse, size=(n, n), mode="bilinear")[:, 0]
-    low = low + torch.randn((Bc, n, n), generator=gen, device=dev) * 0.1
-    Wy = _composed_axis_weights(C, n, 1024, rh_, 0, h, dev)
-    Wx = _composed_axis_weights(C, n, 1024, rw_, 0, w, dev)
-    tmp = half_transform(low, Wx.T)
-    window = (0, 0, h, w)
-    stab, ra, ca = pass1_stats_half(tmp, Wy, window, 0.0, 1.0)
-    stab0, ra0, ca0 = reference_pass1_stats_half(tmp, Wy.to(tmp.dtype), window, 0.0, 1.0)
-    torch.cuda.synchronize()
-    ds = float((stab - stab0).abs().max())
-    db = float((box_from_profiles(ra, ca) - box_from_profiles(ra0, ca0)).abs().max())
-    ok = ds <= 1e-3 and db <= 1.0 and bool(torch.isfinite(stab).all())
-    log(f"{'PASS' if ok else 'FAIL'} pass1_stats_half: stability max|d| {ds:.6f} box edge max|d| {db:.1f} px")
-    if not ok:
-        fail("pass1_stats_half disagrees with its plain version")
-    Wyb = Wy.to(tmp.dtype)
-    ms = time_ms(lambda: pass1_stats_half(tmp, Wyb, window, 0.0, 1.0))
-    plain_ms = time_ms(lambda: reference_pass1_stats_half(tmp, Wyb, window, 0.0, 1.0))
-    results["pass1_stats_half"] = dict(max_abs_err=ds, ms=ms, plain_ms=plain_ms)
-    log(f"  pass1_stats_half [{Bc}, {n}, {C}] bf16: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
-
-    # K5 at PhraseCut: canonical 1024 and the window of a layer-1 crop of a
-    # 480x640 image (origin (159, 239), 321x401, SAM frame 820x1024)
-    C, window = 1024, (159, 239, 321, 401)
-    Wy = _composed_axis_weights(C, n, 1024, 820, window[0], window[2], dev)
-    Wx = _composed_axis_weights(C, n, 1024, 1024, window[1], window[3], dev)
-    tmp = half_transform(low, Wx.T)
-    stab, ra, ca = pass1_stats_half(tmp, Wy, window, 0.0, 1.0)
-    stab0, ra0, ca0 = reference_pass1_stats_half(tmp, Wy.to(tmp.dtype), window, 0.0, 1.0)
-    torch.cuda.synchronize()
-    ds = float((stab - stab0).abs().max())
-    db = float((box_from_profiles(ra, ca) - box_from_profiles(ra0, ca0)).abs().max())
-    ok = ds <= 1e-3 and db <= 1.0 and bool(torch.isfinite(stab).all()) and bool(ra.any())
-    log(f"{'PASS' if ok else 'FAIL'} pass1_stats_half (crop window {window}, C = {C}): stability max|d| {ds:.6f} "
-        f"box edge max|d| {db:.1f} px")
-    if not ok:
-        fail("pass1_stats_half disagrees with its plain version on a crop window")
-    Wyb = Wy.to(tmp.dtype)
-    ms = time_ms(lambda: pass1_stats_half(tmp, Wyb, window, 0.0, 1.0))
-    plain_ms = time_ms(lambda: reference_pass1_stats_half(tmp, Wyb, window, 0.0, 1.0))
-    log(f"  pass1_stats_half [{Bc}, {n}, {C}] crop window bf16: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
-    del low, tmp, coarse
-    results.update(phase_decoder_kernels(dev, gen))
-    return results
-
-
-def _i2t_ops(dev, gen, B, Cq, C=256, heads=8, tp=8, T=7):
-    """Token-side operands of K3/K7 at SAM's decoder widths: w [B, Cq, 64]
-    f32, off (-1e30 on the padding lane t = 7), vo [B, 64, C] bf16, const/LN."""
-    import torch
-
-    def r(*shape, std):
-        return torch.randn(shape, generator=gen, device=dev) * std
-
-    off = r(B, heads, tp, std=0.5)
-    off[:, :, T:] = -1e30
-    return dict(w=r(B, Cq, heads * tp, std=Cq**-0.5 * 2), off=off.reshape(B, -1),
-                vo=r(B, heads * tp, C, std=0.5).to(torch.bfloat16), const=r(C, std=0.1),
-                ln_scale=1.0 + r(C, std=0.1), ln_bias=r(C, std=0.1))
-
-
-def phase_decoder_kernels(dev, gen):
-    """K3, K7, K8 and K4 against their plain versions at full width: C = 256,
-    8 heads, tp = 8 (GT = 64), S = 4096; B = 64 (a pass-1 chunk) for K3/K4,
-    B = 128 (PhraseCut's pass 2) for K7/K8."""
-    import torch
-
-    from hybridgl_tpu_torch.kernels.decoder_attn import i2t_ln_update, reference_i2t_ln_update
-    from hybridgl_tpu_torch.kernels.decoder_attn_t2i import reference_t2i_ctx, t2i_ctx
-    from hybridgl_tpu_torch.kernels.decoder_pass import i2t_ln_then_t2i, reference_i2t_ln_then_t2i
-    from hybridgl_tpu_torch.kernels.upscale_hyper import reference_upscale_hyper, upscale_hyper
-
-    bf, S, C = torch.bfloat16, 4096, 256
-
-    def randn(*shape, std=1.0, dtype=bf):
-        return (torch.randn(shape, generator=gen, device=dev) * std).to(dtype)
-
-    results = {}
-    # K3: pass A (shared once-projected queries [1, S, 128], raw image and pe
-    # [1, S, 256]) and pass B (per-prompt keys [64, S, 256])
-    B = 64
-    pe = randn(1, S, C)
-    k3 = {}
-    for mode, shared in (("pass A", True), ("pass B", False)):
-        Cq = 128 if shared else C
-        ops = _i2t_ops(dev, gen, B, Cq)
-        qside = randn(1 if shared else B, S, Cq)
-        base = randn(1, S, C) if shared else qside
-        qw = randn(B, C, 64, std=C**-0.5 * 2, dtype=torch.float32)
-
-        def run(fn):
-            return fn(qside, base, pe, **ops, qw_next=qw, heads=8, tp=8, shared_qside=shared)
-
-        (keys, ctx), (keys0, ctx0) = run(i2t_ln_then_t2i), run(reference_i2t_ln_then_t2i)
-        torch.cuda.synchronize()
-        err = max(_attention_verdict(f"i2t_ln_then_t2i {mode} keys'", keys, keys0),
-                  _attention_verdict(f"i2t_ln_then_t2i {mode} ctx", ctx, ctx0))
-        ms, plain_ms = time_ms(lambda: run(i2t_ln_then_t2i)), time_ms(lambda: run(reference_i2t_ln_then_t2i))
-        log(f"  i2t_ln_then_t2i {mode} B = {B}, qside [{qside.shape[0]}, {S}, {Cq}] bf16: kernel {ms:.3f} ms, "
-            f"plain {plain_ms:.3f} ms")
-        k3[mode] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
-        del keys, ctx, keys0, ctx0, qside, base
-    # the JSON line carries pass B, the per-prompt stream; pass A is logged
-    results["i2t_ln_then_t2i"] = dict(k3["pass B"], max_abs_err=max(v["max_abs_err"] for v in k3.values()))
-
-    # K7 and K8 at PhraseCut's pass 2: P = 128 survivors, per-prompt keys
-    B = 128
-    keys = randn(B, S, C)
-    ops = _i2t_ops(dev, gen, B, C)
-    got = i2t_ln_update(keys, keys, **ops, heads=8, tp=8, pe=pe)
-    want = reference_i2t_ln_update(keys, keys, **ops, heads=8, tp=8, pe=pe)
-    torch.cuda.synchronize()
-    err = _attention_verdict("i2t_ln_update", got, want)
-    del got, want
-    ms = time_ms(lambda: i2t_ln_update(keys, keys, **ops, heads=8, tp=8, pe=pe))
-    plain_ms = time_ms(lambda: reference_i2t_ln_update(keys, keys, **ops, heads=8, tp=8, pe=pe))
-    results["i2t_ln_update"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
-    log(f"  i2t_ln_update B = {B}, keys [{B}, {S}, {C}] + pe bf16: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
-    qw = randn(B, C, 64, std=C**-0.5 * 2, dtype=torch.float32)
-    qw[:, :, 7::8] = 0.0  # padding columns
-    got, want = t2i_ctx(keys, pe, qw), reference_t2i_ctx(keys, pe, qw)
-    torch.cuda.synchronize()
-    err = _attention_verdict("t2i_ctx", got, want)
-    ms, plain_ms = time_ms(lambda: t2i_ctx(keys, pe, qw)), time_ms(lambda: reference_t2i_ctx(keys, pe, qw))
-    results["t2i_ctx"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
-    log(f"  t2i_ctx B = {B}, keys [{B}, {S}, {C}] bf16 -> [{B}, 64, {C}]: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
-    del keys
-
-    # K4: a pass-1 chunk's tail, B = 64, g = 64, c4 = 64, c8 = 32, m = 3
-    B = 64
-    args = (randn(B, S, C), randn(C, 256, std=C**-0.5, dtype=torch.float32), randn(64, std=0.1, dtype=torch.float32),
-            1.0 + randn(64, std=0.1, dtype=torch.float32), randn(64, std=0.1, dtype=torch.float32),
-            randn(64, 128, std=64**-0.5, dtype=torch.float32), randn(32, std=0.1, dtype=torch.float32),
-            randn(B, 3, 32, std=0.5))
-    got, want = upscale_hyper(*args), reference_upscale_hyper(*args)
-    torch.cuda.synchronize()
-    d = float((got - want).abs().max())
-    agree = float(((got > 0) == (want > 0)).float().mean())
-    ok = bool(torch.isfinite(got).all()) and d < 0.1 and agree > 0.995
-    log(f"{'PASS' if ok else 'FAIL'} upscale_hyper_blocked: logits max|d| {d:.5f}, sign agreement {agree:.6f}")
-    if not ok:
-        fail("upscale_hyper_blocked disagrees with its plain version")
-    del got, want
-    ms, plain_ms = time_ms(lambda: upscale_hyper(*args)), time_ms(lambda: reference_upscale_hyper(*args))
-    results["upscale_hyper_blocked"] = dict(max_abs_err=d, ms=ms, plain_ms=plain_ms)
-    log(f"  upscale_hyper_blocked src [{B}, {S}, {C}] bf16 -> [{B}, 3, 256, 256] f32: kernel {ms:.3f} ms, "
-        f"plain {plain_ms:.3f} ms")
+    results = run_checks(log=log)
+    failed = [k for k, v in results.items() if not v["ok"]]
+    if failed:
+        fail(f"kernels disagree with their plain versions: {failed}")
     return results
 
 
@@ -446,7 +196,9 @@ def phase_small_parity():
     decoder takes the default route (K3 + K4) and whose CLIP blocks route
     through K6; and multicrop (one crop layer), whose pass 2 runs the
     decoder's per-prompt route (K7 + K8). Same proposals and the same
-    selections, and every one of the eight kernels launched on the card."""
+    selections, and every one of the eight pipeline kernels launched on the
+    card. Then the six fusion modes score the single-crop proposals on
+    both devices: the same selections in every mode."""
     import dataclasses
 
     import numpy as np
@@ -475,7 +227,7 @@ def phase_small_parity():
             blk["attn"][key] = torch.randn(blk["attn"][key].shape, generator=g) * 0.2
     rng = np.random.default_rng(7)
     sample = _sample(rng, 512, 128, 96, 128, 384, 512, (20, 30, 70, 90))
-    total = dict.fromkeys(KERNELS, 0)
+    total = dict.fromkeys(MIN_LAUNCHES_PER_PHRASECUT_IMAGE, 0)
     for tag, amg_cfg in (("single crop", single), ("multicrop", multicrop)):
         cfg = PipelineConfig(
             clip_config=clip_cfg, sam_config=sam_cfg, canonical_size=128, crop_size=clip_cfg.image_size,
@@ -491,8 +243,8 @@ def phase_small_parity():
             results = pipe.run_image(sample, pipe.init_state())
             props = pipe.last_proposals
             _check_results(f"small {tag}/{dev}", results, props, len(SENTENCES))
-            out[dev] = (results, props, launch_counts())
-        (r_cpu, p_cpu, _), (r_gpu, p_gpu, counts) = out["cpu"], out["cuda"]
+            out[dev] = (results, props, launch_counts(), pipe)
+        (r_cpu, p_cpu, _, pipe_cpu), (r_gpu, p_gpu, counts, pipe_gpu) = out["cpu"], out["cuda"]
         total = {k: total[k] + counts[k] for k in total}
         agree = float((p_cpu.masks == p_gpu.masks.cpu()).float().mean())
         same_valid = bool((p_cpu.valid == p_gpu.valid.cpu()).all())
@@ -504,9 +256,38 @@ def phase_small_parity():
             f"IoU max|d| {d_iou:.2e}, launches {counts}")
         if not ok:
             fail(f"small-input parity ({tag}) between the card and the CPU reference failed")
+        if tag == "single crop":
+            _small_fusion_modes(sample, (pipe_cpu, p_cpu), (pipe_gpu, p_gpu))
     missing = [k for k, v in total.items() if v == 0]
     if missing:
         fail(f"small-input parity: kernels never launched on the card: {missing}")
+
+
+def _small_fusion_modes(sample, cpu, gpu):
+    """The six fusion modes score, on the CPU and on the card, each device's
+    own proposals (equal above) and a bundle of 8 live synthetic rectangles:
+    same selections."""
+    from hybridgl_tpu.core.config import FUSION_MODES
+    from hybridgl_tpu_torch.pipeline.runner import HybridGLPipeline
+
+    for mode in FUSION_MODES:
+        for label in ("proposals", "8 synthetic proposals"):
+            picks = []
+            for pipe, props in (cpu, gpu):
+                p = HybridGLPipeline(pipe.cfg.replace(fusion_mode=mode), pipe.sam_params, pipe.clip_params,
+                                     pipe.parser, pipe.tokenizer, device=pipe.device)
+                if label != "proposals":
+                    props = _synthetic_full_bucket(p, 8, sample.h, sample.w)
+                picks.append(p._score_image(sample, props, p.init_state()))
+            r_cpu, r_gpu = picks
+            same_sel = [(a.pure_index, a.final_index) for a in r_cpu] == [(b.pure_index, b.final_index) for b in r_gpu]
+            d_iou = max(abs(a.final_iou - b.final_iou) for a, b in zip(r_cpu, r_gpu))
+            ok = same_sel and d_iou <= 1e-4
+            log(f"{'PASS' if ok else 'FAIL'} small-input parity, fusion mode {mode}, {label} (card vs cpu plain): "
+                f"selections {[(b.pure_index, b.final_index) for b in r_gpu]}, same {same_sel}, "
+                f"IoU max|d| {d_iou:.2e}")
+            if not ok:
+                fail(f"small-input parity of fusion mode {mode} ({label}) between the card and the CPU reference failed")
 
 
 def full_width_weights():
@@ -577,8 +358,9 @@ def phase_pipeline(tag, amg, canonical, n_images, min_launches, weights):
     return pipe, samples
 
 
-def _synthetic_full_bucket(pipe, P=64):
-    """P live rectangle proposals in the canonical frame of a 480x640 image."""
+def _synthetic_full_bucket(pipe, P=64, h=480, w=640):
+    """P live rectangle proposals in the canonical frame of an h x w image
+    (positions and sizes drawn for 480x640 and scaled)."""
     import torch
 
     from hybridgl_tpu_torch.kernels.masks import mask_to_box
@@ -587,10 +369,12 @@ def _synthetic_full_bucket(pipe, P=64):
     dev, C = pipe.device, pipe.cfg.canonical_size
     g = torch.Generator().manual_seed(2)
     masks = torch.zeros((P, C, C), dtype=torch.bool)
+    sy, sx = h / 480, w / 640
     for i in range(P):
         y0, x0 = (int(v) for v in torch.randint(0, 400, (2,), generator=g))
         hh, ww = (int(v) for v in torch.randint(20, 200, (2,), generator=g))
-        masks[i, y0 : min(y0 + hh, 480), x0 : min(x0 + ww, 640)] = True
+        y0, x0, hh, ww = int(y0 * sy), int(x0 * sx), max(int(hh * sy), 1), max(int(ww * sx), 1)
+        masks[i, y0 : min(y0 + hh, h), x0 : min(x0 + ww, w)] = True
     masks = masks.to(dev)
     ones = torch.ones(P, device=dev)
     return Proposals(masks, mask_to_box(masks), ones, ones, torch.zeros((P, 2), device=dev),
@@ -659,6 +443,7 @@ def phase_routes(pipe, samples):
     from hybridgl_tpu_torch.models.sam.amg import build_point_grid
     from hybridgl_tpu_torch.models.sam.prompt_encoder import dense_pe, no_mask_dense
     from hybridgl_tpu_torch.models.sam.sam import encode, predict_points, preprocess_padded
+    from hybridgl_tpu_torch.tools.check_kernels import time_ms
 
     cfg, p_sam = pipe.cfg, pipe.sam_params
     sample = samples[1]
@@ -732,17 +517,141 @@ def phase_multicrop_stages(pipe, samples):
         log(f"  PhraseCut stage {k}: {v:.1f} ms")
 
 
+def phase_fusion_modes(pipe, samples):
+    """All six fusion modes at full width (CLIP ViT-B/16, bf16) on one
+    RefCOCO image's proposals and on 64 live synthetic proposals: finite
+    [P, 512] features, and K6 launched once per block call of the mode."""
+    import numpy as np
+    import torch
+
+    from hybridgl_tpu.core.config import FUSION_MODES
+    from hybridgl_tpu_torch.kernels import launch_counts
+    from hybridgl_tpu_torch.models.clip.fusion import hybrid_forward
+    from hybridgl_tpu_torch.pipeline.preprocess import build_crops
+
+    cfg, sample = pipe.cfg, samples[1]
+    image_c = torch.from_numpy(np.asarray(sample.image_canonical)).cuda()
+    hw = (sample.h, sample.w)
+    for label, props in (("RefCOCO image", pipe._bucket_props(pipe.propose(sample))),
+                         ("64 live synthetic proposals", _synthetic_full_bucket(pipe))):
+        glob, local = build_crops(image_c, props.masks, hw, cfg.crop_size, cfg.blur_ksize)
+        for mode in FUSION_MODES:
+            def forward(mode=mode):
+                return hybrid_forward(pipe.clip_params["visual"], local, glob, props.masks.float(), cfg.clip,
+                                      fusion_mode=mode, masking_block=cfg.guidance.masking_block, compat=cfg.compat,
+                                      masks_hw=hw)
+
+            before = launch_counts()["clip_attention"]
+            feats = forward()
+            torch.cuda.synchronize()
+            k6 = launch_counts()["clip_attention"] - before
+            ms = statistics.median(_wall_ms(forward)[0] for _ in range(3))
+            P = props.masks.shape[0]
+            ok = feats.shape == (P, cfg.clip.embed_dim) and bool(torch.isfinite(feats).all()) \
+                and k6 == K6_LAUNCHES_PER_MODE[mode]
+            log(f"{'PASS' if ok else 'FAIL'} fusion mode {mode}, {label} (P = {P}): features {tuple(feats.shape)} "
+                f"finite {bool(torch.isfinite(feats).all())}, K6 launches {k6} (expected "
+                f"{K6_LAUNCHES_PER_MODE[mode]}), {ms:.1f} ms")
+            if not ok:
+                fail(f"fusion mode {mode} at full width ({label}) failed")
+
+
+def _write_refer_tree(root, n_images=3, h=480, w=640):
+    """A synthetic REFER tree (the layout hybridgl_tpu/data/refer.py reads):
+    ``n_images`` random 480x640 images with one or two val refs each,
+    rectangle annotations as polygons; returns the number of sentences."""
+    import json
+    import pickle
+
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.default_rng(0)
+    img_dir = os.path.join(root, "images/mscoco/images/train2014")
+    os.makedirs(img_dir)
+    os.makedirs(os.path.join(root, "refcoco"))
+    images, anns, refs = [], [], []
+    words = ["the dog on the left", "person behind the table", "small cup", "the big one in the middle"]
+    for i in range(1, n_images + 1):
+        fname = f"COCO_train2014_{i:012d}.jpg"
+        Image.fromarray(rng.integers(0, 255, (h, w, 3), np.uint8)).save(os.path.join(img_dir, fname))
+        images.append({"id": i, "file_name": fname, "height": h, "width": w})
+        for j in range(1 + i % 2):
+            aid = 10 * i + j
+            y0, x0 = (int(v) for v in rng.integers(0, 200, 2))
+            y1, x1 = y0 + int(rng.integers(60, 250)), x0 + int(rng.integers(60, 400))
+            anns.append({"id": aid, "image_id": i, "category_id": 1, "bbox": [x0, y0, x1 - x0, y1 - y0],
+                         "segmentation": [[x0, y0, x1, y0, x1, y1, x0, y1]], "area": (x1 - x0) * (y1 - y0)})
+            sents = [{"sent_id": 100 * aid + k, "raw": words[(aid + k) % 4], "tokens": []} for k in range(1 + j)]
+            refs.append({"ref_id": aid, "ann_id": aid, "image_id": i, "category_id": 1, "split": "val",
+                         "sentences": sents, "sent_ids": [x["sent_id"] for x in sents]})
+    with open(os.path.join(root, "refcoco", "refs(unc).p"), "wb") as f:
+        pickle.dump(refs, f)
+    with open(os.path.join(root, "refcoco", "instances.json"), "w") as f:
+        json.dump({"images": images, "annotations": anns, "categories": [{"id": 1, "name": "thing"}]}, f)
+    return sum(len(r["sentences"]) for r in refs)
+
+
+def phase_dataset_path(pipe, samples, card):
+    """run_dataset equals run_image on the three RefCOCO images; then the
+    port's CLI at full width on a synthetic REFER tree."""
+    import json
+    import tempfile
+
+    import torch
+
+    from hybridgl_tpu_torch.cli.main import main as cli_main
+
+    measured = samples[1:]
+    state_a = pipe.init_state()
+    seq = [pipe.run_image(smp, state_a) for smp in measured]
+    state_b = pipe.init_state()
+    piped = [results for _, results in pipe.run_dataset(iter(measured), state_b)]
+    same = [[(r.pure_index, r.final_index, r.pure_iou, r.final_iou) for r in rs] for rs in seq] == \
+        [[(r.pure_index, r.final_index, r.pure_iou, r.final_iou) for r in rs] for rs in piped]
+    same_state = [float(v) for v in (*state_a.pure, *state_a.final)] == [float(v) for v in (*state_b.pure, *state_b.final)]
+    ok = same and same_state and len(piped) == len(measured)
+    log(f"{'PASS' if ok else 'FAIL'} run_dataset == run_image on {len(measured)} RefCOCO images: same selections and "
+        f"IoUs {same}, same accumulators {same_state}")
+    if not ok:
+        fail("run_dataset differs from run_image")
+
+    with tempfile.TemporaryDirectory() as root:
+        n_sentences = _write_refer_tree(root)
+        logs, parity = os.path.join(root, "logs"), os.path.join(root, "parity.json")
+        t0 = time.perf_counter()
+        cli_main(["--dataset", "refcoco", "--split", "val", "--refer_data_root", root, "--sam_model", "vit_h",
+                  "--clip_model", "ViT-B/16", "--random-weights", "--device", "cuda", "--log_dir", logs,
+                  "--parity_log", parity])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        with open(os.path.join(logs, "result_log_refcoco_val.txt")) as f:
+            text = f.read()
+        with open(parity) as f:
+            records = json.load(f)["records"]
+    ok = "pure hybridgl:" in text and "hybridgl w/ spatial guidance:" in text and len(records) == n_sentences
+    log(f"{'PASS' if ok else 'FAIL'} CLI (python -m hybridgl_tpu_torch.cli.main, vit_h + ViT-B/16, random weights): "
+        f"{len(records)} parity records for {n_sentences} sentences, result log rows present "
+        f"{'pure hybridgl:' in text and 'hybridgl w/ spatial guidance:' in text}, {wall:.1f} s in all with "
+        f"weights and dataset set-up, on {card}")
+    if not ok:
+        fail("the CLI's result or parity log is wrong")
+
+
 def main(argv):
     card = phase_environment()
     phase_build()
-    results = phase_kernels()
     from hybridgl_tpu.core.config import AMG_PHRASECUT, AMG_REFCOCO
     from hybridgl_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from hybridgl_tpu_torch.tools.check_kernels import KERNELS
 
+    counts, paths = {}, {}
+    # each path: the counts are set to 0 just before it and read just after
+    reset_launch_counts()
+    results = phase_kernels()
+    counts["kernel check"] = launch_counts()
     phase_small_parity()
     weights = full_width_weights()
-    counts, paths = {}, {}
-    # each main path: the counts are set to 0 just before it and read just after
     for tag, amg, canonical, n_images, mins in (
         ("RefCOCO", AMG_REFCOCO, 640, 3, MIN_LAUNCHES_PER_IMAGE),
         ("PhraseCut", AMG_PHRASECUT, 1024, 2, MIN_LAUNCHES_PER_PHRASECUT_IMAGE),
@@ -753,6 +662,12 @@ def main(argv):
         missing = [k for k in mins if counts[tag][k] == 0]
         if missing:
             fail(f"kernels of the {tag} path never launched: {missing}")
+    reset_launch_counts()
+    phase_fusion_modes(*paths["RefCOCO"])
+    counts["fusion modes"] = launch_counts()
+    reset_launch_counts()
+    phase_dataset_path(*paths["RefCOCO"], card)
+    counts["dataset path"] = launch_counts()
     if "--profile" in argv:  # opt-in: CUPTI tracing is not part of the contract run
         phase_profile(*paths["RefCOCO"])
         phase_routes(*paths["RefCOCO"])
@@ -762,10 +677,13 @@ def main(argv):
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
-        kernels.append(
-            dict(name=name, route="cuda", source=source, replaces=replaces,
-                 launches=sum(c[name] for c in counts.values()), **results[name])
-        )
+        launched = [counts["kernel check"]] if name in KERNEL_CHECK_ONLY else [
+            c for tag, c in counts.items() if tag != "kernel check"]
+        n = sum(c[name] for c in launched)
+        if n == 0:
+            fail(f"{name} never launched on its path")
+        kernels.append(dict(name=name, route="cuda", source=source, replaces=replaces, launches=n, **{
+            k: v for k, v in results[name].items() if k != "ok"}))
     log(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

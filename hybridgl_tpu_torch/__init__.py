@@ -9,13 +9,17 @@ obvious counterpart:
              each with a plain PyTorch version beside it, plus the plain
              tensor primitives (resize, blur, NMS, mask analytics)
   models/    sam (encoder, prompt encoder, decoder, AMG), clip (ViT, text,
-             G2L fusion), gem
+             the six fusion modes), gem
   pipeline/  crops, guidance, host cleanup and the runner
-  eval/      IoU accumulators
+  data/      REFER / PhraseCut datasets
+  eval/      IoU accumulators, result log, progress checkpoints
+  cli/       the evaluation CLI and the demo (python -m hybridgl_tpu_torch.cli.main)
+  tools/     check_kernels: every CUDA kernel against its plain version
 
 The port imports ``torch`` and never ``jax``. It reuses only the
 reference's jax-free modules (configs, tokenizer, expression parser, the
-native region-cleanup binding, env helpers). A kernel wrapper runs its
+native region-cleanup binding, env helpers, the REFER API, RLE codec,
+prefetcher, parity log and overlays). A kernel wrapper runs its
 plain version for a CPU tensor and launches its CUDA kernel (or raises) for
 a CUDA tensor.
 """

@@ -255,5 +255,29 @@ def from_numpy_tree(tree, device="cpu", dtype: torch.dtype | None = None):
     return cast_tree(out, dtype) if dtype is not None else out
 
 
+def load_npz(path: str):
+    """A parameter tree saved by the reference's ``core/checkpoint.save`` as
+    ``.npz`` (keys are '/'-joined paths, list indices as digits) -> nested
+    dicts and lists of numpy leaves, for :func:`from_numpy_tree`."""
+    with np.load(path) as z:
+        flat = {k: z[k] for k in z.files}
+    root: dict = {}
+    for key, val in flat.items():
+        node = root
+        *parents, leaf = key.split("/")
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = val
+
+    def listify(node):
+        if not isinstance(node, dict):
+            return node
+        if node and all(k.isdigit() for k in node):
+            return [listify(node[str(i)]) for i in range(len(node))]
+        return {k: listify(v) for k, v in node.items()}
+
+    return listify(root)
+
+
 def param_count(tree) -> int:
     return sum(int(x.numel()) for x in tree_leaves(tree))

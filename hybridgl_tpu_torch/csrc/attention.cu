@@ -6,7 +6,9 @@
 //   K2 hybridgl_tpu/kernels/flash_attention.py:flash_attention_fused (SAM
 //      global blocks, S = 4096, G = 64),
 //   K6 hybridgl_tpu/kernels/clip_attention.py:clip_attention (CLIP blocks,
-//      L = 197, bias on query row 0 only).
+//      L = 197, bias on query row 0 only),
+//   K9 hybridgl_tpu/kernels/flash_attention.py:flash_attention_rel_pos (the
+//      pre-scaled tiled form, scale 1; only the kernel check calls it).
 // The TPU kernels fold the SAM bias into an augmented 128-lane contraction;
 // that is a layout trick for the MXU. Here the bias is rebuilt from its
 // decomposed terms as the key loop runs:
@@ -16,9 +18,9 @@
 // Design. One block of 256 threads per (batch*head, 64-query tile). The
 // block walks 64-key tiles: K (transposed) and V go through shared memory,
 // each thread owns a 4x4 patch of the 64x64 score tile and a 4x(HD/16)
-// patch of the output, softmax statistics and the accumulator stay in f32
-// registers, and the probabilities pass through shared memory to the PV
-// product. Operands are widened to f32 on load; all arithmetic is f32 on the
+// patch of the output (hd = 8: the first 8 threads of a row own one column
+// each), softmax statistics and the accumulator stay in f32 registers, and
+// the probabilities pass through shared memory to the PV product. Operands are widened to f32 on load; all arithmetic is f32 on the
 // CUDA cores (no tensor cores, no TMA).
 //
 // What bounds it: at the SAM shapes the work is compute (S^2 * HD * 4 flops
@@ -64,7 +66,8 @@ attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const float* __restrict__ bias_a,
                  const float* __restrict__ bias_b, T* __restrict__ out, int S,
                  int G, int H, float scale) {
-  constexpr int CPO = HD / TX;  // output columns per thread
+  constexpr int CPO = (HD + TX - 1) / TX;  // output columns per thread
+  constexpr bool ALL_COLS = HD % TX == 0;  // else threads past column HD idle in PV
   extern __shared__ float smem[];
   float* Qt = smem;               // [HD][LDQ]  q * scale, transposed
   float* Kt = Qt + HD * LDQ;      // [HD][LDK]  key tile, transposed
@@ -181,7 +184,8 @@ attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int i = 0; i < RPT; ++i) p[i] = Ps[(ty + TY * i) * LDP + kk];
 #pragma unroll
-      for (int c = 0; c < CPO; ++c) vv[c] = Vs[kk * HD + tx + TX * c];
+      for (int c = 0; c < CPO; ++c)
+        vv[c] = (ALL_COLS || tx + TX * c < HD) ? Vs[kk * HD + tx + TX * c] : 0.f;
 #pragma unroll
       for (int i = 0; i < RPT; ++i)
 #pragma unroll
@@ -196,7 +200,7 @@ attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float inv = 1.f / l[i];
 #pragma unroll
     for (int c = 0; c < CPO; ++c)
-      store(out + base + (size_t)row * HD + tx + TX * c, o[i][c] * inv);
+      if (ALL_COLS || tx + TX * c < HD) store(out + base + (size_t)row * HD + tx + TX * c, o[i][c] * inv);
   }
 }
 
@@ -222,6 +226,7 @@ int dispatch_hd(const void* q, const void* k, const void* v, const float* a,
                 const float* b, void* out, int BH, int S, int HD, int G, int H,
                 float scale, cudaStream_t stream) {
   switch (HD) {
+    case 8: return launch<T, 8, MODE>(q, k, v, a, b, out, BH, S, G, H, scale, stream);
     case 16: return launch<T, 16, MODE>(q, k, v, a, b, out, BH, S, G, H, scale, stream);
     case 32: return launch<T, 32, MODE>(q, k, v, a, b, out, BH, S, G, H, scale, stream);
     case 64: return launch<T, 64, MODE>(q, k, v, a, b, out, BH, S, G, H, scale, stream);
@@ -234,7 +239,7 @@ int dispatch_hd(const void* q, const void* k, const void* v, const float* a,
 
 extern "C" {
 
-// K1 and K2: decomposed rel-pos attention. is_bf16 selects bf16 or f32
+// K1, K2 and K9: decomposed rel-pos attention. is_bf16 selects bf16 or f32
 // q/k/v/out. Returns a cudaError_t code (0 = launched).
 int hgl_rel_pos_attention(const void* q, const void* k, const void* v,
                           const float* rel_h, const float* rel_w, void* out, int BH,

@@ -13,13 +13,13 @@ from __future__ import annotations
 
 
 def kernel_wrappers():
-    """{name: wrapper} for every CUDA kernel of the main path."""
+    """{name: wrapper} for every CUDA kernel of the port."""
     from .clip_attention import clip_attention
     from .decoder_attn import i2t_ln_update
     from .decoder_attn_t2i import t2i_ctx
     from .decoder_pass import i2t_ln_then_t2i
-    from .flash_attention import flash_attention_fused, flash_windowed_fused
-    from .pass1_stats import pass1_stats_half
+    from .flash_attention import flash_attention_fused, flash_attention_rel_pos, flash_windowed_fused
+    from .pass1_stats import pass1_stats, pass1_stats_half
     from .upscale_hyper import upscale_hyper
 
     return {
@@ -31,6 +31,8 @@ def kernel_wrappers():
         "upscale_hyper_blocked": upscale_hyper,
         "i2t_ln_update": i2t_ln_update,
         "t2i_ctx": t2i_ctx,
+        "flash_attention_rel_pos": flash_attention_rel_pos,
+        "pass1_stats": pass1_stats,
     }
 
 

@@ -40,6 +40,7 @@ _SIGNATURES = {
     "hgl_rel_pos_attention": [_vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _f, _i, _vp],
     "hgl_cls_attention": [_vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _f, _i, _vp],
     "hgl_pass1_stats": [_vp, _vp, _i, _i, _i, _f, _f, _f, _f, _f, _f, _vp, _vp, _vp, _i, _vp],
+    "hgl_pass1_stats_full": [_vp, _vp, _vp, _i, _i, _i, _i, _f, _f, _f, _f, _f, _f, _vp, _vp, _vp, _i, _vp],
     "hgl_decoder_attn": [_i] + [_vp] * 15 + [_i] * 13 + [_vp],
     "hgl_upscale_hyper": [_vp] * 9 + [_i] * 9 + [_vp],
 }

@@ -1,6 +1,6 @@
-"""Decomposed relative-position attention for the SAM image encoder (K1, K2).
+"""Decomposed relative-position attention for the SAM image encoder (K1, K2, K9).
 
-Both wrappers launch one CUDA kernel (``csrc/attention.cu``, REL_POS mode):
+The three wrappers launch one CUDA kernel (``csrc/attention.cu``, REL_POS mode):
 
   * :func:`flash_windowed_fused` replaces the Pallas kernel of the same name
     (``hybridgl_tpu/kernels/flash_attention.py:276``): the 28 windowed ViT-H
@@ -8,7 +8,11 @@ Both wrappers launch one CUDA kernel (``csrc/attention.cu``, REL_POS mode):
   * :func:`flash_attention_fused` replaces the Pallas kernel of the same name
     (``hybridgl_tpu/kernels/flash_attention.py:171``): the 4 global blocks,
     16 heads of S = 4096 tokens, G = 64. The [S, S] score matrix never
-    reaches device memory.
+    reaches device memory;
+  * :func:`flash_attention_rel_pos` replaces the Pallas kernel of the same
+    name (``hybridgl_tpu/kernels/flash_attention.py:78``): the same math on a
+    pre-scaled q, with the reference's tiling arguments. No serving path
+    calls it; the kernel check (``tools/check_kernels.py``) does.
 
 Math (reference: segment_anything image_encoder.py:325-361):
 
@@ -28,7 +32,7 @@ import torch
 
 from . import _build
 
-SUPPORTED_HEAD_DIMS = (16, 32, 64, 80)
+SUPPORTED_HEAD_DIMS = (8, 16, 32, 64, 80)
 MAX_GRID_SIDE = 64
 
 
@@ -94,5 +98,29 @@ def flash_attention_fused(q, k, v, rel_h, rel_w, grid_side: int, scale: float):
     return _rel_pos_call(flash_attention_fused, q, k, v, rel_h, rel_w, grid_side, scale)
 
 
+def flash_attention_rel_pos(q, k, v, rel_h, rel_w, grid_side: int, block_q: int = 256, block_k: int = 512):
+    """K9: rel-pos attention on a q already scaled by 1/sqrt(hd).
+
+    q, k, v [BH, S, hd] (bf16 or f32), rel_h, rel_w [BH, S, G] in any float
+    dtype (widened to f32, as the reference does inside its kernel); the
+    output is in q's dtype. ``block_q`` and ``block_k`` are the TPU kernel's
+    tiles: they do not change the result and are only checked as the
+    reference asserts them (S == G**2, S % block_q == 0, S % block_k == 0,
+    block_k % G == 0). The CUDA kernel tiles by 64 whatever they are, and
+    keeps the probabilities in f32 where the reference rounds them to v's
+    dtype before the PV product (in f32 the two agree exactly)."""
+    BH, S, _ = q.shape
+    G = grid_side
+    if S != G * G:
+        raise ValueError(f"flash_attention_rel_pos: S={S} is not grid_side**2 ({G}**2)")
+    if block_q < 1 or block_k < 1 or S % block_q or S % block_k:
+        raise ValueError(f"flash_attention_rel_pos: S={S} must be a multiple of block_q={block_q} and block_k={block_k}")
+    if block_k % G:
+        raise ValueError(f"flash_attention_rel_pos: block_k={block_k} must cover whole grid rows (G={G})")
+    rel_h, rel_w = rel_h.float().contiguous(), rel_w.float().contiguous()
+    return _rel_pos_call(flash_attention_rel_pos, q, k, v, rel_h, rel_w, grid_side, 1.0)
+
+
 flash_windowed_fused.launches = 0
 flash_attention_fused.launches = 0
+flash_attention_rel_pos.launches = 0

@@ -1,8 +1,12 @@
-"""AMG pass-1 statistics (K5).
+"""AMG pass-1 statistics (K5, K10).
 
 :func:`pass1_stats_half` replaces the Pallas kernel of the same name
 (``hybridgl_tpu/kernels/pass1_stats.py:257``, its ``_stats_call`` with
-``pre_half=True``). Pass 1 needs four things per (point, mask) candidate:
+``pre_half=True``); :func:`pass1_stats` replaces the full mode
+(``hybridgl_tpu/kernels/pass1_stats.py:152``, ``pre_half=False``), which
+takes the raw logits and runs the column transform inside the kernel. The
+main path runs K5, as the reference's does; only the kernel check
+(``tools/check_kernels.py``) calls K10. Pass 1 needs four things per (point, mask) candidate:
 the two stability threshold counts, the row/column occupancy profiles (for
 the box), and non-emptiness. The canonical-frame logits they derive from are
 ``Wy @ tmp`` where ``tmp = low @ Wx^T`` is the column half-transform (a plain
@@ -15,9 +19,9 @@ Dtype policy (reference ``use_bf16_stats``, pass1_stats.py:39-55): the
 half-transform and the row matmul take bf16 operands with f32 sums by
 default, even with f32 params; ``$HYBRIDGL_STATS_BF16=0`` selects f32.
 
-On a CPU tensor :func:`pass1_stats_half` runs
-:func:`reference_pass1_stats_half`; on a CUDA tensor it launches the kernel
-or raises.
+On a CPU tensor each wrapper runs its plain version
+(:func:`reference_pass1_stats_half`, and for K10 :func:`half_transform`
+first); on a CUDA tensor it launches its kernel or raises.
 """
 
 from __future__ import annotations
@@ -100,4 +104,55 @@ def pass1_stats_half(tmp, Wy, window, thresh: float, offset: float):
     return counts[:, 0] / counts[:, 1].clamp(min=1.0), row_any, col_any
 
 
+# K10's shared memory: two staging tiles, the [n, 64] column block of tmp
+# (f32, n rounded up to 32) and the row flags; the card gives a block 227 KB
+_MAX_SMEM_BYTES = 232448
+
+
+def pass1_stats(low, WxT, Wy, window, thresh: float, offset: float, tile: int = 256):
+    """K10: pass-1 stats from the raw logits low [B, n, n2], the column
+    weights WxT [n2, C] and the row weights Wy [C, n] -> (stab [B] f32,
+    row_any [B, C] bool, col_any [B, C] bool), as :func:`pass1_stats_half`
+    of ``half_transform(low, WxT)``: the operands are rounded to the stats
+    dtype, tmp = low @ WxT is summed in f32 and rounded to the stats dtype
+    (the reference's pass1_stats.py:90-94), then the row product and the
+    thresholds. ``tile`` is the TPU kernel's row tile; it does not change
+    the result and the CUDA kernel tiles by 64."""
+    dt = stats_dtype()
+    if low.ndim != 3:
+        raise ValueError(f"pass1_stats: low must be [B, n, n2], got {tuple(low.shape)}")
+    B, n, n2 = low.shape
+    C = WxT.shape[-1]
+    if WxT.shape != (n2, C):
+        raise ValueError(f"pass1_stats: WxT must be [{n2}, C], got {tuple(WxT.shape)}")
+    if Wy.shape != (C, n):
+        raise ValueError(f"pass1_stats: Wy must be [{C}, {n}], got {tuple(Wy.shape)}")
+    if low.device.type == "cpu":
+        return reference_pass1_stats_half(half_transform(low, WxT), Wy.to(dt), window, thresh, offset)
+    if low.device.type != "cuda":
+        raise RuntimeError(f"pass1_stats: unsupported device {low.device}")
+    low, WxT, Wy = low.to(dt).contiguous(), WxT.to(dt).contiguous(), Wy.to(dt).contiguous()
+    if WxT.device != low.device or Wy.device != low.device:
+        raise ValueError("pass1_stats: low, WxT and Wy on different devices")
+    n_pad = -(-n // 32) * 32
+    smem = (64 * 33 + 32 * 65 + n_pad * 64) * 4 + C * 4
+    if smem > _MAX_SMEM_BYTES - 2048:  # static shared memory: flags and the block sums
+        raise ValueError(f"pass1_stats: n={n}, C={C} needs {smem} bytes of shared memory per block")
+    y0, x0, dh, dw = _window(window)
+    counts = torch.zeros((B, 2), dtype=torch.int32, device=low.device)
+    row_any = torch.zeros((B, C), dtype=torch.bool, device=low.device)
+    col_any = torch.zeros((B, C), dtype=torch.bool, device=low.device)
+    lib = _build.library()
+    code = lib.hgl_pass1_stats_full(
+        low.data_ptr(), WxT.data_ptr(), Wy.data_ptr(), B, n, n2, C, y0, x0, dh, dw,
+        float(thresh), float(offset), counts.data_ptr(), row_any.data_ptr(),
+        col_any.data_ptr(), int(dt == torch.bfloat16), _build.stream_handle(low.device),
+    )
+    _build.check(code, "pass1_stats")
+    pass1_stats.launches += 1
+    counts = counts.float()
+    return counts[:, 0] / counts[:, 1].clamp(min=1.0), row_any, col_any
+
+
 pass1_stats_half.launches = 0
+pass1_stats.launches = 0

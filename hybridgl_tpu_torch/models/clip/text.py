@@ -21,7 +21,10 @@ def encode_text(p, tokens: torch.Tensor, cfg: ClipConfig) -> torch.Tensor:
     """tokens [N, context_length] int -> [N, embed_dim] f32 features, pooled
     at the EOT token (the highest token id)."""
     emb = p["token_embedding"]
-    x = emb[tokens.long()] + p["positional_embedding"].to(emb.dtype)
+    # ids past the vocabulary read its last row, as the reference's jnp gather
+    # clamps them: only the test-tiny vocab (101 ids) under the full BPE
+    # tokenizer meets this (cli/main.py's test-tiny smoke config)
+    x = emb[tokens.long().clamp(max=emb.shape[0] - 1)] + p["positional_embedding"].to(emb.dtype)
     bias = causal_bias(cfg.context_length, tokens.device)
     for blk in p["blocks"]:
         x = residual_attention_block(blk, x, cfg.text_heads, bias)

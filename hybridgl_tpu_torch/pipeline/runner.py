@@ -5,8 +5,9 @@ Per image:
                   RefCOCO, one crop layer for PhraseCut, chosen by
                   cfg.amg.crop_n_layers), then the host small-region cleanup
                   (pipeline/postprocess.py)
-  feature stage   crops (pipeline/preprocess.py) -> G2L fusion features
-                  (models/clip/fusion.py) -> GEM patch features
+  feature stage   crops (pipeline/preprocess.py) -> hybrid fusion features
+                  in cfg.fusion_mode (models/clip/fusion.py) -> GEM patch
+                  features
   sentence stage  text encoding (+ noun-phrase ensemble and negatives) ->
                   CLIP scores -> box-relation + GEM guidance -> selection ->
                   IoU accumulation
@@ -15,13 +16,16 @@ The host parses and tokenizes expressions and carries the reference's
 sticky k1/k2 clamp (Hybridgl_main.py:178-181, CompatConfig.k_clamp_sticky).
 Proposal bundles are sliced to the smallest power-of-two bucket covering
 every live proposal before the feature stage, as the reference does.
+``run_image`` processes one image; ``run_dataset`` iterates a dataset with
+the next image's proposal stage launched before the current one's host
+cleanup.
 """
 
 from __future__ import annotations
 
 import warnings
 from dataclasses import dataclass
-from typing import List, NamedTuple, Optional, Sequence
+from typing import Iterable, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -83,8 +87,6 @@ class HybridGLPipeline:
     def __init__(self, cfg: PipelineConfig, sam_params, clip_params, parser: Optional[ExpressionParser] = None, tokenizer=None, device=None):
         if cfg.amg.crop_n_layers > 1:
             raise NotImplementedError("AMG with more than one crop layer is not supported (nor by the reference)")
-        if cfg.fusion_mode != "G2L":
-            raise NotImplementedError(f"fusion mode {cfg.fusion_mode!r} is not ported yet; see ROADMAP.md")
         self.cfg = cfg
         self.device = torch.device(device) if device is not None else sam_params["prompt"]["pe_gaussian"].device
         self.sam_params = sam_params
@@ -108,6 +110,10 @@ class HybridGLPipeline:
     def propose(self, sample: ImageSample) -> Proposals:
         """SAM proposals + the host small-region cleanup, which the reference
         applies whenever min_mask_region_area > 0 (automatic_mask_generator.py:166-171)."""
+        return self._finish_proposals(self._launch_proposals(sample), (sample.h, sample.w))
+
+    def _launch_proposals(self, sample: ImageSample) -> Proposals:
+        """The proposal stage on the device (SAM encoder + AMG)."""
         cfg = self.cfg
         image_1024 = torch.from_numpy(np.asarray(sample.image_1024)).to(self.device)
         if cfg.amg.crop_n_layers >= 1:
@@ -121,6 +127,12 @@ class HybridGLPipeline:
                 self.sam_params, image_1024, sample.rh, sample.rw, sample.h, sample.w,
                 cfg.sam, cfg.amg, cfg.canonical_size,
             )
+        return props
+
+    def _finish_proposals(self, props: Proposals, hw) -> Proposals:
+        """The host side of the proposal stage: the overflow warning and the
+        small-region cleanup."""
+        cfg = self.cfg
         if props.overflow > 0 and not self._warned_overflow:
             # the reference keeps every NMS survivor; a full bucket drops some
             warnings.warn(
@@ -131,7 +143,7 @@ class HybridGLPipeline:
             )
             self._warned_overflow = True
         if cfg.amg.min_mask_region_area > 0 and props.num > 0:
-            props = self._cleanup_host(props, (sample.h, sample.w))
+            props = self._cleanup_host(props, hw)
         return props
 
     def _cleanup_host(self, props: Proposals, hw) -> Proposals:
@@ -255,6 +267,30 @@ class HybridGLPipeline:
         return row
 
     @torch.inference_mode()
+    def run_dataset(self, samples: Iterable[ImageSample], state: PipelineState, yield_props: bool = False):
+        """Software-pipelined iteration (the reference's runner.py:568-591):
+        image i+1's proposal stage is launched on the device before image i's
+        host cleanup and scoring. Yields (sample, results), or (sample,
+        results, proposals) with ``yield_props``, exactly what
+        :meth:`run_image` gives image by image; mutates ``state``. The AMG
+        reads its NMS counts on the host, so only the work queued after the
+        last of those reads overlaps the previous image's cleanup."""
+        pending = None  # (sample, launched proposals)
+        for sample in samples:
+            launched = (sample, self._launch_proposals(sample))
+            if pending is not None:
+                yield self._emit(*pending, state, yield_props)
+            pending = launched
+        if pending is not None:
+            yield self._emit(*pending, state, yield_props)
+
+    def _emit(self, sample: ImageSample, props: Proposals, state: PipelineState, yield_props: bool):
+        props = self._finish_proposals(props, (sample.h, sample.w))
+        self.last_proposals = props
+        results = self._score_image(sample, props, state)
+        return (sample, results, props) if yield_props else (sample, results)
+
+    @torch.inference_mode()
     def run_image(self, sample: ImageSample, state: PipelineState) -> List[SentenceResult]:
         """Process one image; mutates the ``state`` accumulators and clamps."""
         props = self.propose(sample)
@@ -309,3 +345,12 @@ class HybridGLPipeline:
                 SentenceResult(sentence, sel.pure_index, sel.final_index, float(pure[2]), float(final[2]))
             )
         return results
+
+
+def materialize_results(results: List[SentenceResult]) -> List[SentenceResult]:
+    """Plain Python values in every field (the reference's runner.py:804);
+    the port's results already hold them, so this only normalises types."""
+    return [
+        SentenceResult(r.sentence, int(r.pure_index), int(r.final_index), float(r.pure_iou), float(r.final_iou))
+        for r in results
+    ]

@@ -1,0 +1,376 @@
+"""Check every CUDA kernel of the port against its plain version on the card.
+
+The counterpart of the reference's ``tools/check_tpu_kernels.py``: each of
+the ten kernels runs at production geometry with bf16 inputs and TF32 off,
+beside its plain PyTorch version on the same inputs, and prints one
+PASS/FAIL line with its median time and the plain version's (CUDA events,
+median of 10 after 2 warm-up calls). The run ends with ``ALL PASS`` or
+``FAILURES``; the exit code is 0 only if every kernel passed.
+
+    python -m hybridgl_tpu_torch.tools.check_kernels [name ...]   (default: all)
+
+Bars (the reference check's, ``tools/check_tpu_kernels.py:144-183``):
+  * attention-type outputs: cos >= 0.999 and mean|d|/mean|plain| < 0.02;
+  * decoder logits (K4): max|d| < 0.1 and > 99.5% sign agreement;
+  * pass-1 stats: stability |d| <= 1e-3 and box edges within 1 px in bf16;
+    in f32 (``HYBRIDGL_STATS_BF16=0``) equal box edges and stability |d| <=
+    1e-4: the f32 sums differ only in order, which can move a pixel lying
+    within ~1e-6 of a threshold, and each such pixel moves a stability
+    score by 1/lo (lo ~ 1e4-1e5 pixels here).
+
+Geometry: SAM ViT-H attention (K1: 25 windows x 16 heads, S = 196, G = 14;
+K2 and K9: 16 heads, S = 4096, G = 64, hd = 80), CLIP ViT-B/16 (K6: 128
+streams x 12 heads, L = 197, hd = 64), the SAM decoder (C = 256, 8 heads x
+tp 8, S = 4096; B = 64 for K3/K4, 128 for K7/K8), pass 1 (K5: 192 RefCOCO
+candidates at C = 640 and a PhraseCut crop window at C = 1024; K10: 16
+points x 3 masks at C = 1024 and window (17, 5, 451, 633), and 192
+candidates at C = 640). The check needs a CUDA card; it refuses to run
+without one.
+"""
+
+from __future__ import annotations
+
+import os
+import statistics
+import sys
+
+import torch
+
+# name -> (CUDA source, the TPU kernel it replaces)
+KERNELS = {
+    "flash_windowed_fused": ("hybridgl_tpu_torch/csrc/attention.cu", "hybridgl_tpu/kernels/flash_attention.py:276"),
+    "flash_attention_fused": ("hybridgl_tpu_torch/csrc/attention.cu", "hybridgl_tpu/kernels/flash_attention.py:171"),
+    "pass1_stats_half": ("hybridgl_tpu_torch/csrc/pass1_stats.cu", "hybridgl_tpu/kernels/pass1_stats.py:257"),
+    "clip_attention": ("hybridgl_tpu_torch/csrc/attention.cu", "hybridgl_tpu/kernels/clip_attention.py:78"),
+    "i2t_ln_then_t2i": ("hybridgl_tpu_torch/csrc/decoder_attn.cu", "hybridgl_tpu/kernels/decoder_pass.py:209"),
+    "upscale_hyper_blocked": ("hybridgl_tpu_torch/csrc/upscale_hyper.cu", "hybridgl_tpu/kernels/upscale_hyper.py:153"),
+    "i2t_ln_update": ("hybridgl_tpu_torch/csrc/decoder_attn.cu", "hybridgl_tpu/kernels/decoder_attn.py:95"),
+    "t2i_ctx": ("hybridgl_tpu_torch/csrc/decoder_attn.cu", "hybridgl_tpu/kernels/decoder_attn_t2i.py:82"),
+    "flash_attention_rel_pos": ("hybridgl_tpu_torch/csrc/attention.cu", "hybridgl_tpu/kernels/flash_attention.py:78"),
+    "pass1_stats": ("hybridgl_tpu_torch/csrc/pass1_stats.cu", "hybridgl_tpu/kernels/pass1_stats.py:152"),
+}
+
+
+def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
+    """Median CUDA-event time of one call, in ms."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+class _Run:
+    """Inputs from one seeded generator on the card, and the verdicts."""
+
+    def __init__(self, dev, log):
+        self.dev = dev
+        self.gen = torch.Generator(device=dev).manual_seed(1)
+        self.log = log
+        self.results = {}
+
+    def randn(self, *shape, std=1.0, dtype=torch.bfloat16):
+        return (torch.randn(shape, generator=self.gen, device=self.dev) * std).to(dtype)
+
+    def verdict(self, label, ok, detail):
+        self.log(f"{'PASS' if ok else 'FAIL'} {label}: {detail}")
+        return ok
+
+    def attention(self, label, got, want):
+        """(ok, max|d|) under the attention bar."""
+        g, w = got.float().flatten(), want.float().flatten()
+        d = (g - w).abs()
+        finite = bool(g.isfinite().all())
+        cos = float((g @ w) / (g.norm() * w.norm() + 1e-30))
+        rel = float(d.mean() / (w.abs().mean() + 1e-30))
+        ok = finite and cos >= 0.999 and rel < 0.02
+        self.verdict(label, ok, f"cos {cos:.6f} mean|d|/mean|plain| {rel:.5f} max|d| {float(d.max()):.5f}"
+                     + ("" if finite else " NON-FINITE"))
+        return ok, float(d.max())
+
+    def record(self, name, ok, err, kernel, plain, shape):
+        ms, plain_ms = time_ms(kernel), time_ms(plain)
+        self.log(f"  {name} {shape}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+        prev = self.results.get(name)
+        if prev is None:
+            self.results[name] = dict(ok=ok, max_abs_err=err, ms=ms, plain_ms=plain_ms)
+        else:  # a second geometry of the same kernel: the JSON keeps the first's times
+            prev["ok"] = prev["ok"] and ok
+            prev["max_abs_err"] = max(prev["max_abs_err"], err)
+
+
+def _rel_pos(run: _Run):
+    """K1, K2 and K9 at ViT-H widths, nonzero rel terms, hd = 80."""
+    from ..kernels.flash_attention import (
+        flash_attention_fused,
+        flash_attention_rel_pos,
+        flash_windowed_fused,
+        reference_attention_rel_pos,
+    )
+
+    hd = 80
+    scale = hd**-0.5
+    for name, BH, G in (("flash_windowed_fused", 25 * 16, 14), ("flash_attention_fused", 16, 64),
+                        ("flash_attention_rel_pos", 16, 64)):
+        S = G * G
+        q, k, v = run.randn(BH, S, hd), run.randn(BH, S, hd), run.randn(BH, S, hd)
+        rh = run.randn(BH, S, G, std=0.5, dtype=torch.float32)
+        rw = run.randn(BH, S, G, std=0.5, dtype=torch.float32)
+        if name == "flash_attention_rel_pos":  # pre-scaled q, the TPU kernel's tiles
+            qs = (q.float() * scale).to(q.dtype)
+            kernel = lambda: flash_attention_rel_pos(qs, k, v, rh, rw, G, block_q=256, block_k=512)  # noqa: E731
+            plain = lambda: reference_attention_rel_pos(qs, k, v, rh, rw, G, 1.0)  # noqa: E731
+        else:
+            fn = flash_windowed_fused if name == "flash_windowed_fused" else flash_attention_fused
+            kernel = lambda: fn(q, k, v, rh, rw, G, scale)  # noqa: E731
+            plain = lambda: reference_attention_rel_pos(q, k, v, rh, rw, G, scale)  # noqa: E731
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        ok, err = run.attention(name, got, want)
+        run.record(name, ok, err, kernel, plain, f"[{BH}, {S}, {hd}] bf16")
+
+
+def _clip(run: _Run):
+    """K6: 2P = 128 crop streams x 12 heads, L = 197, hd = 64; the CLS-row
+    bias masks about half the patches with finfo(float32).min."""
+    from ..kernels.clip_attention import clip_attention, reference_clip_attention
+
+    N, H, L, hd = 128, 12, 197, 64
+    q, k, v = run.randn(N * H, L, hd), run.randn(N * H, L, hd), run.randn(N * H, L, hd)
+    allowed = torch.rand((N, L), generator=run.gen, device=run.dev) > 0.5
+    allowed[:, 0] = True
+    bias = torch.where(allowed, 0.0, torch.finfo(torch.float32).min).float().contiguous()
+    scale = hd**-0.5
+    kernel = lambda: clip_attention(q, k, v, bias, H, scale)  # noqa: E731
+    plain = lambda: reference_clip_attention(q, k, v, bias, H, scale)  # noqa: E731
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    ok, err = run.attention("clip_attention", got, want)
+    run.record("clip_attention", ok, err, kernel, plain, f"[{N * H}, {L}, {hd}] bf16")
+
+
+def _stats_verdict(run: _Run, label, got, want, exact):
+    """(ok, stability max|d|) under the pass-1 bar (``exact``: the f32 one)."""
+    from ..kernels.masks import box_from_profiles
+
+    (stab, ra, ca), (stab0, ra0, ca0) = got, want
+    ds = float((stab - stab0).abs().max())
+    db = float((box_from_profiles(ra, ca) - box_from_profiles(ra0, ca0)).abs().max())
+    finite = bool(torch.isfinite(stab).all())
+    ok = finite and bool(ra0.any()) and (ds <= 1e-4 and db == 0.0 if exact else ds <= 1e-3 and db <= 1.0)
+    run.verdict(label, ok, f"stability max|d| {ds:.2e}, box edge max|d| {db:.1f} px, "
+                f"live rows {int(ra0.any(-1).sum())}/{ra0.shape[0]}")
+    return ok, ds
+
+
+def _smooth_logits(run: _Run, B, n):
+    """Decoder-like low-res logits: a smooth field plus a little noise."""
+    coarse = torch.randn((B, 1, 12, 12), generator=run.gen, device=run.dev) * 4.0
+    low = torch.nn.functional.interpolate(coarse, size=(n, n), mode="bilinear")[:, 0]
+    return low + torch.randn((B, n, n), generator=run.gen, device=run.dev) * 0.1
+
+
+def _stats_dtype_env(bf16: bool):
+    os.environ["HYBRIDGL_STATS_BF16"] = "1" if bf16 else "0"
+
+
+def _pass1(run: _Run):
+    """K5 and K10, bf16 stats (the default) and f32."""
+    from ..kernels.pass1_stats import (
+        half_transform,
+        pass1_stats,
+        pass1_stats_half,
+        reference_pass1_stats_half,
+        stats_dtype,
+    )
+    from ..kernels.resize import _composed_axis_weights
+
+    saved = os.environ.get("HYBRIDGL_STATS_BF16")
+    try:
+        # RefCOCO: 64 points x 3 masks of 256^2 logits placed into the 640
+        # canonical frame of a 480x640 image (rh, rw = 768, 1024)
+        Bc, n, C, h, w = 192, 256, 640, 480, 640
+        low = _smooth_logits(run, Bc, n)
+        Wy = _composed_axis_weights(C, n, 1024, 768, 0, h, run.dev)
+        Wx = _composed_axis_weights(C, n, 1024, 1024, 0, w, run.dev)
+        window = (0, 0, h, w)
+        # PhraseCut: the window of a layer-1 crop of a 480x640 image at C = 1024
+        Cp, win_p = 1024, (159, 239, 321, 401)
+        Wy_p = _composed_axis_weights(Cp, n, 1024, 820, win_p[0], win_p[2], run.dev)
+        Wx_p = _composed_axis_weights(Cp, n, 1024, 1024, win_p[1], win_p[3], run.dev)
+        # the reference check's K10 geometry: 16 points x 3 masks, soft
+        # nonnegative weights, window (17, 5, 451, 633)
+        Br, Cr, win_r = 48, 1024, (17.0, 5.0, 451.0, 633.0)
+        low_r = torch.randn((Br, n, n), generator=run.gen, device=run.dev)
+        WxT_r = torch.relu(torch.randn((n, Cr), generator=run.gen, device=run.dev)) * 0.02
+        Wy_r = torch.relu(torch.randn((Cr, n), generator=run.gen, device=run.dev)) * 0.02
+
+        for bf16 in (True, False):
+            _stats_dtype_env(bf16)
+            tag = "bf16" if bf16 else "f32"
+            for (Wy_, Wx_, win, note) in ((Wy, Wx, window, f"C = {C}"), (Wy_p, Wx_p, win_p, f"crop window, C = {Cp}")):
+                tmp = half_transform(low, Wx_.T)
+                Wyd = Wy_.to(tmp.dtype)
+                kernel = lambda: pass1_stats_half(tmp, Wyd, win, 0.0, 1.0)  # noqa: E731
+                plain = lambda: reference_pass1_stats_half(tmp, Wyd, win, 0.0, 1.0)  # noqa: E731
+                ok, err = _stats_verdict(run, f"pass1_stats_half ({note}, {tag})", kernel(), plain(), not bf16)
+                if bf16:
+                    run.record("pass1_stats_half", ok, err, kernel, plain, f"[{Bc}, {n}, {Wy_.shape[0]}] {note} bf16")
+                else:
+                    run.results["pass1_stats_half"]["ok"] &= ok
+            for (low_, WxT_, Wy_, win, note) in ((low_r, WxT_r, Wy_r, win_r, f"B = {Br}, C = {Cr}"),
+                                                 (low, Wx.T, Wy, window, f"B = {Bc}, C = {C}")):
+                kernel = lambda: pass1_stats(low_, WxT_, Wy_, win, 0.0, 1.0)  # noqa: E731
+                plain = lambda: reference_pass1_stats_half(  # noqa: E731
+                    half_transform(low_, WxT_), Wy_.to(stats_dtype()), win, 0.0, 1.0)
+                ok, err = _stats_verdict(run, f"pass1_stats ({note}, {tag})", kernel(), plain(), not bf16)
+                if bf16:
+                    run.record("pass1_stats", ok, err, kernel, plain, f"low [{low_.shape[0]}, {n}, {n}] {note} bf16")
+                else:
+                    run.results["pass1_stats"]["ok"] &= ok
+    finally:
+        if saved is None:
+            os.environ.pop("HYBRIDGL_STATS_BF16", None)
+        else:
+            os.environ["HYBRIDGL_STATS_BF16"] = saved
+
+
+def _i2t_ops(run: _Run, B, Cq, C=256, heads=8, tp=8, T=7):
+    """Token-side operands of K3/K7 at SAM's decoder widths: w [B, Cq, 64]
+    f32, off (-1e30 on the padding lane t = 7), vo [B, 64, C] bf16, const/LN."""
+    f32 = torch.float32
+    off = run.randn(B, heads, tp, std=0.5, dtype=f32)
+    off[:, :, T:] = -1e30
+    return dict(w=run.randn(B, Cq, heads * tp, std=Cq**-0.5 * 2, dtype=f32), off=off.reshape(B, -1),
+                vo=run.randn(B, heads * tp, C, std=0.5), const=run.randn(C, std=0.1, dtype=f32),
+                ln_scale=1.0 + run.randn(C, std=0.1, dtype=f32), ln_bias=run.randn(C, std=0.1, dtype=f32))
+
+
+def _decoder(run: _Run):
+    """K3, K7, K8 and K4 at full width: C = 256, 8 heads, tp = 8 (GT = 64),
+    S = 4096; B = 64 (a pass-1 chunk) for K3/K4, B = 128 (PhraseCut's pass
+    2) for K7/K8."""
+    from ..kernels.decoder_attn import i2t_ln_update, reference_i2t_ln_update
+    from ..kernels.decoder_attn_t2i import reference_t2i_ctx, t2i_ctx
+    from ..kernels.decoder_pass import i2t_ln_then_t2i, reference_i2t_ln_then_t2i
+    from ..kernels.upscale_hyper import reference_upscale_hyper, upscale_hyper
+
+    f32, S, C = torch.float32, 4096, 256
+    # K3: pass A (shared once-projected queries [1, S, 128], raw image and pe
+    # [1, S, 256]) and pass B (per-prompt keys [64, S, 256]); the JSON line
+    # keeps pass B's times, the per-prompt stream
+    B = 64
+    pe = run.randn(1, S, C)
+    for mode, shared in (("pass B", False), ("pass A", True)):
+        Cq = 128 if shared else C
+        ops = _i2t_ops(run, B, Cq)
+        qside = run.randn(1 if shared else B, S, Cq)
+        base = run.randn(1, S, C) if shared else qside
+        qw = run.randn(B, C, 64, std=C**-0.5 * 2, dtype=f32)
+
+        def call(fn, qside=qside, base=base, ops=ops, qw=qw, shared=shared):
+            return fn(qside, base, pe, **ops, qw_next=qw, heads=8, tp=8, shared_qside=shared)
+
+        (keys, ctx), (keys0, ctx0) = call(i2t_ln_then_t2i), call(reference_i2t_ln_then_t2i)
+        torch.cuda.synchronize()
+        ok_k, err_k = run.attention(f"i2t_ln_then_t2i {mode} keys'", keys, keys0)
+        ok_c, err_c = run.attention(f"i2t_ln_then_t2i {mode} ctx", ctx, ctx0)
+        del keys, ctx, keys0, ctx0
+        run.record("i2t_ln_then_t2i", ok_k and ok_c, max(err_k, err_c), lambda: call(i2t_ln_then_t2i),
+                   lambda: call(reference_i2t_ln_then_t2i), f"{mode} B = {B}, qside [{qside.shape[0]}, {S}, {Cq}] bf16")
+
+    # K7 and K8 at PhraseCut's pass 2: P = 128 survivors, per-prompt keys
+    B = 128
+    keys = run.randn(B, S, C)
+    ops = _i2t_ops(run, B, C)
+    kernel = lambda: i2t_ln_update(keys, keys, **ops, heads=8, tp=8, pe=pe)  # noqa: E731
+    plain = lambda: reference_i2t_ln_update(keys, keys, **ops, heads=8, tp=8, pe=pe)  # noqa: E731
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    ok, err = run.attention("i2t_ln_update", got, want)
+    del got, want
+    run.record("i2t_ln_update", ok, err, kernel, plain, f"B = {B}, keys [{B}, {S}, {C}] + pe bf16")
+    qw = run.randn(B, C, 64, std=C**-0.5 * 2, dtype=f32)
+    qw[:, :, 7::8] = 0.0  # padding columns
+    kernel = lambda: t2i_ctx(keys, pe, qw)  # noqa: E731
+    plain = lambda: reference_t2i_ctx(keys, pe, qw)  # noqa: E731
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    ok, err = run.attention("t2i_ctx", got, want)
+    del got, want
+    run.record("t2i_ctx", ok, err, kernel, plain, f"B = {B}, keys [{B}, {S}, {C}] bf16 -> [{B}, 64, {C}]")
+    del keys
+
+    # K4: a pass-1 chunk's tail, B = 64, g = 64, c4 = 64, c8 = 32, m = 3
+    B = 64
+    args = (run.randn(B, S, C), run.randn(C, 256, std=C**-0.5, dtype=f32), run.randn(64, std=0.1, dtype=f32),
+            1.0 + run.randn(64, std=0.1, dtype=f32), run.randn(64, std=0.1, dtype=f32),
+            run.randn(64, 128, std=64**-0.5, dtype=f32), run.randn(32, std=0.1, dtype=f32),
+            run.randn(B, 3, 32, std=0.5))
+    got, want = upscale_hyper(*args), reference_upscale_hyper(*args)
+    torch.cuda.synchronize()
+    d = float((got - want).abs().max())
+    agree = float(((got > 0) == (want > 0)).float().mean())
+    ok = run.verdict("upscale_hyper_blocked", bool(torch.isfinite(got).all()) and d < 0.1 and agree > 0.995,
+                     f"logits max|d| {d:.5f}, sign agreement {agree:.6f}")
+    del got, want
+    run.record("upscale_hyper_blocked", ok, d, lambda: upscale_hyper(*args), lambda: reference_upscale_hyper(*args),
+               f"src [{B}, {S}, {C}] bf16 -> [{B}, 3, 256, 256] f32")
+
+
+# each group checks the kernels it names
+_GROUPS = (
+    (("flash_windowed_fused", "flash_attention_fused", "flash_attention_rel_pos"), _rel_pos),
+    (("clip_attention",), _clip),
+    (("pass1_stats_half", "pass1_stats"), _pass1),
+    (("i2t_ln_then_t2i", "i2t_ln_update", "t2i_ctx", "upscale_hyper_blocked"), _decoder),
+)
+
+
+def run_checks(names=None, log=print) -> dict:
+    """Check the named kernels (default: all ten) on the card.
+
+    Returns {name: dict(ok, max_abs_err, ms, plain_ms)}; raises where no
+    CUDA card is present."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("check_kernels needs a CUDA card; torch.cuda.is_available() is False")
+    unknown = set(names or ()) - set(KERNELS)
+    if unknown:
+        raise ValueError(f"unknown kernels {sorted(unknown)}; choose from {list(KERNELS)}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    run = _Run(torch.device("cuda"), log)
+    wanted = set(names or KERNELS)
+    for group, check in _GROUPS:
+        if wanted & set(group):
+            check(run)
+            torch.cuda.empty_cache()
+    return {k: v for k, v in run.results.items() if k in wanted}
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    if not torch.cuda.is_available():
+        print("check_kernels: no CUDA card (torch.cuda.is_available() is False); nothing was checked",
+              file=sys.stderr)
+        return 2
+    import subprocess
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip().splitlines()
+    print(f"card: {smi[0] if smi else torch.cuda.get_device_name(0)}", flush=True)
+    results = run_checks(argv or None, log=lambda m: print(m, flush=True))
+    failed = [k for k, v in results.items() if not v["ok"]]
+    print("ALL PASS" if not failed else f"FAILURES: {failed}")
+    return 0 if not failed else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,5 +1,5 @@
-"""The port's CLIP (G2L fusion, text encoder) and GEM against the JAX package
-on CPU, f32, same weights.
+"""The port's CLIP (the six fusion modes, text encoder) and GEM against the
+JAX package on CPU, f32, same weights.
 
 The tiny CLIP has L = 17 tokens, so the reference's fusion blocks route to
 its clip_attention Pallas kernel (interpret mode) and the port's to K6's
@@ -42,9 +42,12 @@ def params():
     return cfg, tree, jax.tree_util.tree_map(jnp.asarray, tree), from_numpy_tree(tree)
 
 
-@pytest.mark.parametrize("masking_block", [0, 1])
-def test_hybrid_forward_g2l_matches_jax(params, masking_block):
+def run_both(params, fusion_mode, masking_block, compat=None):
+    """(port, JAX) hybrid features for one mode on the same seeded inputs."""
+    from hybridgl_tpu.core.config import CompatConfig
+
     cfg, _, jp, tp = params
+    compat = compat or CompatConfig()
     rng = np.random.default_rng(1)
     P, S = 5, cfg.image_size
     local = rng.standard_normal((P, S, S, 3)).astype(np.float32)
@@ -54,21 +57,50 @@ def test_hybrid_forward_g2l_matches_jax(params, masking_block):
     hw = (40, 44)
     want = jax_hybrid_forward(
         jp["visual"], jnp.asarray(local), jnp.asarray(glob), jnp.asarray(masks, jnp.float32), cfg,
-        fusion_mode="G2L", masking_block=masking_block, masks_hw=hw,
+        fusion_mode=fusion_mode, masking_block=masking_block, compat=compat, masks_hw=hw,
     )
     got = hybrid_forward(
         tp["visual"], torch.from_numpy(local), torch.from_numpy(glob), torch.from_numpy(masks).float(), cfg,
-        fusion_mode="G2L", masking_block=masking_block, masks_hw=hw,
+        fusion_mode=fusion_mode, masking_block=masking_block, compat=compat, masks_hw=hw,
     )
-    assert np.isfinite(got.numpy()).all()
-    assert np.abs(got.numpy() - np.asarray(want)).max() <= TOL
+    return got.numpy(), np.asarray(want)
 
 
-def test_hybrid_forward_other_modes_not_ported(params):
+@pytest.mark.parametrize("masking_block", [0, 1])
+def test_hybrid_forward_g2l_matches_jax(params, masking_block):
+    got, want = run_both(params, "G2L", masking_block)
+    assert np.isfinite(got).all()
+    assert np.abs(got - want).max() <= TOL
+
+
+@pytest.mark.parametrize(
+    "fusion_mode,early_exit",
+    [
+        ("crop", True),
+        ("token_masking", True),
+        ("attn_masking", True),
+        ("attn_masking", False),
+        ("L2G", True),
+        ("G2L", True),
+        ("G2L&L2G", True),
+    ],
+)
+def test_hybrid_forward_modes_match_jax(params, fusion_mode, early_exit):
+    """Every fusion mode (attn_masking also without the reference's early
+    exit) against the JAX package's, same weights and inputs."""
+    from hybridgl_tpu.core.config import CompatConfig
+
+    got, want = run_both(params, fusion_mode, 1, CompatConfig(attn_masking_early_exit=early_exit))
+    assert got.shape == want.shape
+    assert np.isfinite(got).all()
+    assert np.abs(got - want).max() <= TOL
+
+
+def test_hybrid_forward_unknown_mode_raises(params):
     cfg, _, _, tp = params
     x = torch.zeros((1, cfg.image_size, cfg.image_size, 3))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        hybrid_forward(tp["visual"], x, x, torch.zeros((1, 8, 8)), cfg, fusion_mode="L2G")
+    with pytest.raises(ValueError, match="fusion mode"):
+        hybrid_forward(tp["visual"], x, x, torch.zeros((1, 8, 8)), cfg, fusion_mode="L2G2L")
 
 
 def test_encode_text_and_score_match_jax(params):

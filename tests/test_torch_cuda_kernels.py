@@ -1,5 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card,
-at small and ragged shapes (partial tiles, every supported head dim; for the
+at small and ragged shapes (partial tiles, every supported head dim, K9's
+TPU tiles, K10's ragged n, n2 and C; for the
 decoder kernels S = 300, tp in {8, 16}, heads in {2, 8}, Cq != C, B = 3), in
 f32 and bf16. Marked ``cuda``; each test skips where no CUDA card is present.
 Run on a machine with a card:
@@ -19,10 +20,16 @@ from hybridgl_tpu_torch.kernels.decoder_attn_t2i import reference_t2i_ctx, t2i_c
 from hybridgl_tpu_torch.kernels.decoder_pass import i2t_ln_then_t2i, reference_i2t_ln_then_t2i
 from hybridgl_tpu_torch.kernels.flash_attention import (
     flash_attention_fused,
+    flash_attention_rel_pos,
     flash_windowed_fused,
     reference_attention_rel_pos,
 )
-from hybridgl_tpu_torch.kernels.pass1_stats import pass1_stats_half, reference_pass1_stats_half
+from hybridgl_tpu_torch.kernels.pass1_stats import (
+    half_transform,
+    pass1_stats,
+    pass1_stats_half,
+    reference_pass1_stats_half,
+)
 from hybridgl_tpu_torch.kernels.resize import _composed_axis_weights
 from hybridgl_tpu_torch.kernels.upscale_hyper import reference_upscale_hyper, upscale_hyper
 
@@ -87,6 +94,46 @@ def test_pass1_stats_half(dev, monkeypatch, bf16, window):
     s, r, c = pass1_stats_half(tmp, Wy, window, 0.0, 1.0)
     dt = torch.bfloat16 if bf16 == "1" else torch.float32
     s0, r0, c0 = reference_pass1_stats_half(tmp.to(dt), Wy.to(dt), window, 0.0, 1.0)
+    assert float((s - s0).abs().max()) <= 1e-3
+    assert float((r != r0).float().mean()) <= 0.01 and float((c != c0).float().mean()) <= 0.01
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G,hd,block_q,block_k", [(8, 8, 16, 16), (8, 16, 32, 64), (14, 80, 196, 196), (64, 80, 256, 512)])
+def test_flash_attention_rel_pos(dev, dtype, G, hd, block_q, block_k):
+    """K9: pre-scaled q, rel terms in q's dtype (widened by the wrapper)."""
+    g = torch.Generator(device=dev).manual_seed(G + hd)
+    BH, S = 3 if G < 64 else 2, G * G
+    q, k, v = (torch.randn((BH, S, hd), generator=g, device=dev).to(dtype) for _ in range(3))
+    q = (q.float() * hd**-0.5).to(dtype)
+    rh, rw = ((torch.randn((BH, S, G), generator=g, device=dev) * 0.5).to(dtype) for _ in range(2))
+    before = flash_attention_rel_pos.launches
+    got = flash_attention_rel_pos(q, k, v, rh, rw, G, block_q=block_q, block_k=block_k)
+    assert flash_attention_rel_pos.launches == before + 1
+    assert got.dtype == dtype
+    close(got, reference_attention_rel_pos(q, k, v, rh.float(), rw.float(), G, 1.0), dtype)
+
+
+@pytest.mark.parametrize("bf16", ["0", "1"])
+@pytest.mark.parametrize(
+    "n,n2,C,window",
+    [(16, 16, 64, (0, 0, 48, 40)), (40, 33, 96, (7, 3, 30, 55)), (256, 256, 300, (17, 5, 200, 250))],
+)
+def test_pass1_stats_full(dev, monkeypatch, bf16, n, n2, C, window):
+    """K10 against half_transform + the plain stats: ragged n (padding of the
+    column block), n2 and C, windows off the origin."""
+    monkeypatch.setenv("HYBRIDGL_STATS_BF16", bf16)
+    g = torch.Generator(device=dev).manual_seed(n + C)
+    B = 7
+    low = torch.randn((B, n, n2), generator=g, device=dev) * 2.0
+    Wy = _composed_axis_weights(C, n, 128, 115, window[0], window[2], dev)
+    WxT = _composed_axis_weights(C, n2, 128, 100, window[1], window[3], dev).T.contiguous()
+    before = pass1_stats.launches
+    s, r, c = pass1_stats(low, WxT, Wy, window, 0.0, 1.0)
+    assert pass1_stats.launches == before + 1
+    dt = torch.bfloat16 if bf16 == "1" else torch.float32
+    s0, r0, c0 = reference_pass1_stats_half(half_transform(low, WxT), Wy.to(dt), window, 0.0, 1.0)
+    assert bool(r0.any())
     assert float((s - s0).abs().max()) <= 1e-3
     assert float((r != r0).float().mean()) <= 0.01 and float((c != c0).float().mean()) <= 0.01
 
@@ -191,6 +238,16 @@ def test_wrappers_raise_on_bad_input(dev):
         flash_attention_fused(q, q, q, r.half(), r.half(), 8, 1.0)
     with pytest.raises(ValueError, match="contiguous"):
         flash_attention_fused(q.transpose(1, 2).contiguous().transpose(1, 2), q, q, r, r, 8, 1.0)
+    with pytest.raises(ValueError, match="block_k"):  # K9: the TPU tiles as the reference asserts them
+        flash_attention_rel_pos(q, q, q, r, r, 8, block_q=16, block_k=12)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention_rel_pos(q[..., :12].contiguous(), q[..., :12].contiguous(), q[..., :12].contiguous(), r, r,
+                                8, block_q=16, block_k=16)
+    low = torch.zeros((2, 4096, 16), device=dev)  # K10: the column block does not fit in shared memory
+    with pytest.raises(ValueError, match="shared memory"):
+        pass1_stats(low, torch.zeros((16, 64), device=dev), torch.zeros((64, 4096), device=dev), (0, 0, 8, 8), 0.0, 1.0)
+    with pytest.raises(ValueError, match="Wy"):
+        pass1_stats(low, torch.zeros((16, 64), device=dev), torch.zeros((64, 16), device=dev), (0, 0, 8, 8), 0.0, 1.0)
     ops, r = dec_operands(dev, torch.float32, DEC_C, 2, 8, 0)
     keys = r(DEC_B, DEC_S, DEC_C)
     with pytest.raises(ValueError, match="contiguous"):

@@ -37,13 +37,13 @@ class WordTokenizer:
         return [sum(map(ord, w)) % 97 + 1 for w in text.split()][:40]
 
 
-@pytest.fixture(scope="module")
-def pipelines():
+def build_pipelines(fusion_mode):
+    """(cfg, JAX pipeline, port pipeline) on the same tiny random weights."""
     clip_cfg, sam_cfg = tiny_clip_config(), tiny_sam_config()
     cfg = PipelineConfig(
         clip_config=clip_cfg,
         sam_config=sam_cfg,
-        fusion_mode="G2L",
+        fusion_mode=fusion_mode,
         canonical_size=32,
         crop_size=clip_cfg.image_size,
         amg=AmgConfig(points_per_side=4, points_per_batch=8, pred_iou_thresh=0.0,
@@ -67,6 +67,11 @@ def pipelines():
         parser=HeuristicParser(), tokenizer=WordTokenizer(), device="cpu",
     )
     return cfg, jax_pipe, port_pipe
+
+
+@pytest.fixture(scope="module")
+def pipelines():
+    return build_pipelines("G2L")
 
 
 def make_sample(module, seed, canonical=32, h=24, w=32, img=64):
@@ -105,8 +110,28 @@ def test_run_image_matches_jax(pipelines):
         np.testing.assert_allclose([float(v) for v in acc_t], [float(v) for v in acc_j], rtol=1e-6)
 
 
+def test_run_image_l2g_matches_jax():
+    """A mode other than G2L end to end (as tests/test_pipeline_e2e.py runs
+    L2G): same selections, IoUs within 1e-4, equal accumulators."""
+    cfg, jax_pipe, port_pipe = build_pipelines("L2G")
+    js, ts = jax_pipe.init_state(), port_pipe.init_state()
+    for seed in (0, 1):
+        want = jrunner.materialize_results(jax_pipe.run_image(make_sample(jrunner, seed), js))
+        got = port_pipe.run_image(make_sample(runner, seed), ts)
+        assert port_pipe.last_proposals.num > 0
+        assert [(r.pure_index, r.final_index) for r in got] == [(r.pure_index, r.final_index) for r in want]
+        for a, b in zip(got, want):
+            assert abs(a.pure_iou - b.pure_iou) <= 1e-4 and abs(a.final_iou - b.final_iou) <= 1e-4
+    for acc_t, acc_j in ((ts.pure, js.pure), (ts.final, js.final)):
+        np.testing.assert_allclose([float(v) for v in acc_t], [float(v) for v in acc_j], rtol=1e-6)
+
+
 def test_port_imports_no_jax():
-    code = "import hybridgl_tpu_torch.pipeline.runner, sys; assert 'jax' not in sys.modules, 'jax imported'"
+    code = (
+        "import sys, hybridgl_tpu_torch.pipeline.runner, hybridgl_tpu_torch.cli.main, hybridgl_tpu_torch.cli.demo, "
+        "hybridgl_tpu_torch.data.datasets, hybridgl_tpu_torch.tools.check_kernels; "
+        "assert 'jax' not in sys.modules, 'jax imported'"
+    )
     env = dict(os.environ, PYTHONPATH=REPO)
     done = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True, text=True)
     assert done.returncode == 0, done.stderr
