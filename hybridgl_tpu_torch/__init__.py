@@ -4,22 +4,27 @@ The JAX package ``hybridgl_tpu`` is the reference; this package mirrors its
 layout and function names module for module, so every port module has an
 obvious counterpart:
 
-  core/      parameter trees (same keys and shapes as the reference's)
+  core/      typed configs and parameter trees (same fields, keys and
+             shapes as the reference's)
   kernels/   hand-written sm_90a CUDA kernels (csrc/) behind thin wrappers,
              each with a plain PyTorch version beside it, plus the plain
              tensor primitives (resize, blur, NMS, mask analytics)
   models/    sam (encoder, prompt encoder, decoder, AMG), clip (ViT, text,
              the six fusion modes), gem
   pipeline/  crops, guidance, host cleanup and the runner
-  data/      REFER / PhraseCut datasets
+  data/      REFER / PhraseCut datasets, the REFER API, RLE codec, prefetcher
+  lang/      expression parsers
+  native/    C++ sources of the region cleanup and the RLE codec
+  utils/     env flags, the host-compiler build of native/
   eval/      IoU accumulators, result log, progress checkpoints
   cli/       the evaluation CLI and the demo (python -m hybridgl_tpu_torch.cli.main)
   tools/     check_kernels: every CUDA kernel against its plain version
 
-The port imports ``torch`` and never ``jax``. It reuses only the
-reference's jax-free modules (configs, tokenizer, expression parser, the
-native region-cleanup binding, env helpers, the REFER API, RLE codec,
-prefetcher, parity log and overlays). A kernel wrapper runs its
+The port imports ``torch`` and never ``jax``, and nothing of
+``hybridgl_tpu``: of the reference's jax-free modules (configs, tokenizer
+with its vocabulary, expression parsers, the native region-cleanup binding,
+env helpers, the REFER API, RLE codec, prefetcher, parity log and overlays)
+it keeps its own copy under the same relative path. A kernel wrapper runs its
 plain version for a CPU tensor and launches its CUDA kernel (or raises) for
 a CUDA tensor.
 """

@@ -15,7 +15,7 @@ import sys
 import numpy as np
 from PIL import Image
 
-from hybridgl_tpu.core.config import AmgConfig, PipelineConfig
+from ..core.config import AmgConfig, PipelineConfig
 
 from ..data.datasets import build_image_sample
 from ..pipeline.runner import HybridGLPipeline, materialize_results
@@ -24,7 +24,7 @@ from .main import load_params, resolve_device
 
 def overlay(image: np.ndarray, mask: np.ndarray, alpha: float = 0.5) -> np.ndarray:
     """Green overlay + contour, like the reference viz (demo.py:211-220)."""
-    from hybridgl_tpu.eval.viz import overlay_mask
+    from ..eval.viz import overlay_mask
 
     return overlay_mask(image, mask, color=(0, 255, 0), alpha=alpha)
 
@@ -49,7 +49,7 @@ def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
     device = resolve_device(args.device)
     if "test-tiny" in (args.clip_model, args.sam_model):
-        from hybridgl_tpu.core.config import tiny_smoke_config
+        from ..core.config import tiny_smoke_config
 
         cfg = tiny_smoke_config(fusion_mode=args.fusion_mode)
     else:

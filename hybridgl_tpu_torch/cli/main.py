@@ -25,8 +25,8 @@ import time
 
 import torch
 
-from hybridgl_tpu.core.config import AMG_PHRASECUT, AMG_REFCOCO, PipelineConfig
-from hybridgl_tpu.eval.parity import ParityLog, SelectionRecord
+from ..core.config import AMG_PHRASECUT, AMG_REFCOCO, PipelineConfig
+from ..eval.parity import ParityLog, SelectionRecord
 
 from ..core.params import cast_tree, from_numpy_tree, init_clip, init_sam, load_npz
 from ..eval.logging import ProgressCheckpoint, write_result_log
@@ -125,11 +125,11 @@ def build_config(args) -> PipelineConfig:
         canonical_size=1024 if dataset == "phrasecut" else 640,
     )
     if args.clip_model == "test-tiny" or args.sam_model == "test-tiny":
-        from hybridgl_tpu.core.config import tiny_smoke_config
+        from ..core.config import tiny_smoke_config
 
         cfg = tiny_smoke_config(fusion_mode=args.fusion_mode, min_mask_region_area=amg.min_mask_region_area)
     if args.no_bug_compat:
-        from hybridgl_tpu.core.config import CompatConfig
+        from ..core.config import CompatConfig
 
         cfg = cfg.replace(compat=CompatConfig(False, False, False))
     args.splitBy = split_by  # the reference overrides the flag (Hybridgl_main.py:26-29)
@@ -176,7 +176,7 @@ def main(argv=None) -> None:
     start = progress.load(state) if args.resume else 0
     parity = ParityLog(meta=dict(dataset=args.dataset, split=args.split, fusion=args.fusion_mode))
 
-    from hybridgl_tpu.data.prefetch import IndexedPrefetcher
+    from ..data.prefetch import IndexedPrefetcher
 
     profiling = args.profile or args.trace_dir
     activities = [torch.profiler.ProfilerActivity.CPU]
@@ -229,7 +229,7 @@ def _save_result_overlays(log_dir, index, sample, results, props):
     demo.py:211-220 style), for the first 50 images."""
     import numpy as np
 
-    from hybridgl_tpu.eval.viz import save_overlay
+    from ..eval.viz import save_overlay
 
     out_dir = os.path.join(log_dir, "results_viz")
     os.makedirs(out_dir, exist_ok=True)

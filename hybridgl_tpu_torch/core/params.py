@@ -21,7 +21,7 @@ from typing import Iterator
 import numpy as np
 import torch
 
-from hybridgl_tpu.core.config import ClipConfig, SamConfig
+from ..core.config import ClipConfig, SamConfig
 
 
 class _Init:

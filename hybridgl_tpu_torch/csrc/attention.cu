@@ -239,13 +239,24 @@ int dispatch_hd(const void* q, const void* k, const void* v, const float* a,
 
 extern "C" {
 
+// attention_wgmma.cu: the tensor-core kernels for bf16 operands
+int hgl_rel_pos_tc_takes(int S, int HD, int G);
+int hgl_rel_pos_attention_tc(const void* q, const void* k, const void* v, const float* rel_h,
+                             const float* rel_w, void* out, int BH, int S, int HD, int G, float scale,
+                             void* stream);
+
 // K1, K2 and K9: decomposed rel-pos attention. is_bf16 selects bf16 or f32
-// q/k/v/out. Returns a cudaError_t code (0 = launched).
+// q/k/v/out. bf16 operands go to the tensor-core kernels where those take
+// the geometry (hd 64 or 80; G = 64, or S <= 256); f32 operands and every
+// other geometry run the CUDA-core kernel above. Returns a cudaError_t code
+// (0 = launched).
 int hgl_rel_pos_attention(const void* q, const void* k, const void* v,
                           const float* rel_h, const float* rel_w, void* out, int BH,
                           int S, int HD, int G, float scale, int is_bf16,
                           void* stream) {
   if (G < 1 || G > 64) return (int)cudaErrorInvalidValue;
+  if (is_bf16 && hgl_rel_pos_tc_takes(S, HD, G))
+    return hgl_rel_pos_attention_tc(q, k, v, rel_h, rel_w, out, BH, S, HD, G, scale, stream);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return is_bf16 ? dispatch_hd<__nv_bfloat16, REL_POS>(q, k, v, rel_h, rel_w, out, BH, S,
                                                        HD, G, 1, scale, st)

@@ -1,13 +1,11 @@
 """Dataset adapters: REFER / PhraseCut -> the port's ImageSample bundles
 (port of hybridgl_tpu/data/datasets.py).
 
-Framework-free iterators over the reference's jax-free REFER API
-(``hybridgl_tpu/data/refer.py``) and RLE codec (``hybridgl_tpu/data/rle.py``);
-they give the port's :class:`~hybridgl_tpu_torch.pipeline.runner.ImageSample`
-with numpy fields holding the same values as the reference's. The
-reference's module cannot be imported here: it reaches jax through its
-pipeline runner. ``hybridgl_tpu/data/prefetch.py`` overlaps host decode with
-device work for either package.
+Framework-free iterators over the port's copies of the REFER API
+(``data/refer.py``) and the RLE codec (``data/rle.py``); they give the
+port's :class:`~hybridgl_tpu_torch.pipeline.runner.ImageSample` with numpy
+fields holding the same values as the reference's. ``data/prefetch.py``
+overlaps host decode with device work.
 """
 
 from __future__ import annotations
@@ -19,8 +17,8 @@ from typing import Dict, Iterator, List, Optional
 import numpy as np
 from PIL import Image
 
-from hybridgl_tpu.data import rle as rle_codec
-from hybridgl_tpu.data.refer import REFER
+from ..data import rle as rle_codec
+from ..data.refer import REFER
 
 from ..pipeline.runner import ImageSample
 

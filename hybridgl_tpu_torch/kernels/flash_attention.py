@@ -1,6 +1,12 @@
 """Decomposed relative-position attention for the SAM image encoder (K1, K2, K9).
 
-The three wrappers launch one CUDA kernel (``csrc/attention.cu``, REL_POS mode):
+The three wrappers share one C entry point. For bf16 operands with head dim
+64 or 80 it launches the tensor-core kernels of ``csrc/attention_wgmma.cu``:
+the stream kernel where G = 64 (K2, K9), the resident kernel where S <= 256
+(K1). f32 operands, the other head dims (8, 16, 32) and every other bf16
+geometry run the CUDA-core kernel of ``csrc/attention.cu`` (REL_POS mode),
+which is exact in f32. The dispatch is by dtype and shape alone, inside the C
+entry point:
 
   * :func:`flash_windowed_fused` replaces the Pallas kernel of the same name
     (``hybridgl_tpu/kernels/flash_attention.py:276``): the 28 windowed ViT-H
@@ -22,8 +28,10 @@ Inputs are q, k, v [BH, S, hd] (bf16 or f32, unscaled q) and the two rank-G
 terms rel_h, rel_w [BH, S, G] in f32; the output is [BH, S, hd] in q's dtype.
 On a CPU tensor the wrappers run :func:`reference_attention_rel_pos`, the
 plain PyTorch version of the same function; on a CUDA tensor they launch the
-kernel or raise. What bounds the kernel on the card, and its design, are
-described in the CUDA source.
+kernel or raise. What bounds the kernels on the card, and their design, are
+described in the CUDA sources. The tensor-core kernels round the scaled q and
+the probabilities to bf16 (the latter is where the Pallas kernels round them
+too); the bias and all sums stay in f32.
 """
 
 from __future__ import annotations
@@ -67,6 +75,8 @@ def _check(name, q, k, v, rel_h, rel_w, grid_side):
             raise ValueError(f"{name}: tensors on different devices")
         if not t.is_contiguous():
             raise ValueError(f"{name}: inputs must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: inputs must be 16-byte aligned (the kernels load 16 bytes a thread)")
 
 
 def _rel_pos_call(wrapper, q, k, v, rel_h, rel_w, grid_side, scale):
@@ -106,9 +116,10 @@ def flash_attention_rel_pos(q, k, v, rel_h, rel_w, grid_side: int, block_q: int 
     output is in q's dtype. ``block_q`` and ``block_k`` are the TPU kernel's
     tiles: they do not change the result and are only checked as the
     reference asserts them (S == G**2, S % block_q == 0, S % block_k == 0,
-    block_k % G == 0). The CUDA kernel tiles by 64 whatever they are, and
-    keeps the probabilities in f32 where the reference rounds them to v's
-    dtype before the PV product (in f32 the two agree exactly)."""
+    block_k % G == 0). The CUDA kernels tile by 64 whatever they are. In
+    bf16 at hd 64 or 80 the probabilities are rounded to v's dtype before the
+    PV product, as the reference does; the f32 kernel keeps them in f32 (in
+    f32 the two agree exactly)."""
     BH, S, _ = q.shape
     G = grid_side
     if S != G * G:

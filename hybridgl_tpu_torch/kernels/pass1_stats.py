@@ -28,7 +28,7 @@ from __future__ import annotations
 
 import torch
 
-from hybridgl_tpu.utils.env import env_flag
+from ..utils.env import env_flag
 
 from . import _build
 

@@ -25,7 +25,7 @@ from __future__ import annotations
 
 import torch
 
-from hybridgl_tpu.core.config import ClipConfig, CompatConfig
+from ...core.config import ClipConfig, CompatConfig
 
 from ...kernels.resize import resize_bilinear
 from .layers import allowed_mask_to_bias

@@ -5,7 +5,7 @@ from __future__ import annotations
 
 import torch
 
-from hybridgl_tpu.core.config import ClipConfig
+from ...core.config import ClipConfig
 
 from .layers import layer_norm, residual_attention_block
 

@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-from hybridgl_tpu.core.config import ClipConfig
+from ...core.config import ClipConfig
 
 from .layers import layer_norm, residual_attention_block
 

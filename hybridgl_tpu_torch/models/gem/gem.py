@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from hybridgl_tpu.core.config import ClipConfig, GemConfig
+from ...core.config import ClipConfig, GemConfig
 
 from ...kernels.resize import resize_bilinear
 from ..clip.layers import layer_norm, linear, quick_gelu

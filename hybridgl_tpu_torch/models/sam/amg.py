@@ -31,7 +31,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from hybridgl_tpu.core.config import AmgConfig, SamConfig
+from ...core.config import AmgConfig, SamConfig
 
 from ...kernels.masks import box_from_profiles, box_near_crop_edge
 from ...kernels.nms import kept_in_score_order, nms

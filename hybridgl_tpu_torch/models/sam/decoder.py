@@ -34,8 +34,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from hybridgl_tpu.core.config import SamConfig
-from hybridgl_tpu.utils.env import env_flag
+from ...core.config import SamConfig
+from ...utils.env import env_flag
 
 from ...kernels.decoder_attn import i2t_ln_update
 from ...kernels.decoder_attn_t2i import t2i_ctx

@@ -18,7 +18,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from hybridgl_tpu.core.config import SamConfig
+from ...core.config import SamConfig
 
 from ...kernels.flash_attention import (
     flash_attention_fused,

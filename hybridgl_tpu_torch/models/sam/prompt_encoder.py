@@ -10,7 +10,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from hybridgl_tpu.core.config import SamConfig
+from ...core.config import SamConfig
 
 
 def _pe_encode(p, coords01: torch.Tensor) -> torch.Tensor:

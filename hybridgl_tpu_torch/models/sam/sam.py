@@ -4,7 +4,7 @@ from __future__ import annotations
 
 import torch
 
-from hybridgl_tpu.core.config import SamConfig
+from ...core.config import SamConfig
 
 from .decoder import predict_masks
 from .image_encoder import encode_image

@@ -6,11 +6,12 @@ below it), then re-run NMS scoring unchanged masks 1 and changed ones 0, so
 duplicates the cleanup created go, untouched masks preferred (reference:
 automatic_mask_generator.py:323-372 + utils/amg.py:267-291).
 
-The connected components run in the reference's native library
-(``hybridgl_tpu/native/region_cleanup.cpp`` through
-``hybridgl_tpu.pipeline.postprocess_native.cleanup_batch``), built with
-``make`` on first use. The reference prefers cv2 where it is importable;
-the port always runs the native pass and raises if it cannot be built.
+The connected components run in the port's copy of the reference's native
+library (``native/region_cleanup.cpp`` through
+``postprocess_native.cleanup_batch``), built by the host compiler into
+``hybridgl_tpu_torch/_build/`` on first use. The reference prefers cv2 where
+it is importable; the port always runs the native pass and raises if it
+cannot be built.
 """
 
 from __future__ import annotations
@@ -20,9 +21,10 @@ import os
 
 import numpy as np
 
-from hybridgl_tpu.pipeline import postprocess_native
+from . import postprocess_native
 
 from ..models.sam.amg import Proposals
+from ..utils import native_build
 
 
 _FORCE = "HYBRIDGL_FORCE_NATIVE_CLEANUP"
@@ -38,11 +40,11 @@ def _native_cleanup():
     os.environ[_FORCE] = "1"
     postprocess_native._lib, postprocess_native._tried = None, False
     try:
+        # build here first, so that a missing or failing compiler raises with
+        # its own message (get_lib only reports that there is no library)
+        lib_path = native_build.build(postprocess_native._SOURCE)
         if postprocess_native.get_lib() is None:
-            raise RuntimeError(
-                "native region cleanup unavailable: building hybridgl_tpu/native/libregion.so "
-                "needs make and a C++17 compiler"
-            )
+            raise RuntimeError(f"native region cleanup unavailable: {lib_path} was built but could not be loaded")
         yield
     finally:
         postprocess_native._lib, postprocess_native._tried = saved[:2]

@@ -30,8 +30,8 @@ from typing import Iterable, List, NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
-from hybridgl_tpu.core.config import PipelineConfig
-from hybridgl_tpu.lang import ExpressionParser, HeuristicParser, ParsedExpression
+from ..core.config import PipelineConfig
+from ..lang import ExpressionParser, HeuristicParser, ParsedExpression
 
 from ..eval.metrics import IoUAccum, accumulate, mask_iou
 from ..kernels.masks import box_xyxy_to_xywh
@@ -93,7 +93,7 @@ class HybridGLPipeline:
         self.clip_params = clip_params
         self.parser = parser or HeuristicParser(rela_right_bug=cfg.compat.rela_right_bug)
         if tokenizer is None:
-            from hybridgl_tpu.models.clip.tokenizer import default_tokenizer
+            from ..models.clip.tokenizer import default_tokenizer
 
             tokenizer = default_tokenizer()
         self.tokenizer = tokenizer
@@ -232,7 +232,7 @@ class HybridGLPipeline:
 
     # --------------------------------------------------------------- host
     def _tokenize_parsed(self, parsed: ParsedExpression):
-        from hybridgl_tpu.models.clip import tokenizer as tok
+        from ..models.clip import tokenizer as tok
 
         K = self.cfg.guidance.max_other_nouns
         L = self.cfg.clip.context_length

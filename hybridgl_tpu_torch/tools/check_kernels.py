@@ -4,8 +4,15 @@ The counterpart of the reference's ``tools/check_tpu_kernels.py``: each of
 the ten kernels runs at production geometry with bf16 inputs and TF32 off,
 beside its plain PyTorch version on the same inputs, and prints one
 PASS/FAIL line with its median time and the plain version's (CUDA events,
-median of 10 after 2 warm-up calls). The run ends with ``ALL PASS`` or
-``FAILURES``; the exit code is 0 only if every kernel passed.
+median of 10 after 2 warm-up calls). Each time stands beside the kernel's
+bound, the least time the card could take for the same work
+(:func:`kernel_work` and :func:`bound_ms`: operations over the bf16
+tensor-core peak or bytes over the memory rate, whichever is larger), and,
+for the four attention kernels, beside the one PyTorch call that computes
+the same function (``scaled_dot_product_attention`` with the bias
+materialised as ``attn_mask``). That call is a yardstick only: nothing else
+in the port calls it. The run ends with ``ALL PASS`` or ``FAILURES``; the
+exit code is 0 only if every kernel passed.
 
     python -m hybridgl_tpu_torch.tools.check_kernels [name ...]   (default: all)
 
@@ -38,17 +45,70 @@ import torch
 
 # name -> (CUDA source, the TPU kernel it replaces)
 KERNELS = {
-    "flash_windowed_fused": ("hybridgl_tpu_torch/csrc/attention.cu", "hybridgl_tpu/kernels/flash_attention.py:276"),
-    "flash_attention_fused": ("hybridgl_tpu_torch/csrc/attention.cu", "hybridgl_tpu/kernels/flash_attention.py:171"),
+    "flash_windowed_fused": ("hybridgl_tpu_torch/csrc/attention_wgmma.cu", "hybridgl_tpu/kernels/flash_attention.py:276"),
+    "flash_attention_fused": ("hybridgl_tpu_torch/csrc/attention_wgmma.cu", "hybridgl_tpu/kernels/flash_attention.py:171"),
     "pass1_stats_half": ("hybridgl_tpu_torch/csrc/pass1_stats.cu", "hybridgl_tpu/kernels/pass1_stats.py:257"),
     "clip_attention": ("hybridgl_tpu_torch/csrc/attention.cu", "hybridgl_tpu/kernels/clip_attention.py:78"),
     "i2t_ln_then_t2i": ("hybridgl_tpu_torch/csrc/decoder_attn.cu", "hybridgl_tpu/kernels/decoder_pass.py:209"),
     "upscale_hyper_blocked": ("hybridgl_tpu_torch/csrc/upscale_hyper.cu", "hybridgl_tpu/kernels/upscale_hyper.py:153"),
     "i2t_ln_update": ("hybridgl_tpu_torch/csrc/decoder_attn.cu", "hybridgl_tpu/kernels/decoder_attn.py:95"),
     "t2i_ctx": ("hybridgl_tpu_torch/csrc/decoder_attn.cu", "hybridgl_tpu/kernels/decoder_attn_t2i.py:82"),
-    "flash_attention_rel_pos": ("hybridgl_tpu_torch/csrc/attention.cu", "hybridgl_tpu/kernels/flash_attention.py:78"),
+    "flash_attention_rel_pos": ("hybridgl_tpu_torch/csrc/attention_wgmma.cu", "hybridgl_tpu/kernels/flash_attention.py:78"),
     "pass1_stats": ("hybridgl_tpu_torch/csrc/pass1_stats.cu", "hybridgl_tpu/kernels/pass1_stats.py:152"),
 }
+
+
+# published peaks of one H100 SXM: dense bf16 on the tensor cores, HBM3
+PEAK_BF16_FLOPS = 989e12
+PEAK_BYTES_PER_S = 3.35e12
+
+
+def kernel_work(name: str, **d) -> tuple[int, int]:
+    """(operations, bytes) one call of kernel ``name`` needs at the shapes
+    ``d``: multiply-adds count 2, every input byte is read once and every
+    output byte written once. Where the work depends on the data (the
+    placement window of the pass-1 stats) it is what these inputs need.
+
+    Shapes: the attention kernels take BH, S, hd, esize (bytes per q/k/v
+    element) and G (rel-pos) or N (CLS-row bias rows); the pass-1 stats B, n,
+    C, dh, dw (window extent), esize (stats dtype) and, full mode, n2; the
+    decoder kernels B, S, C, Cq, GT, shared (qside and base are [1, S, .]);
+    K4 B, S, C, c4, c8, m."""
+    if name in ("flash_windowed_fused", "flash_attention_fused", "flash_attention_rel_pos"):
+        BH, S, hd, G, e = d["BH"], d["S"], d["hd"], d["G"], d["esize"]
+        return 4 * BH * S * S * hd, 4 * BH * S * hd * e + 2 * BH * S * G * 4
+    if name == "clip_attention":
+        BH, S, hd, N, e = d["BH"], d["S"], d["hd"], d["N"], d["esize"]
+        return 4 * BH * S * S * hd, 4 * BH * S * hd * e + N * S * 4
+    if name in ("pass1_stats_half", "pass1_stats"):
+        B, n, C, dh, dw, e = d["B"], d["n"], d["C"], d["dh"], d["dw"], d["esize"]
+        out = B * 2 * 4 + 2 * B * C  # the two counts, the row and column flags
+        if name == "pass1_stats_half":  # tmp's window columns, Wy's window rows
+            return 2 * B * dh * dw * n, B * n * dw * e + dh * n * e + out
+        n2 = d["n2"]
+        return 2 * B * n * n2 * dw + 2 * B * dh * dw * n, B * n * n2 * 4 + n2 * dw * 4 + dh * n * 4 + out
+    if name in ("i2t_ln_then_t2i", "i2t_ln_update", "t2i_ctx"):
+        B, S, C, Cq, GT, e = d["B"], d["S"], d["C"], d["Cq"], d["GT"], 2
+        rows = 1 if d.get("shared") else B
+        small = B * Cq * GT * 4 + B * GT * 4 + B * GT * C * e + 3 * C * 4  # w, off, vo, const and LN
+        if name == "t2i_ctx":  # scores against qw, then the context sum
+            return 4 * B * S * GT * C, B * S * C * e + S * C * e + B * C * GT * 4 + B * GT * C * 4
+        i2t_ops = 2 * B * S * GT * (Cq + C)
+        i2t_bytes = rows * S * Cq * e + (S * C * e if d.get("shared") else 0) + S * C * e + small + B * S * C * e
+        if name == "i2t_ln_update":
+            return i2t_ops, i2t_bytes
+        return i2t_ops + 4 * B * S * GT * C, i2t_bytes + B * C * GT * 4 + B * GT * C * 4
+    if name == "upscale_hyper_blocked":
+        B, S, C, c4, c8, m = d["B"], d["S"], d["C"], d["c4"], d["c8"], d["m"]
+        ops = B * S * (2 * C * 4 * c4 + 4 * 2 * c4 * 4 * c8 + 16 * 2 * c8 * m)
+        return ops, B * S * C * 2 + C * 4 * c4 * 4 + c4 * 4 * c8 * 4 + B * m * c8 * 2 + B * m * 16 * S * 4
+    raise ValueError(f"unknown kernel {name}")
+
+
+def bound_ms(operations: int, nbytes: int) -> tuple[float, str]:
+    """The least time the card could take, in ms, and what sets it."""
+    by_ops, by_bytes = operations / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+    return (by_ops, "operations") if by_ops >= by_bytes else (by_bytes, "bytes")
 
 
 def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
@@ -95,19 +155,33 @@ class _Run:
                      + ("" if finite else " NON-FINITE"))
         return ok, float(d.max())
 
-    def record(self, name, ok, err, kernel, plain, shape):
+    def record(self, name, ok, err, kernel, plain, shape, work, library=None):
+        """Times the kernel, its plain version and, where there is one, the
+        library call; ``work`` is :func:`kernel_work`'s shape arguments."""
         ms, plain_ms = time_ms(kernel), time_ms(plain)
-        self.log(f"  {name} {shape}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+        library_ms = time_ms(library) if library is not None else None
+        bound, by = bound_ms(*kernel_work(name, **work))
+        self.log(f"  {name} {shape}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, library "
+                 + (f"{library_ms:.3f} ms" if library is not None else "no single call")
+                 + f", bound {bound:.4f} ms by {by} ({100 * bound / ms:.1f}% of bound)")
         prev = self.results.get(name)
         if prev is None:
-            self.results[name] = dict(ok=ok, max_abs_err=err, ms=ms, plain_ms=plain_ms)
+            self.results[name] = dict(ok=ok, max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                                      library_ms=library_ms)
         else:  # a second geometry of the same kernel: the JSON keeps the first's times
             prev["ok"] = prev["ok"] and ok
             prev["max_abs_err"] = max(prev["max_abs_err"], err)
 
 
+def _sdpa(q, k, v, mask, scale):
+    """The library yardstick: one fused-attention call with the bias as a mask."""
+    return torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=scale)
+
+
 def _rel_pos(run: _Run):
-    """K1, K2 and K9 at ViT-H widths, nonzero rel terms, hd = 80."""
+    """K1, K2 and K9 at ViT-H widths, nonzero rel terms, hd = 80. The
+    library call reads the [BH, S, S] bias in bf16 (537 MB for K2 and K9),
+    built outside the timed region."""
     from ..kernels.flash_attention import (
         flash_attention_fused,
         flash_attention_rel_pos,
@@ -134,7 +208,13 @@ def _rel_pos(run: _Run):
         got, want = kernel(), plain()
         torch.cuda.synchronize()
         ok, err = run.attention(name, got, want)
-        run.record(name, ok, err, kernel, plain, f"[{BH}, {S}, {hd}] bf16")
+        del got, want
+        mask = (rh[:, :, :, None] + rw[:, :, None, :]).reshape(BH, S, S).to(q.dtype)
+        lq, lscale = (qs, 1.0) if name == "flash_attention_rel_pos" else (q, scale)
+        run.record(name, ok, err, kernel, plain, f"[{BH}, {S}, {hd}] bf16",
+                   dict(BH=BH, S=S, hd=hd, G=G, esize=2), library=lambda: _sdpa(lq, k, v, mask, lscale))
+        del mask
+        torch.cuda.empty_cache()
 
 
 def _clip(run: _Run):
@@ -153,7 +233,11 @@ def _clip(run: _Run):
     got, want = kernel(), plain()
     torch.cuda.synchronize()
     ok, err = run.attention("clip_attention", got, want)
-    run.record("clip_attention", ok, err, kernel, plain, f"[{N * H}, {L}, {hd}] bf16")
+    mask = torch.zeros((N, H, L, L), dtype=q.dtype, device=run.dev)
+    mask[:, :, 0, :] = bias[:, None, :].to(q.dtype)  # the CLS row only
+    mask = mask.reshape(N * H, L, L)
+    run.record("clip_attention", ok, err, kernel, plain, f"[{N * H}, {L}, {hd}] bf16",
+               dict(BH=N * H, S=L, hd=hd, N=N, esize=2), library=lambda: _sdpa(q, k, v, mask, scale))
 
 
 def _stats_verdict(run: _Run, label, got, want, exact):
@@ -222,7 +306,8 @@ def _pass1(run: _Run):
                 plain = lambda: reference_pass1_stats_half(tmp, Wyd, win, 0.0, 1.0)  # noqa: E731
                 ok, err = _stats_verdict(run, f"pass1_stats_half ({note}, {tag})", kernel(), plain(), not bf16)
                 if bf16:
-                    run.record("pass1_stats_half", ok, err, kernel, plain, f"[{Bc}, {n}, {Wy_.shape[0]}] {note} bf16")
+                    run.record("pass1_stats_half", ok, err, kernel, plain, f"[{Bc}, {n}, {Wy_.shape[0]}] {note} bf16",
+                               dict(B=Bc, n=n, C=Wy_.shape[0], dh=int(win[2]), dw=int(win[3]), esize=2))
                 else:
                     run.results["pass1_stats_half"]["ok"] &= ok
             for (low_, WxT_, Wy_, win, note) in ((low_r, WxT_r, Wy_r, win_r, f"B = {Br}, C = {Cr}"),
@@ -232,7 +317,8 @@ def _pass1(run: _Run):
                     half_transform(low_, WxT_), Wy_.to(stats_dtype()), win, 0.0, 1.0)
                 ok, err = _stats_verdict(run, f"pass1_stats ({note}, {tag})", kernel(), plain(), not bf16)
                 if bf16:
-                    run.record("pass1_stats", ok, err, kernel, plain, f"low [{low_.shape[0]}, {n}, {n}] {note} bf16")
+                    run.record("pass1_stats", ok, err, kernel, plain, f"low [{low_.shape[0]}, {n}, {n}] {note} bf16",
+                               dict(B=low_.shape[0], n=n, n2=n, C=Wy_.shape[0], dh=int(win[2]), dw=int(win[3]), esize=2))
                 else:
                     run.results["pass1_stats"]["ok"] &= ok
     finally:
@@ -284,7 +370,8 @@ def _decoder(run: _Run):
         ok_c, err_c = run.attention(f"i2t_ln_then_t2i {mode} ctx", ctx, ctx0)
         del keys, ctx, keys0, ctx0
         run.record("i2t_ln_then_t2i", ok_k and ok_c, max(err_k, err_c), lambda: call(i2t_ln_then_t2i),
-                   lambda: call(reference_i2t_ln_then_t2i), f"{mode} B = {B}, qside [{qside.shape[0]}, {S}, {Cq}] bf16")
+                   lambda: call(reference_i2t_ln_then_t2i), f"{mode} B = {B}, qside [{qside.shape[0]}, {S}, {Cq}] bf16",
+                   dict(B=B, S=S, C=C, Cq=Cq, GT=64, shared=shared))
 
     # K7 and K8 at PhraseCut's pass 2: P = 128 survivors, per-prompt keys
     B = 128
@@ -296,7 +383,8 @@ def _decoder(run: _Run):
     torch.cuda.synchronize()
     ok, err = run.attention("i2t_ln_update", got, want)
     del got, want
-    run.record("i2t_ln_update", ok, err, kernel, plain, f"B = {B}, keys [{B}, {S}, {C}] + pe bf16")
+    run.record("i2t_ln_update", ok, err, kernel, plain, f"B = {B}, keys [{B}, {S}, {C}] + pe bf16",
+               dict(B=B, S=S, C=C, Cq=C, GT=64))
     qw = run.randn(B, C, 64, std=C**-0.5 * 2, dtype=f32)
     qw[:, :, 7::8] = 0.0  # padding columns
     kernel = lambda: t2i_ctx(keys, pe, qw)  # noqa: E731
@@ -305,7 +393,8 @@ def _decoder(run: _Run):
     torch.cuda.synchronize()
     ok, err = run.attention("t2i_ctx", got, want)
     del got, want
-    run.record("t2i_ctx", ok, err, kernel, plain, f"B = {B}, keys [{B}, {S}, {C}] bf16 -> [{B}, 64, {C}]")
+    run.record("t2i_ctx", ok, err, kernel, plain, f"B = {B}, keys [{B}, {S}, {C}] bf16 -> [{B}, 64, {C}]",
+               dict(B=B, S=S, C=C, Cq=C, GT=64))
     del keys
 
     # K4: a pass-1 chunk's tail, B = 64, g = 64, c4 = 64, c8 = 32, m = 3
@@ -322,8 +411,12 @@ def _decoder(run: _Run):
                      f"logits max|d| {d:.5f}, sign agreement {agree:.6f}")
     del got, want
     run.record("upscale_hyper_blocked", ok, d, lambda: upscale_hyper(*args), lambda: reference_upscale_hyper(*args),
-               f"src [{B}, {S}, {C}] bf16 -> [{B}, 3, 256, 256] f32")
+               f"src [{B}, {S}, {C}] bf16 -> [{B}, 3, 256, 256] f32", dict(B=B, S=S, C=C, c4=64, c8=32, m=3))
 
+
+# what run_checks reports for each kernel (library_ms is None where no
+# single PyTorch call computes the kernel's function)
+RESULT_KEYS = ("ok", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 
 # each group checks the kernels it names
 _GROUPS = (
@@ -337,8 +430,8 @@ _GROUPS = (
 def run_checks(names=None, log=print) -> dict:
     """Check the named kernels (default: all ten) on the card.
 
-    Returns {name: dict(ok, max_abs_err, ms, plain_ms)}; raises where no
-    CUDA card is present."""
+    Returns {name: dict of RESULT_KEYS}; raises where no CUDA card is
+    present."""
     if not torch.cuda.is_available():
         raise RuntimeError("check_kernels needs a CUDA card; torch.cuda.is_available() is False")
     unknown = set(names or ()) - set(KERNELS)

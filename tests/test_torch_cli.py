@@ -15,16 +15,17 @@ from hybridgl_tpu.core.config import AmgConfig, GemConfig, PipelineConfig
 from hybridgl_tpu.data.datasets import ReferDataset as JaxReferDataset
 from hybridgl_tpu.eval.logging import write_result_log as jax_write_result_log
 from hybridgl_tpu.eval.metrics import IoUAccum as JaxIoUAccum
-from hybridgl_tpu.lang import HeuristicParser
 from hybridgl_tpu_torch.cli.main import main as cli_main
 from hybridgl_tpu_torch.core.params import init_clip, init_sam
 from hybridgl_tpu_torch.data.datasets import ReferDataset, build_image_sample
 from hybridgl_tpu_torch.eval.logging import ProgressCheckpoint, write_result_log
 from hybridgl_tpu_torch.eval.metrics import IoUAccum
+from hybridgl_tpu_torch.lang import HeuristicParser
 from hybridgl_tpu_torch.pipeline import runner
 
 from test_data_layer import refer_root  # noqa: F401 (fixture)
 from test_torch_pipeline import WordTokenizer, make_sample
+from torch_port_config import to_port
 from torch_ref import tiny_clip_config
 from torch_ref_sam import tiny_sam_config
 
@@ -70,9 +71,9 @@ def port_pipeline():
                       max_proposals=8),
         gem=GemConfig(img_size=32, depth=2),
     )
-    cfg = cfg.replace(guidance=cfg.guidance.__class__(masking_block=clip_cfg.vision_layers - 2))
+    cfg = to_port(cfg.replace(guidance=cfg.guidance.__class__(masking_block=clip_cfg.vision_layers - 2)))
     g = torch.Generator().manual_seed(0)
-    return runner.HybridGLPipeline(cfg, init_sam(g, sam_cfg), init_clip(g, clip_cfg), parser=HeuristicParser(),
+    return runner.HybridGLPipeline(cfg, init_sam(g, cfg.sam), init_clip(g, cfg.clip), parser=HeuristicParser(),
                                    tokenizer=WordTokenizer(), device="cpu")
 
 
@@ -138,7 +139,7 @@ def test_cli_flags_and_config_match_reference(argv):
     assert a.device == "cuda"
     del a.device
     assert vars(a) == vars(b)
-    assert build_config(a) == jax_build_config(b) and a.splitBy == b.splitBy
+    assert build_config(a) == to_port(jax_build_config(b)) and a.splitBy == b.splitBy
 
 
 def tiny_cli_args(refer_root, tmp_path, *extra):

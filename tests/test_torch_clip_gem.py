@@ -23,6 +23,8 @@ from hybridgl_tpu_torch.models.clip.fusion import calculate_score, hybrid_forwar
 from hybridgl_tpu_torch.models.clip.text import encode_text
 from hybridgl_tpu_torch.models.gem.gem import gem_image_features
 
+from torch_port_config import to_port
+
 TOL = 1e-4
 
 
@@ -60,8 +62,8 @@ def run_both(params, fusion_mode, masking_block, compat=None):
         fusion_mode=fusion_mode, masking_block=masking_block, compat=compat, masks_hw=hw,
     )
     got = hybrid_forward(
-        tp["visual"], torch.from_numpy(local), torch.from_numpy(glob), torch.from_numpy(masks).float(), cfg,
-        fusion_mode=fusion_mode, masking_block=masking_block, compat=compat, masks_hw=hw,
+        tp["visual"], torch.from_numpy(local), torch.from_numpy(glob), torch.from_numpy(masks).float(),
+        to_port(cfg), fusion_mode=fusion_mode, masking_block=masking_block, compat=to_port(compat), masks_hw=hw,
     )
     return got.numpy(), np.asarray(want)
 
@@ -100,7 +102,7 @@ def test_hybrid_forward_unknown_mode_raises(params):
     cfg, _, _, tp = params
     x = torch.zeros((1, cfg.image_size, cfg.image_size, 3))
     with pytest.raises(ValueError, match="fusion mode"):
-        hybrid_forward(tp["visual"], x, x, torch.zeros((1, 8, 8)), cfg, fusion_mode="L2G2L")
+        hybrid_forward(tp["visual"], x, x, torch.zeros((1, 8, 8)), to_port(cfg), fusion_mode="L2G2L")
 
 
 def test_encode_text_and_score_match_jax(params):
@@ -113,7 +115,7 @@ def test_encode_text_and_score_match_jax(params):
         tokens[i, 1 : 1 + n] = rng.integers(1, cfg.vocab_size - 2, n)
         tokens[i, 1 + n] = cfg.vocab_size - 1  # EOT: the highest id
     want = np.asarray(jax_encode_text(jp["text"], jnp.asarray(tokens), cfg))
-    got = encode_text(tp["text"], torch.from_numpy(tokens), cfg).numpy()
+    got = encode_text(tp["text"], torch.from_numpy(tokens), to_port(cfg)).numpy()
     assert np.abs(got - want).max() <= TOL
     feats = rng.standard_normal((6, cfg.embed_dim)).astype(np.float32)
     from hybridgl_tpu.models.clip.fusion import calculate_score as jax_calculate_score
@@ -128,7 +130,7 @@ def test_gem_image_features_match_jax(params):
     gem = GemConfig(img_size=64, depth=2)
     img = np.random.default_rng(3).standard_normal((2, 64, 64, 3)).astype(np.float32)
     want_pf, want_cls, want_g = jax_gem_image_features(jp["visual"], jnp.asarray(img), cfg, gem)
-    got_pf, got_cls, got_g = gem_image_features(tp["visual"], torch.from_numpy(img), cfg, gem)
+    got_pf, got_cls, got_g = gem_image_features(tp["visual"], torch.from_numpy(img), to_port(cfg), to_port(gem))
     assert got_g == want_g
     assert np.abs(got_pf.numpy() - np.asarray(want_pf)).max() <= TOL
     assert np.abs(got_cls.numpy() - np.asarray(want_cls)).max() <= TOL

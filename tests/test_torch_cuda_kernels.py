@@ -67,6 +67,77 @@ def test_rel_pos_attention(dev, dtype, fn, G, hd):
     close(got, reference_attention_rel_pos(q, k, v, rh, rw, G, hd**-0.5), dtype)
 
 
+@pytest.mark.parametrize("fn,BH,G,hd", [
+    (flash_windowed_fused, 400, 14, 80),  # K1 at ViT-H: 25 windows x 16 heads, the resident kernel
+    (flash_attention_fused, 16, 64, 80),  # K2 at ViT-H: the stream kernel
+    (flash_windowed_fused, 7, 14, 64),    # ragged S = 196 at the other tensor-core head dim
+    (flash_attention_fused, 3, 64, 64),
+    (flash_windowed_fused, 5, 8, 80),     # S = 64: one query tile, one key tile
+    (flash_windowed_fused, 5, 16, 64),    # S = 256: the largest resident S, four full key tiles
+    (flash_windowed_fused, 5, 5, 80),     # S = 25: keys padded to 32
+    (flash_attention_fused, 4, 32, 80),   # G = 32, S = 1024: bf16 outside the tensor-core kernels' geometry
+])
+def test_rel_pos_attention_bf16_tensor_core(dev, fn, BH, G, hd):
+    """The bf16 geometries of the tensor-core kernels (and one beside them)
+    against the f32 plain version, at the kernel check's attention bar."""
+    g = torch.Generator(device=dev).manual_seed(BH + G + hd)
+    S = G * G
+    q, k, v = (torch.randn((BH, S, hd), generator=g, device=dev).bfloat16() for _ in range(3))
+    rh, rw = (torch.randn((BH, S, G), generator=g, device=dev) * 0.5 for _ in range(2))
+    got = fn(q, k, v, rh, rw, G, hd**-0.5).float().flatten()
+    torch.cuda.synchronize()
+    want = reference_attention_rel_pos(q.float(), k.float(), v.float(), rh, rw, G, hd**-0.5).flatten()
+    assert torch.isfinite(got).all()
+    assert float(got @ want / (got.norm() * want.norm())) >= 0.999
+    assert float((got - want).abs().mean() / want.abs().mean()) < 0.02
+
+
+@pytest.mark.parametrize("G,hd", [(5, 80), (8, 80), (8, 64), (12, 80), (12, 64), (13, 80)])
+def test_rel_pos_resident_short_sequences_under_load(dev, G, hd):
+    """One to three key tiles (S = 25, 64, 144, 169) with thousands of
+    window-heads in flight, so that the K/V copies really lag the first
+    product: every output element is held to the plain version, not only
+    the mean, since a tile read before it landed spoils single rows."""
+    BH, S = 2400, G * G
+    g = torch.Generator(device=dev).manual_seed(G * hd)
+    q, k, v = (torch.randn((BH, S, hd), generator=g, device=dev).bfloat16() for _ in range(3))
+    rh, rw = (torch.randn((BH, S, G), generator=g, device=dev) * 0.5 for _ in range(2))
+    want = reference_attention_rel_pos(q.float(), k.float(), v.float(), rh, rw, G, hd**-0.5)
+    for _ in range(3):
+        got = flash_windowed_fused(q, k, v, rh, rw, G, hd**-0.5).float()
+        torch.cuda.synchronize()
+        assert torch.isfinite(got).all()
+        assert float((got - want).abs().max()) < 0.05
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rel_pos_entries_count_one_launch_each(dev, dtype):
+    """The bf16 (tensor-core) and f32 (CUDA-core) entries each count one
+    launch per call, on the wrapper that was called and on no other."""
+    g = torch.Generator(device=dev).manual_seed(0)
+    G, hd, BH = 14, 80, 3
+    q, k, v = (torch.randn((BH, G * G, hd), generator=g, device=dev).to(dtype) for _ in range(3))
+    rh, rw = (torch.randn((BH, G * G, G), generator=g, device=dev) * 0.5 for _ in range(2))
+    wrappers = (flash_windowed_fused, flash_attention_fused, flash_attention_rel_pos)
+    for fn in wrappers:
+        before = [w.launches for w in wrappers]
+        if fn is flash_attention_rel_pos:
+            fn(q, k, v, rh, rw, G, block_q=196, block_k=196)
+        else:
+            fn(q, k, v, rh, rw, G, hd**-0.5)
+        assert [w.launches - b for w, b in zip(wrappers, before)] == [int(w is fn) for w in wrappers]
+
+
+def test_rel_pos_attention_rejects_misaligned(dev):
+    G, hd = 8, 64
+    buf = torch.zeros(3 * G * G * hd + 1, device=dev, dtype=torch.bfloat16)
+    q = buf[1:].view(3, G * G, hd)  # contiguous, 2 bytes off a 16-byte boundary
+    k = v = torch.zeros((3, G * G, hd), device=dev, dtype=torch.bfloat16)
+    rh = rw = torch.zeros((3, G * G, G), device=dev)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_windowed_fused(q, k, v, rh, rw, G, hd**-0.5)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("L,hd,with_bias", [(17, 16, True), (65, 64, True), (197, 64, False)])
 def test_clip_attention(dev, dtype, L, hd, with_bias):

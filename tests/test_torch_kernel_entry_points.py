@@ -147,3 +147,82 @@ def test_k10_rejects_mismatched_shapes():
         pass1_stats(t(low), t(WxT[:-1]), t(Wy), (0, 0, 48, 40), 0.0, 1.0)
     with pytest.raises(ValueError, match="Wy"):
         pass1_stats(t(low), t(WxT), t(Wy[:, :-1]), (0, 0, 48, 40), 0.0, 1.0)
+
+
+# ---- the kernel check's work model and result schema (no card needed) --------
+
+
+@pytest.mark.parametrize("name,shape,ops,nbytes,ms,by", [
+    # K2: 16 heads x [4096, 80], G = 64: 4 S^2 hd BH operations; q, k, v, out
+    # in bf16 (41.9 MB) and the two f32 rel terms (33.6 MB)
+    ("flash_attention_fused", dict(BH=16, S=4096, hd=80, G=64, esize=2),
+     4 * 4096 * 4096 * 80 * 16, 4 * 16 * 4096 * 80 * 2 + 2 * 16 * 4096 * 64 * 4, 0.087, "operations"),
+    # K1: 400 window-heads x [196, 80], G = 14: 50.2 MB + 8.8 MB
+    ("flash_windowed_fused", dict(BH=400, S=196, hd=80, G=14, esize=2),
+     4 * 196 * 196 * 80 * 400, 4 * 400 * 196 * 80 * 2 + 2 * 400 * 196 * 14 * 4, 0.018, "bytes"),
+    # K6: 1536 stream-heads x [197, 64], one f32 bias row per stream
+    ("clip_attention", dict(BH=1536, S=197, hd=64, N=128, esize=2),
+     4 * 197 * 197 * 64 * 1536, 4 * 1536 * 197 * 64 * 2 + 128 * 197 * 4, 0.046, "bytes"),
+])
+def test_kernel_work_matches_hand_worked_figures(name, shape, ops, nbytes, ms, by):
+    from hybridgl_tpu_torch.tools.check_kernels import bound_ms, kernel_work
+
+    assert kernel_work(name, **shape) == (ops, nbytes)
+    got_ms, got_by = bound_ms(ops, nbytes)
+    assert got_by == by and abs(got_ms - ms) < 0.0006
+    assert got_ms == max(ops / 989e12, nbytes / 3.35e12) * 1e3
+
+
+def test_kernel_work_covers_every_kernel():
+    """Every kernel of the table has a work model; the decoder and pass-1
+    figures land where a hand count puts them."""
+    from hybridgl_tpu_torch.tools.check_kernels import KERNELS, kernel_work
+
+    shapes = {
+        "flash_windowed_fused": dict(BH=400, S=196, hd=80, G=14, esize=2),
+        "flash_attention_fused": dict(BH=16, S=4096, hd=80, G=64, esize=2),
+        "flash_attention_rel_pos": dict(BH=16, S=4096, hd=80, G=64, esize=2),
+        "clip_attention": dict(BH=1536, S=197, hd=64, N=128, esize=2),
+        "pass1_stats_half": dict(B=192, n=256, C=640, dh=480, dw=640, esize=2),
+        "pass1_stats": dict(B=48, n=256, n2=256, C=1024, dh=451, dw=633, esize=2),
+        "i2t_ln_then_t2i": dict(B=64, S=4096, C=256, Cq=256, GT=64),
+        "i2t_ln_update": dict(B=128, S=4096, C=256, Cq=256, GT=64),
+        "t2i_ctx": dict(B=128, S=4096, C=256, Cq=256, GT=64),
+        "upscale_hyper_blocked": dict(B=64, S=4096, C=256, c4=64, c8=32, m=3),
+    }
+    assert set(shapes) == set(KERNELS)
+    work = {name: kernel_work(name, **shape) for name, shape in shapes.items()}
+    assert all(ops > 0 and nbytes > 0 for ops, nbytes in work.values())
+    assert work["flash_attention_rel_pos"] == work["flash_attention_fused"]
+    # K3 pass B: four [S, 64] x [64 or 256, 256] products per prompt, ~34 GFLOP;
+    # the per-prompt keys in and out (268 MB) dominate its 285 MB
+    assert work["i2t_ln_then_t2i"][0] == 2 * 64 * 4096 * 64 * (256 + 3 * 256)
+    assert 2 * 64 * 4096 * 256 * 2 < work["i2t_ln_then_t2i"][1] < 1.1 * 2 * 64 * 4096 * 256 * 2
+    # a shared query side is read once, not once per prompt
+    shared = kernel_work("i2t_ln_then_t2i", B=64, S=4096, C=256, Cq=128, GT=64, shared=True)
+    assert shared[1] < work["i2t_ln_then_t2i"][1] - 64 * 4096 * 256
+    # K7 + K8 do K3's operations between them
+    assert work["i2t_ln_update"][0] + work["t2i_ctx"][0] == 2 * work["i2t_ln_then_t2i"][0]
+    # K4: two deconvs and the hyper rows per source pixel, ~52 GFLOP
+    assert work["upscale_hyper_blocked"][0] == 64 * 4096 * (2 * 256 * 256 + 4 * 2 * 64 * 128 + 16 * 2 * 32 * 3)
+    # K5: only the window's rows and columns are computed
+    assert work["pass1_stats_half"][0] == 2 * 192 * 480 * 640 * 256
+    assert kernel_work("pass1_stats_half", B=192, n=256, C=1024, dh=162, dw=162, esize=2)[0] < work["pass1_stats_half"][0] / 5
+    with pytest.raises(ValueError):
+        kernel_work("no_such_kernel")
+
+
+def test_run_checks_schema_and_refusal():
+    """run_checks reports library_ms and bound_ms for every kernel, and
+    refuses to run without a card."""
+    import inspect
+
+    from hybridgl_tpu_torch.tools import check_kernels
+
+    assert {"ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err", "ok"} == set(check_kernels.RESULT_KEYS)
+    record = inspect.getsource(check_kernels._Run.record)
+    assert all(f"{key}=" in record for key in check_kernels.RESULT_KEYS)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA card"):
+            check_kernels.run_checks()
+        assert check_kernels.main([]) == 2

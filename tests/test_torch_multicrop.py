@@ -23,11 +23,13 @@ from hybridgl_tpu.models.sam import amg as jamg
 from hybridgl_tpu.pipeline import runner as jrunner
 from hybridgl_tpu_torch.core.params import from_numpy_tree
 from hybridgl_tpu_torch.kernels.resize import place_region
+from hybridgl_tpu_torch.lang import HeuristicParser as PortHeuristicParser
 from hybridgl_tpu_torch.models.sam import amg
 from hybridgl_tpu_torch.pipeline import runner
 
 from test_torch_pipeline import WordTokenizer, make_sample
 from test_torch_sam import jax_tree, noisy_params
+from torch_port_config import to_port
 from torch_ref import tiny_clip_config
 from torch_ref_sam import tiny_sam_config
 
@@ -76,7 +78,7 @@ def test_generate_proposals_multicrop_matches_jax():
     want = jamg.generate_proposals_multicrop(jax_tree(params), jnp.asarray(img), rh, rw, jnp.asarray(imgc), h, w,
                                              cfg, AMG_MC, canonical)
     got = amg.generate_proposals_multicrop(from_numpy_tree(params), torch.from_numpy(img), rh, rw,
-                                           torch.from_numpy(imgc), h, w, cfg, AMG_MC, canonical)
+                                           torch.from_numpy(imgc), h, w, to_port(cfg), to_port(AMG_MC), canonical)
     assert got.num == int(want.num) and got.num > 0
     assert got.overflow == int(want.overflow)
     np.testing.assert_array_equal(got.valid.numpy(), np.asarray(want.valid))
@@ -103,8 +105,8 @@ def test_run_image_multicrop_matches_jax():
     clip_np, sam_np = to_np(init_clip(keys[0], clip_cfg)), to_np(init_sam(keys[1], sam_cfg))
     jax_pipe = jrunner.HybridGLPipeline(cfg, jax_tree(sam_np), jax_tree(clip_np), parser=HeuristicParser(),
                                         tokenizer=WordTokenizer())
-    port_pipe = runner.HybridGLPipeline(cfg, from_numpy_tree(sam_np), from_numpy_tree(clip_np),
-                                        parser=HeuristicParser(), tokenizer=WordTokenizer(), device="cpu")
+    port_pipe = runner.HybridGLPipeline(to_port(cfg), from_numpy_tree(sam_np), from_numpy_tree(clip_np),
+                                        parser=PortHeuristicParser(), tokenizer=WordTokenizer(), device="cpu")
     js, ts = jax_pipe.init_state(), port_pipe.init_state()
     want = jrunner.materialize_results(jax_pipe.run_image(make_sample(jrunner, 5), js))
     got = port_pipe.run_image(make_sample(runner, 5), ts)

@@ -24,6 +24,8 @@ from hybridgl_tpu_torch.models.sam import amg
 from hybridgl_tpu_torch.models.sam.decoder import predict_masks
 from hybridgl_tpu_torch.models.sam.image_encoder import encode_image
 
+from torch_port_config import to_port
+
 # a geometry whose encoder reaches both kernels: grid 32 with window 8 routes
 # the windowed block to K1 and the global block to K2 (test-tiny's window 3
 # on grid 4 reaches neither, image_encoder.py:136, 174)
@@ -57,7 +59,7 @@ def test_encoder_matches_jax(name):
     params = noisy_params(cfg, 0)
     img = np.random.default_rng(1).standard_normal((1, cfg.img_size, cfg.img_size, 3)).astype(np.float32)
     want = np.asarray(jax_encode_image(jax_tree(params["encoder"]), jnp.asarray(img), cfg))
-    got = encode_image(from_numpy_tree(params["encoder"]), torch.from_numpy(img), cfg).numpy()
+    got = encode_image(from_numpy_tree(params["encoder"]), torch.from_numpy(img), to_port(cfg)).numpy()
     assert got.shape == want.shape
     assert np.abs(got - want).max() <= 1e-4
 
@@ -94,7 +96,7 @@ def test_predict_masks_matches_jax(monkeypatch, multimask, route, dense):
     )
     got_m, got_i = predict_masks(
         from_numpy_tree(p_dec), torch.from_numpy(emb), torch.from_numpy(pe), torch.from_numpy(sparse),
-        cfg, dense_prompts=torch.from_numpy(dense_p), multimask_output=multimask,
+        to_port(cfg), dense_prompts=torch.from_numpy(dense_p), multimask_output=multimask,
     )
     assert got_m.shape == want_m.shape
     assert np.abs(got_m.numpy() - np.asarray(want_m)).max() <= 1e-3
@@ -114,7 +116,8 @@ def test_generate_proposals_matches_jax():
     img = np.zeros((cfg.img_size, cfg.img_size, 3), np.uint8)
     img[:rh, :rw] = rng.integers(0, 255, (rh, rw, 3), np.uint8)
     want = jamg.generate_proposals(jax_tree(params), jnp.asarray(img), rh, rw, h, w, cfg, amg_cfg, canonical)
-    got = amg.generate_proposals(from_numpy_tree(params), torch.from_numpy(img), rh, rw, h, w, cfg, amg_cfg, canonical)
+    got = amg.generate_proposals(from_numpy_tree(params), torch.from_numpy(img), rh, rw, h, w, to_port(cfg),
+                                 to_port(amg_cfg), canonical)
     assert got.num == int(want.num)
     assert got.num > 0
     np.testing.assert_array_equal(got.valid.numpy(), np.asarray(want.valid))
