@@ -13,9 +13,13 @@ Phases (every phase asserts; any failure exits non-zero):
      geometry, bf16 inputs, TF32 off, with median times beside each
      kernel's bound (operations or bytes) and, for the four attention
      kernels, the time of one ``scaled_dot_product_attention`` call on the
-     same inputs (a yardstick, used nowhere in the port). It is the path of
-     K9 (flash_attention_rel_pos) and K10 (pass1_stats), which no serving
-     path runs, as in the reference;
+     same inputs (a yardstick, used nowhere in the port). K3 and K4 are
+     held on both their kernels: the tensor-core (wgmma) one at B = 64 and
+     at B = 128, the PhraseCut pass-2 batch, and the CUDA-core one in bf16
+     at a shape the tensor-core dispatch refuses and in f32 at half width
+     (its f32 operands do not fit in shared memory at full width). The
+     check is the path of K9 (flash_attention_rel_pos) and K10
+     (pass1_stats), which no serving path runs, as in the reference;
   4. small-input parity: the port on the card against the port on the CPU
      (the kernels' plain versions) at two small f32 configurations, single
      crop (K1, K2, K5, K6 and the default decoder route, K3 + K4) and

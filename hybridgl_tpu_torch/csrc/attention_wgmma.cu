@@ -60,54 +60,12 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "wgmma_common.cuh"
+
 namespace {
 
 constexpr int BK = 64;       // keys per tile
 constexpr int WG_ROWS = 64;  // query rows per warpgroup
-constexpr float LOG2E = 1.4426950408889634f;
-
-// ---- PTX helpers -----------------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 64-bit wgmma shared-memory descriptor, no swizzle (layout type 0).
-__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo_bytes, uint32_t sbo_bytes) {
-  return (uint64_t)((addr & 0x3FFFFu) >> 4) | ((uint64_t)(lbo_bytes >> 4) << 16) |
-         ((uint64_t)(sbo_bytes >> 4) << 32);
-}
-
-__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wgmma_wait0() { asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory"); }
-
-// keep the compiler from moving uses of async-written or async-read registers
-template <int N>
-__device__ __forceinline__ void pin(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void pin(uint32_t (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
-}
-
-#define D8(r, b) "+f"(r[b]), "+f"(r[b + 1]), "+f"(r[b + 2]), "+f"(r[b + 3]), "+f"(r[b + 4]), "+f"(r[b + 5]), "+f"(r[b + 6]), "+f"(r[b + 7])
-
-// d[64 x 64] (+)= a[64 x 16] (registers) * B (shared memory, by descriptor)
-template <int TRANS_B>
-__device__ __forceinline__ void wgmma_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t desc, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
-      : D8(d, 0), D8(d, 8), D8(d, 16), D8(d, 24)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate), "n"(TRANS_B));
-}
 
 // d[64 x 80] (+)= a[64 x 16] (registers) * B (shared memory, by descriptor)
 template <int TRANS_B>
@@ -132,24 +90,9 @@ __device__ __forceinline__ void wgmma_pv(float (&o)[HD / 2], const uint32_t (&a)
   }
 }
 
-// 16 bytes, src_bytes of them read and the rest zero-filled. Through L1
-// (.ca): a warp-wide copy reads 8 rows x 64 bytes, and the other half of each
-// 128-byte line is the next copy's; measured 1.4x faster than .cg on the
-// stream kernel.
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(src_bytes) : "memory");
-}
 __device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, int src_bytes) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src), "r"(src_bytes) : "memory");
 }
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-// generic-proxy writes (cp.async, st.shared) before async-proxy reads (wgmma)
-__device__ __forceinline__ void fence_async_proxy() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
-
 __device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
 }
@@ -165,20 +108,6 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
         : "r"(bar), "r"(parity)
         : "memory");
   } while (!done);
-}
-
-// 2^x on the special-function unit, without exp2f's denormal handling: the
-// probabilities are rounded to bf16 next, and the unit is as busy as the
-// tensor cores in this loop
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 t = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&t);
 }
 
 // ---- shared pieces -----------------------------------------------------------

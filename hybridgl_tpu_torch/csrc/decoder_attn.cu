@@ -30,13 +30,16 @@
 //
 // What bounds it: ~34 GFLOP per pass at B = 64 in f32 FMAs on the CUDA
 // cores, issued from shared memory (two loads per four FMAs); the image
-// stream itself (~0.5 GB per pass) is far from the memory roofline. Moving
-// the four tile products onto wgmma is the next step for speed.
+// stream itself (~0.5 GB per pass) is far from the memory roofline. This
+// kernel keeps f32 operands and every shape the tensor-core kernel does not
+// take; bf16 at SAM's widths (C = 256, 8 heads x tp 8, S a multiple of 64)
+// runs decoder_attn_wgmma.cu.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "decoder_attn_params.cuh"
 #include "tile_common.cuh"
 
 namespace {
@@ -47,26 +50,7 @@ constexpr int MAX_ACC = 4;   // 4x4 context tiles per thread: GT2 * C <= 16384
 constexpr float NEG_BIG = -1e30f;
 constexpr float LN_EPS = 1e-5f;
 
-enum { I2T = 0, T2I = 1, PASS = 2 };
-
-struct Params {
-  const void* qside;  // [1|B, S, Cq] T   (T2I: the keys [B, S, C])
-  const void* base;   // [1|B, S, C] T    (I2T/PASS residual base)
-  const void* pe;     // [1|B, S, C] T    (or null in I2T without pe)
-  const float* w;     // [B, Cq, GT]
-  const float* off;   // [B, GT]
-  const void* vo;     // [B, GT, C] T
-  const float* cnst;  // [C]
-  const float* ln_s;  // [C]
-  const float* ln_b;  // [C]
-  const float* qw;    // [B, C, GT2]
-  void* keys_out;     // [B, S, C] T
-  float* part_m;      // [B, nsplit, GT2]
-  float* part_l;      // [B, nsplit, GT2]
-  float* part_acc;    // [B, nsplit, GT2, C]
-  int B, S, Cq, C, heads, tp, GT2, nsplit;
-  int q_bcast, base_bcast, pe_bcast, add_pe;
-};
+using Params = DecoderAttnParams;
 
 // Shared memory, in this order: QK [TR][LQ], X [TR][LX], SS [TR][LS] floats;
 // off [GT], const/ln_s/ln_b [C], m/l/alpha [GT2] floats; then Ws [Cq][GT],
@@ -115,7 +99,7 @@ __global__ void __launch_bounds__(THREADS) decoder_attn_kernel(Params p) {
   T* keys_out = static_cast<T*>(p.keys_out) + (size_t)b * S * C;
 
   if (MODE != T2I) {
-    const float* wb = p.w + (size_t)b * Cq * GT;
+    const float* wb = static_cast<const float*>(p.w) + (size_t)b * Cq * GT;
     const T* vob = static_cast<const T*>(p.vo) + (size_t)b * GT * C;
     for (int i = tid; i < Cq * GT; i += THREADS) Ws[i] = from_f32<T>(wb[i]);
     for (int i = tid; i < GT * C; i += THREADS) Vs[i] = vob[i];
@@ -127,7 +111,7 @@ __global__ void __launch_bounds__(THREADS) decoder_attn_kernel(Params p) {
     }
   }
   if (MODE != I2T) {
-    const float* qwb = p.qw + (size_t)b * C * GT2;
+    const float* qwb = static_cast<const float*>(p.qw) + (size_t)b * C * GT2;
     for (int i = tid; i < C * GT2; i += THREADS) QWs[i] = from_f32<T>(qwb[i]);
     for (int i = tid; i < GT2; i += THREADS) {
       m_run[i] = NEG_BIG;
@@ -318,7 +302,7 @@ __global__ void t2i_combine(const float* __restrict__ pm, const float* __restric
 }
 
 template <typename T, int MODE>
-int launch(const Params& p, float* ctx, cudaStream_t st) {
+int launch(const Params& p, cudaStream_t st) {
   const Layout L(MODE, p.Cq, p.C, p.heads * p.tp, p.GT2);
   const size_t bytes = L.bytes(sizeof(T));
   auto kern = decoder_attn_kernel<T, MODE>;
@@ -326,18 +310,15 @@ int launch(const Params& p, float* ctx, cudaStream_t st) {
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
   kern<<<dim3(p.B, p.nsplit), THREADS, bytes, st>>>(p);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || MODE == I2T) return (int)err;
-  t2i_combine<<<p.B, THREADS, 0, st>>>(p.part_m, p.part_l, p.part_acc, ctx, p.nsplit, p.GT2, p.C);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int dispatch_mode(int mode, const Params& p, float* ctx, cudaStream_t st) {
+int dispatch_mode(int mode, const Params& p, cudaStream_t st) {
   switch (mode) {
-    case I2T: return launch<T, I2T>(p, ctx, st);
-    case T2I: return launch<T, T2I>(p, ctx, st);
-    case PASS: return launch<T, PASS>(p, ctx, st);
+    case I2T: return launch<T, I2T>(p, st);
+    case T2I: return launch<T, T2I>(p, st);
+    case PASS: return launch<T, PASS>(p, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -346,14 +327,24 @@ int dispatch_mode(int mode, const Params& p, float* ctx, cudaStream_t st) {
 
 extern "C" {
 
+// decoder_attn_wgmma.cu
+int hgl_decoder_attn_tc_takes(int mode, int S, int Cq, int C, int heads, int tp, int GT2, int add_pe,
+                              int same_base, int is_bf16);
+int hgl_decoder_attn_tc(int mode, const DecoderAttnParams* p, void* stream);
+
 // K3 / K7 / K8 (mode PASS / I2T / T2I). Pointers a mode does not read may be
-// null. Returns a cudaError_t code (0 = launched).
+// null. With ``tc`` the call goes to the tensor-core kernel (the shapes
+// hgl_decoder_attn_tc_takes accepts): w is then [B, Cq, GT] and qw
+// transposed, [B, GT2, C], both in the stream dtype; otherwise both are f32
+// and qw is [B, C, GT2]. Either kernel leaves each row split's (m, l, acc) in
+// part_*, and t2i_combine merges them into ctx. Returns a cudaError_t code
+// (0 = launched).
 int hgl_decoder_attn(int mode, const void* qside, const void* base, const void* pe,
-                     const float* w, const float* off, const void* vo, const float* cnst,
-                     const float* ln_s, const float* ln_b, const float* qw, void* keys_out,
+                     const void* w, const float* off, const void* vo, const float* cnst,
+                     const float* ln_s, const float* ln_b, const void* qw, void* keys_out,
                      float* part_m, float* part_l, float* part_acc, float* ctx, int B, int S,
                      int Cq, int C, int heads, int tp, int GT2, int nsplit, int q_bcast,
-                     int base_bcast, int pe_bcast, int add_pe, int is_bf16, void* stream) {
+                     int base_bcast, int pe_bcast, int add_pe, int is_bf16, int tc, void* stream) {
   const int GT = heads * tp;
   if (B < 1 || S < 1 || nsplit < 1 || tp < 1 || tp > 32 || GT % 4 || C % 4 || GT2 % 4 ||
       GT2 * C > MAX_ACC * THREADS * 16 || (add_pe && Cq != C))
@@ -362,8 +353,17 @@ int hgl_decoder_attn(int mode, const void* qside, const void* base, const void* 
            qw,    keys_out, part_m, part_l, part_acc, B,  S,      Cq,       C,
            heads, tp,     GT2,    nsplit, q_bcast, base_bcast, pe_bcast, add_pe};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? dispatch_mode<__nv_bfloat16>(mode, p, ctx, st)
-                 : dispatch_mode<float>(mode, p, ctx, st);
+  int err;
+  if (tc) {
+    if (!hgl_decoder_attn_tc_takes(mode, S, Cq, C, heads, tp, GT2, add_pe, qside == base, is_bf16))
+      return (int)cudaErrorInvalidValue;
+    err = hgl_decoder_attn_tc(mode, &p, stream);
+  } else {
+    err = is_bf16 ? dispatch_mode<__nv_bfloat16>(mode, p, st) : dispatch_mode<float>(mode, p, st);
+  }
+  if (err != 0 || mode == I2T) return err;
+  t2i_combine<<<B, THREADS, 0, st>>>(part_m, part_l, part_acc, ctx, nsplit, GT2, C);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

@@ -21,8 +21,9 @@
 //
 // What bounds it: ~52 GFLOP per launch at B = 64 (src @ w1 is two thirds),
 // f32 FMAs on the CUDA cores fed from shared memory; HBM traffic is src in
-// (0.13 GB) and the masks out (0.05 GB). wgmma for the two deconvs is the
-// next step for speed.
+// (0.13 GB) and the masks out (0.05 GB). This kernel keeps f32 operands and
+// every width the tensor-core kernel does not take; bf16 at SAM's widths
+// (C = 256, c4 = 64, c8 = 32, m = 1 or 3) runs upscale_hyper_wgmma.cu.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -158,19 +159,35 @@ int launch(const void* src, const float* w1, const float* b1, const float* ln_s,
 
 extern "C" {
 
-// K4. src [B, g*g, C] (bf16 or f32), w1 [C, 4 c4], b1/ln_s/ln_b [c4], w2
-// [c4, 4 c8], b2 [c8], hyper [B, m, c8] f32 -> out [B, m, 4g, 4g] f32.
-int hgl_upscale_hyper(const void* src, const float* w1, const float* b1, const float* ln_s,
-                      const float* ln_b, const float* w2, const float* b2, const float* hyper,
+// upscale_hyper_wgmma.cu
+int hgl_upscale_hyper_tc_takes(int C, int c4, int c8, int m, int is_bf16);
+int hgl_upscale_hyper_tc(const void* src, const void* w1, const float* b1, const float* ln_s, const float* ln_b,
+                         const void* w2, const float* b2, const void* hyper, float* out, int B, int R, int g, int m,
+                         int blocks, void* stream);
+
+// K4. src [B, g*g, C] (bf16 or f32), b1/ln_s/ln_b [c4], b2 [c8] f32 -> out
+// [B, m, 4g, 4g] f32. With ``tc`` the call goes to the tensor-core kernel
+// (the widths hgl_upscale_hyper_tc_takes accepts): w1 [C, 4 c4], w2 [c4, 4
+// c8] and hyper [B, m, c8] are then bf16 and nsplit is the number of
+// persistent blocks; otherwise they are f32 and nsplit the tile splits per
+// prompt of the CUDA-core kernel.
+int hgl_upscale_hyper(const void* src, const void* w1, const float* b1, const float* ln_s,
+                      const float* ln_b, const void* w2, const float* b2, const void* hyper,
                       float* out, int B, int R, int g, int C, int c4, int c8, int m, int nsplit,
-                      int is_bf16, void* stream) {
+                      int is_bf16, int tc, void* stream) {
   if (B < 1 || g * g != R || nsplit < 1 || C < 1 || c4 < 1 || c8 < 1 || m < 1)
     return (int)cudaErrorInvalidValue;
+  if (tc) {
+    if (!hgl_upscale_hyper_tc_takes(C, c4, c8, m, is_bf16)) return (int)cudaErrorInvalidValue;
+    return hgl_upscale_hyper_tc(src, w1, b1, ln_s, ln_b, w2, b2, hyper, out, B, R, g, m, nsplit, stream);
+  }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? launch<__nv_bfloat16>(src, w1, b1, ln_s, ln_b, w2, b2, hyper, out, B, R, g, C,
-                                         c4, c8, m, nsplit, st)
-                 : launch<float>(src, w1, b1, ln_s, ln_b, w2, b2, hyper, out, B, R, g, C, c4, c8,
-                                 m, nsplit, st);
+  const float* w1f = static_cast<const float*>(w1);
+  const float* w2f = static_cast<const float*>(w2);
+  const float* hf = static_cast<const float*>(hyper);
+  return is_bf16 ? launch<__nv_bfloat16>(src, w1f, b1, ln_s, ln_b, w2f, b2, hf, out, B, R, g, C, c4, c8, m,
+                                         nsplit, st)
+                 : launch<float>(src, w1f, b1, ln_s, ln_b, w2f, b2, hf, out, B, R, g, C, c4, c8, m, nsplit, st);
 }
 
 }  // extern "C"

@@ -8,11 +8,13 @@ query tokens per head against the S = g*g image keys; side-switched
     scores[k, (h,t)] = (keys[k] + pe[k]) . qw_b[:, (h,t)]     (scale folded)
     ctx[(h,t), :]    = softmax_k(scores) @ keys
 
-The kernel (``csrc/decoder_attn.cu``, T2I mode) streams the keys once with a
-running max, denominator and [GT, C] accumulator per column, adds pe on the
-fly (kpe never reaches device memory), and a combine step merges the row
-splits. Padding columns have zero qw: uniform attention, sliced away by the
-caller. On a CPU tensor :func:`t2i_ctx` runs :func:`reference_t2i_ctx`.
+The kernel (T2I mode of ``csrc/decoder_attn_wgmma.cu`` for bf16 at C = 256,
+GT = 64 and S a multiple of 64, of the CUDA-core ``csrc/decoder_attn.cu``
+otherwise) streams the keys once with a running max, denominator and
+[GT, C] accumulator per column, adds pe on the fly (kpe never reaches
+device memory), and a combine step merges the row splits. Padding columns
+have zero qw: uniform attention, sliced away by the caller. On a CPU
+tensor :func:`t2i_ctx` runs :func:`reference_t2i_ctx`.
 """
 
 from __future__ import annotations

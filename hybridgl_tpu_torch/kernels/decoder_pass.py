@@ -15,7 +15,15 @@ written once and never read back by this pass. Two modes:
     with pe added on the score side.
 
 On a CPU tensor the wrapper runs :func:`reference_i2t_ln_then_t2i`; on a
-CUDA tensor it launches ``csrc/decoder_attn.cu`` in PASS mode or raises.
+CUDA tensor it launches the PASS mode of one of two kernels or raises
+(``decoder_attn.variant`` says which): bf16 at SAM's widths (C = 256, 8
+heads x tp 8, GT2 = 64, S a multiple of 64) runs
+``csrc/decoder_attn_wgmma.cu``, whose four products are ``wgmma`` with the
+token-side operands resident in shared memory, both softmaxes and the LN
+on the accumulator fragments, and keys' / kpe written over the stage they
+were computed from; what bounds it is that element-wise work, which its
+two warpgroups do in lockstep (``PERF.md``). f32 and every other shape run
+the CUDA-core ``csrc/decoder_attn.cu``.
 """
 
 from __future__ import annotations

@@ -3,8 +3,12 @@
 The counterpart of the reference's ``tools/check_tpu_kernels.py``: each of
 the ten kernels runs at production geometry with bf16 inputs and TF32 off,
 beside its plain PyTorch version on the same inputs, and prints one
-PASS/FAIL line with its median time and the plain version's (CUDA events,
-median of 10 after 2 warm-up calls). Each time stands beside the kernel's
+PASS/FAIL line with its median time and the plain version's (CUDA events
+around a batch of back-to-back calls, :func:`time_ms`). K3 and K4 have two
+kernels each: the tensor-core one is checked at B = 64 and 128, the
+CUDA-core one in bf16 at a shape the tensor-core dispatch refuses (ragged S,
+m = 2) and in f32 at half width (at full width its f32 operands do not fit
+in shared memory). Each time stands beside the kernel's
 bound, the least time the card could take for the same work
 (:func:`kernel_work` and :func:`bound_ms`: operations over the bf16
 tensor-core peak or bytes over the memory rate, whichever is larger), and,
@@ -28,7 +32,7 @@ Bars (the reference check's, ``tools/check_tpu_kernels.py:144-183``):
 Geometry: SAM ViT-H attention (K1: 25 windows x 16 heads, S = 196, G = 14;
 K2 and K9: 16 heads, S = 4096, G = 64, hd = 80), CLIP ViT-B/16 (K6: 128
 streams x 12 heads, L = 197, hd = 64), the SAM decoder (C = 256, 8 heads x
-tp 8, S = 4096; B = 64 for K3/K4, 128 for K7/K8), pass 1 (K5: 192 RefCOCO
+tp 8, S = 4096; B = 64 and 128 for K3/K4, 128 for K7/K8), pass 1 (K5: 192 RefCOCO
 candidates at C = 640 and a PhraseCut crop window at C = 1024; K10: 16
 points x 3 masks at C = 1024 and window (17, 5, 451, 633), and 192
 candidates at C = 640). The check needs a CUDA card; it refuses to run
@@ -43,16 +47,16 @@ import sys
 
 import torch
 
-# name -> (CUDA source, the TPU kernel it replaces)
+# name -> (CUDA source of the kernel the main path launches, the TPU kernel it replaces)
 KERNELS = {
     "flash_windowed_fused": ("hybridgl_tpu_torch/csrc/attention_wgmma.cu", "hybridgl_tpu/kernels/flash_attention.py:276"),
     "flash_attention_fused": ("hybridgl_tpu_torch/csrc/attention_wgmma.cu", "hybridgl_tpu/kernels/flash_attention.py:171"),
     "pass1_stats_half": ("hybridgl_tpu_torch/csrc/pass1_stats.cu", "hybridgl_tpu/kernels/pass1_stats.py:257"),
     "clip_attention": ("hybridgl_tpu_torch/csrc/attention.cu", "hybridgl_tpu/kernels/clip_attention.py:78"),
-    "i2t_ln_then_t2i": ("hybridgl_tpu_torch/csrc/decoder_attn.cu", "hybridgl_tpu/kernels/decoder_pass.py:209"),
-    "upscale_hyper_blocked": ("hybridgl_tpu_torch/csrc/upscale_hyper.cu", "hybridgl_tpu/kernels/upscale_hyper.py:153"),
-    "i2t_ln_update": ("hybridgl_tpu_torch/csrc/decoder_attn.cu", "hybridgl_tpu/kernels/decoder_attn.py:95"),
-    "t2i_ctx": ("hybridgl_tpu_torch/csrc/decoder_attn.cu", "hybridgl_tpu/kernels/decoder_attn_t2i.py:82"),
+    "i2t_ln_then_t2i": ("hybridgl_tpu_torch/csrc/decoder_attn_wgmma.cu", "hybridgl_tpu/kernels/decoder_pass.py:209"),
+    "upscale_hyper_blocked": ("hybridgl_tpu_torch/csrc/upscale_hyper_wgmma.cu", "hybridgl_tpu/kernels/upscale_hyper.py:153"),
+    "i2t_ln_update": ("hybridgl_tpu_torch/csrc/decoder_attn_wgmma.cu", "hybridgl_tpu/kernels/decoder_attn.py:95"),
+    "t2i_ctx": ("hybridgl_tpu_torch/csrc/decoder_attn_wgmma.cu", "hybridgl_tpu/kernels/decoder_attn_t2i.py:82"),
     "flash_attention_rel_pos": ("hybridgl_tpu_torch/csrc/attention_wgmma.cu", "hybridgl_tpu/kernels/flash_attention.py:78"),
     "pass1_stats": ("hybridgl_tpu_torch/csrc/pass1_stats.cu", "hybridgl_tpu/kernels/pass1_stats.py:152"),
 }
@@ -88,7 +92,7 @@ def kernel_work(name: str, **d) -> tuple[int, int]:
         n2 = d["n2"]
         return 2 * B * n * n2 * dw + 2 * B * dh * dw * n, B * n * n2 * 4 + n2 * dw * 4 + dh * n * 4 + out
     if name in ("i2t_ln_then_t2i", "i2t_ln_update", "t2i_ctx"):
-        B, S, C, Cq, GT, e = d["B"], d["S"], d["C"], d["Cq"], d["GT"], 2
+        B, S, C, Cq, GT, e = d["B"], d["S"], d["C"], d["Cq"], d["GT"], d.get("esize", 2)
         rows = 1 if d.get("shared") else B
         small = B * Cq * GT * 4 + B * GT * 4 + B * GT * C * e + 3 * C * 4  # w, off, vo, const and LN
         if name == "t2i_ctx":  # scores against qw, then the context sum
@@ -101,7 +105,8 @@ def kernel_work(name: str, **d) -> tuple[int, int]:
     if name == "upscale_hyper_blocked":
         B, S, C, c4, c8, m = d["B"], d["S"], d["C"], d["c4"], d["c8"], d["m"]
         ops = B * S * (2 * C * 4 * c4 + 4 * 2 * c4 * 4 * c8 + 16 * 2 * c8 * m)
-        return ops, B * S * C * 2 + C * 4 * c4 * 4 + c4 * 4 * c8 * 4 + B * m * c8 * 2 + B * m * 16 * S * 4
+        e = d.get("esize", 2)  # src, the deconv weights and the hyper rows come in the stream dtype
+        return ops, (B * S * C + C * 4 * c4 + c4 * 4 * c8 + B * m * c8) * e + B * m * 16 * S * 4
     raise ValueError(f"unknown kernel {name}")
 
 
@@ -111,20 +116,32 @@ def bound_ms(operations: int, nbytes: int) -> tuple[float, str]:
     return (by_ops, "operations") if by_ops >= by_bytes else (by_bytes, "bytes")
 
 
-def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
-    """Median CUDA-event time of one call, in ms."""
-    for _ in range(warmup):
+def time_ms(fn, reps: int = 5) -> float:
+    """Median CUDA-event time of one call, in ms, after two warm-up calls.
+    Each event pair brackets a batch of calls (as many as fit 20 ms, at most
+    20) queued behind a device-side sleep, so that the calls run back to
+    back and the host's launch gap (~30 us, a tenth of a short kernel) is
+    not in the time; the time of the wrapper's own preparatory kernels is."""
+    for _ in range(2):
         fn()
-    times = []
-    for _ in range(reps):
+
+    def timed(n, sleep_cycles):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        if sleep_cycles:
+            torch.cuda._sleep(sleep_cycles)  # the host queues the batch while the card waits
         a.record()
-        fn()
+        for _ in range(n):
+            fn()
         b.record()
         torch.cuda.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
+        return a.elapsed_time(b) / n
+
+    one = timed(1, 0)
+    batch = max(1, min(20, int(20.0 / max(one, 1e-3))))
+    if batch == 1:
+        return statistics.median([one] + [timed(1, 0) for _ in range(reps - 1)])
+    return statistics.median(timed(batch, 20_000_000) for _ in range(reps))
 
 
 class _Run:
@@ -328,53 +345,98 @@ def _pass1(run: _Run):
             os.environ["HYBRIDGL_STATS_BF16"] = saved
 
 
-def _i2t_ops(run: _Run, B, Cq, C=256, heads=8, tp=8, T=7):
+def _i2t_ops(run: _Run, B, Cq, C=256, heads=8, tp=8, T=7, dtype=torch.bfloat16):
     """Token-side operands of K3/K7 at SAM's decoder widths: w [B, Cq, 64]
-    f32, off (-1e30 on the padding lane t = 7), vo [B, 64, C] bf16, const/LN."""
+    f32, off (-1e30 on the padding lane t = 7), vo [B, 64, C], const/LN."""
     f32 = torch.float32
     off = run.randn(B, heads, tp, std=0.5, dtype=f32)
     off[:, :, T:] = -1e30
     return dict(w=run.randn(B, Cq, heads * tp, std=Cq**-0.5 * 2, dtype=f32), off=off.reshape(B, -1),
-                vo=run.randn(B, heads * tp, C, std=0.5), const=run.randn(C, std=0.1, dtype=f32),
+                vo=run.randn(B, heads * tp, C, std=0.5, dtype=dtype), const=run.randn(C, std=0.1, dtype=f32),
                 ln_scale=1.0 + run.randn(C, std=0.1, dtype=f32), ln_bias=run.randn(C, std=0.1, dtype=f32))
+
+
+def _check_pass(run: _Run, label, B, S, shared, want_kind, C=256, dtype=torch.bfloat16):
+    """K3 in one operand form (pass A: shared once-projected queries [1, S,
+    C/2], raw image and pe [1, S, C]; pass B: per-prompt keys [B, S, C])
+    against its plain version; asserts the kernel the dispatch chose."""
+    from ..kernels.decoder_attn import PASS, variant
+    from ..kernels.decoder_pass import i2t_ln_then_t2i, reference_i2t_ln_then_t2i
+
+    Cq = C // 2 if shared else C
+    pe = run.randn(1, S, C, dtype=dtype)
+    ops = _i2t_ops(run, B, Cq, C, dtype=dtype)
+    qside = run.randn(1 if shared else B, S, Cq, dtype=dtype)
+    base = run.randn(1, S, C, dtype=dtype) if shared else qside
+    qw = run.randn(B, C, 64, std=C**-0.5 * 2, dtype=torch.float32)
+    kind, smem = variant(PASS, dtype, S, Cq, C, 8, 8, 64, not shared, not shared)
+
+    def call(fn):
+        return fn(qside, base, pe, **ops, qw_next=qw, heads=8, tp=8, shared_qside=shared)
+
+    (keys, ctx), (keys0, ctx0) = call(i2t_ln_then_t2i), call(reference_i2t_ln_then_t2i)
+    torch.cuda.synchronize()
+    ok_v = run.verdict(f"i2t_ln_then_t2i {label} kernel", kind == want_kind, f"{kind}, {smem} bytes of shared memory")
+    ok_k, err_k = run.attention(f"i2t_ln_then_t2i {label} keys'", keys, keys0)
+    ok_c, err_c = run.attention(f"i2t_ln_then_t2i {label} ctx", ctx, ctx0)
+    del keys, ctx, keys0, ctx0
+    name = str(dtype).split(".")[-1]
+    run.record("i2t_ln_then_t2i", ok_v and ok_k and ok_c, max(err_k, err_c), lambda: call(i2t_ln_then_t2i),
+               lambda: call(reference_i2t_ln_then_t2i),
+               f"{label} ({kind}) B = {B}, qside [{qside.shape[0]}, {S}, {Cq}] {name}",
+               dict(B=B, S=S, C=C, Cq=Cq, GT=64, shared=shared, esize=qside.element_size()))
+
+
+def _check_upscale(run: _Run, label, B, m, want_kind, S=4096, C=256, dtype=torch.bfloat16):
+    """K4 at c4 = C / 4, c8 = C / 8 against its plain version; asserts the
+    kernel the dispatch chose."""
+    from ..kernels.upscale_hyper import reference_upscale_hyper, upscale_hyper, variant
+
+    f32, c4, c8 = torch.float32, C // 4, C // 8
+    # the deconv weights arrive rounded to the stream dtype, as the decoder hands them over
+    args = (run.randn(B, S, C, dtype=dtype), run.randn(C, 4 * c4, std=C**-0.5, dtype=dtype),
+            run.randn(c4, std=0.1, dtype=f32), 1.0 + run.randn(c4, std=0.1, dtype=f32),
+            run.randn(c4, std=0.1, dtype=f32), run.randn(c4, 4 * c8, std=c4**-0.5, dtype=dtype),
+            run.randn(c8, std=0.1, dtype=f32), run.randn(B, m, c8, std=0.5, dtype=dtype))
+    kind, smem = variant(dtype, C, c4, c8, m)
+    got, want = upscale_hyper(*args), reference_upscale_hyper(*args)
+    torch.cuda.synchronize()
+    d = float((got - want).abs().max())
+    agree = float(((got > 0) == (want > 0)).float().mean())
+    ok = run.verdict(f"upscale_hyper_blocked {label}",
+                     kind == want_kind and bool(torch.isfinite(got).all()) and d < 0.1 and agree > 0.995,
+                     f"{kind}, {smem} bytes of shared memory, logits max|d| {d:.5f}, sign agreement {agree:.6f}")
+    del got, want
+    name = str(dtype).split(".")[-1]
+    g4 = 4 * int(S**0.5)
+    run.record("upscale_hyper_blocked", ok, d, lambda: upscale_hyper(*args), lambda: reference_upscale_hyper(*args),
+               f"{label} ({kind}) src [{B}, {S}, {C}] {name} -> [{B}, {m}, {g4}, {g4}] f32",
+               dict(B=B, S=S, C=C, c4=c4, c8=c8, m=m, esize=args[0].element_size()))
 
 
 def _decoder(run: _Run):
     """K3, K7, K8 and K4 at full width: C = 256, 8 heads, tp = 8 (GT = 64),
-    S = 4096; B = 64 (a pass-1 chunk) for K3/K4, B = 128 (PhraseCut's pass
-    2) for K7/K8."""
+    S = 4096; B = 64 (a pass-1 chunk) and 128 for K3/K4, B = 128 (PhraseCut's
+    pass 2) for K7/K8. The JSON line keeps the first geometry of each
+    kernel: K3 pass B at B = 64, K4 at B = 64, m = 3."""
     from ..kernels.decoder_attn import i2t_ln_update, reference_i2t_ln_update
     from ..kernels.decoder_attn_t2i import reference_t2i_ctx, t2i_ctx
-    from ..kernels.decoder_pass import i2t_ln_then_t2i, reference_i2t_ln_then_t2i
-    from ..kernels.upscale_hyper import reference_upscale_hyper, upscale_hyper
 
     f32, S, C = torch.float32, 4096, 256
-    # K3: pass A (shared once-projected queries [1, S, 128], raw image and pe
-    # [1, S, 256]) and pass B (per-prompt keys [64, S, 256]); the JSON line
-    # keeps pass B's times, the per-prompt stream
-    B = 64
-    pe = run.randn(1, S, C)
-    for mode, shared in (("pass B", False), ("pass A", True)):
-        Cq = 128 if shared else C
-        ops = _i2t_ops(run, B, Cq)
-        qside = run.randn(1 if shared else B, S, Cq)
-        base = run.randn(1, S, C) if shared else qside
-        qw = run.randn(B, C, 64, std=C**-0.5 * 2, dtype=f32)
-
-        def call(fn, qside=qside, base=base, ops=ops, qw=qw, shared=shared):
-            return fn(qside, base, pe, **ops, qw_next=qw, heads=8, tp=8, shared_qside=shared)
-
-        (keys, ctx), (keys0, ctx0) = call(i2t_ln_then_t2i), call(reference_i2t_ln_then_t2i)
-        torch.cuda.synchronize()
-        ok_k, err_k = run.attention(f"i2t_ln_then_t2i {mode} keys'", keys, keys0)
-        ok_c, err_c = run.attention(f"i2t_ln_then_t2i {mode} ctx", ctx, ctx0)
-        del keys, ctx, keys0, ctx0
-        run.record("i2t_ln_then_t2i", ok_k and ok_c, max(err_k, err_c), lambda: call(i2t_ln_then_t2i),
-                   lambda: call(reference_i2t_ln_then_t2i), f"{mode} B = {B}, qside [{qside.shape[0]}, {S}, {Cq}] bf16",
-                   dict(B=B, S=S, C=C, Cq=Cq, GT=64, shared=shared))
+    # K3 on the tensor cores, then its CUDA-core kernel: bf16 at a ragged S
+    # the tensor-core dispatch refuses, and f32 at half width (at C = 256 the
+    # f32 token-side operands do not fit in shared memory)
+    _check_pass(run, "pass B", 64, S, False, "wgmma")
+    _check_pass(run, "pass A", 64, S, True, "wgmma")
+    _check_pass(run, "pass B, B = 128", 128, S, False, "wgmma")
+    _check_pass(run, "pass A, B = 128", 128, S, True, "wgmma")
+    _check_pass(run, "pass B, ragged S", 64, S - 32, False, "cuda-core")
+    _check_pass(run, "pass B, f32 at C = 128", 128, S, False, "cuda-core", C=128, dtype=f32)
+    torch.cuda.empty_cache()
 
     # K7 and K8 at PhraseCut's pass 2: P = 128 survivors, per-prompt keys
     B = 128
+    pe = run.randn(1, S, C)
     keys = run.randn(B, S, C)
     ops = _i2t_ops(run, B, C)
     kernel = lambda: i2t_ln_update(keys, keys, **ops, heads=8, tp=8, pe=pe)  # noqa: E731
@@ -396,22 +458,17 @@ def _decoder(run: _Run):
     run.record("t2i_ctx", ok, err, kernel, plain, f"B = {B}, keys [{B}, {S}, {C}] bf16 -> [{B}, 64, {C}]",
                dict(B=B, S=S, C=C, Cq=C, GT=64))
     del keys
+    torch.cuda.empty_cache()
 
-    # K4: a pass-1 chunk's tail, B = 64, g = 64, c4 = 64, c8 = 32, m = 3
-    B = 64
-    args = (run.randn(B, S, C), run.randn(C, 256, std=C**-0.5, dtype=f32), run.randn(64, std=0.1, dtype=f32),
-            1.0 + run.randn(64, std=0.1, dtype=f32), run.randn(64, std=0.1, dtype=f32),
-            run.randn(64, 128, std=64**-0.5, dtype=f32), run.randn(32, std=0.1, dtype=f32),
-            run.randn(B, 3, 32, std=0.5))
-    got, want = upscale_hyper(*args), reference_upscale_hyper(*args)
-    torch.cuda.synchronize()
-    d = float((got - want).abs().max())
-    agree = float(((got > 0) == (want > 0)).float().mean())
-    ok = run.verdict("upscale_hyper_blocked", bool(torch.isfinite(got).all()) and d < 0.1 and agree > 0.995,
-                     f"logits max|d| {d:.5f}, sign agreement {agree:.6f}")
-    del got, want
-    run.record("upscale_hyper_blocked", ok, d, lambda: upscale_hyper(*args), lambda: reference_upscale_hyper(*args),
-               f"src [{B}, {S}, {C}] bf16 -> [{B}, 3, 256, 256] f32", dict(B=B, S=S, C=C, c4=64, c8=32, m=3))
+    # K4: a pass-1 chunk's tail (B = 64, m = 3), PhraseCut's pass 2 (B = 128),
+    # the single-mask form, then the CUDA-core kernel: bf16 at m = 2, which the
+    # tensor-core dispatch refuses, and f32 at half width (f32 w1 at C = 256
+    # alone is 256 KB of shared memory)
+    _check_upscale(run, "B = 64, m = 3", 64, 3, "wgmma")
+    _check_upscale(run, "B = 128, m = 3", 128, 3, "wgmma")
+    _check_upscale(run, "B = 128, m = 1", 128, 1, "wgmma")
+    _check_upscale(run, "B = 64, m = 2", 64, 2, "cuda-core")
+    _check_upscale(run, "B = 128, f32 at C = 128", 128, 3, "cuda-core", C=128, dtype=f32)
 
 
 # what run_checks reports for each kernel (library_ms is None where no

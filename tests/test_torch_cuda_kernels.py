@@ -9,11 +9,18 @@ Run on a machine with a card:
 
 Tolerances: f32 max|d| <= 1e-4 (f32 math on both sides, summed in another
 order); bf16 outputs cos >= 0.999 (one bf16 rounding of the output).
+
+The decoder kernels' tensor-core variants (bf16 at SAM's widths: C = 256, 8
+heads x tp 8, c4 = 64, c8 = 32) are held to the kernel check's bars at S =
+64, 4096 and a ragged S, with a B that leaves the last row split short,
+scores x40, broadcast and per-prompt pe, and bit-equality of two runs; the
+Python ``variant`` functions are held to the C dispatch they mirror.
 """
 
 import pytest
 import torch
 
+from hybridgl_tpu_torch.kernels import _build, decoder_attn, upscale_hyper as upscale_mod
 from hybridgl_tpu_torch.kernels.clip_attention import clip_attention, reference_clip_attention
 from hybridgl_tpu_torch.kernels.decoder_attn import i2t_ln_update, reference_i2t_ln_update
 from hybridgl_tpu_torch.kernels.decoder_attn_t2i import reference_t2i_ctx, t2i_ctx
@@ -334,3 +341,142 @@ def test_wrappers_raise_on_bad_input(dev):
         upscale_hyper(r(2, 16, 32), r(32, 32), r(8), r(8), r(8), r(8, 16), r(4), r(3, 3, 4))
     with pytest.raises(ValueError, match="shared memory"):  # f32 w1 at full width does not fit
         upscale_hyper(r(1, 16, 256), r(256, 256), r(64), r(64), r(64), r(64, 128), r(32), r(1, 3, 32))
+
+
+# ---- the decoder kernels' tensor-core variants (bf16 at SAM's widths) ----
+
+TC_C, TC_HEADS, TC_TP = 256, 8, 8
+BF16 = torch.bfloat16
+
+
+def close_tc(got, want):
+    """The kernel check's attention bar."""
+    g, w = got.float().flatten(), want.float().flatten()
+    assert torch.isfinite(g).all()
+    cos = float(g @ w / (g.norm() * w.norm()))
+    rel = float((g - w).abs().mean() / w.abs().mean())
+    assert cos >= 0.999 and rel < 0.02, (cos, rel)
+
+
+def tc_operands(dev, B, S, shared, seed, per_prompt_pe=False, qw_scale=1.0):
+    """K3 operands in one of the two forms the tensor-core kernel takes."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def r(*shape, std=0.5, dtype=BF16):
+        return (torch.randn(shape, generator=g, device=dev) * std).to(dtype)
+
+    f32, GT = torch.float32, TC_HEADS * TC_TP
+    Cq = TC_C // 2 if shared else TC_C
+    off = r(B, TC_HEADS, TC_TP, dtype=f32)
+    off[:, :, 7:] = -1e30
+    ops = dict(w=r(B, Cq, GT, std=2 * Cq**-0.5, dtype=f32), off=off.reshape(B, GT), vo=r(B, GT, TC_C),
+               const=r(TC_C, std=0.1, dtype=f32), ln_scale=1.0 + r(TC_C, std=0.1, dtype=f32),
+               ln_bias=r(TC_C, std=0.1, dtype=f32))
+    qside = r(1 if shared else B, S, Cq)
+    base = r(1, S, TC_C) if shared else qside
+    pe = r(B if per_prompt_pe else 1, S, TC_C)
+    qw = r(B, TC_C, GT, std=2 * TC_C**-0.5 * qw_scale, dtype=f32)
+    qw[:, :, 7::8] = 0.0
+    return qside, base, pe, ops, qw
+
+
+@pytest.mark.parametrize("shared", [True, False])
+@pytest.mark.parametrize("B,S,per_prompt_pe,qw_scale,kind", [
+    (3, 64, False, 1.0, "wgmma"),       # one tile
+    (5, 4096, False, 1.0, "wgmma"),     # 64 tiles over row splits the last of which is short
+    (5, 4096, True, 40.0, "wgmma"),     # per-prompt pe; large logits in the online softmax
+    (2, 1024 + 32, False, 1.0, "cuda-core"),  # ragged S stays on the CUDA-core kernel
+])
+def test_i2t_ln_then_t2i_tensor_core(dev, shared, B, S, per_prompt_pe, qw_scale, kind):
+    qside, base, pe, ops, qw = tc_operands(dev, B, S, shared, 31 * B + S, per_prompt_pe, qw_scale)
+    Cq = qside.shape[-1]
+    assert decoder_attn.variant(decoder_attn.PASS, BF16, S, Cq, TC_C, 8, 8, 64, not shared, not shared)[0] == kind
+    before = i2t_ln_then_t2i.launches
+    keys, ctx = i2t_ln_then_t2i(qside, base, pe, **ops, qw_next=qw, heads=8, tp=8, shared_qside=shared)
+    assert i2t_ln_then_t2i.launches == before + 1
+    keys0, ctx0 = reference_i2t_ln_then_t2i(qside, base, pe, **ops, qw_next=qw, heads=8, tp=8, shared_qside=shared)
+    close_tc(keys, keys0)
+    close_tc(ctx, ctx0)
+    again = i2t_ln_then_t2i(qside, base, pe, **ops, qw_next=qw, heads=8, tp=8, shared_qside=shared)
+    assert torch.equal(keys, again[0]) and torch.equal(ctx, again[1])  # no atomics: bit-equal runs
+
+
+@pytest.mark.parametrize("site", ["per_prompt", "shared"])
+@pytest.mark.parametrize("B,S", [(3, 64), (5, 4096)])
+def test_i2t_ln_update_tensor_core(dev, site, B, S):
+    """K7 on the tensor-core kernel: the keys scored with pe, and the
+    shared layer-0 form (a 128-wide score side, no pe)."""
+    shared = site == "shared"
+    qside, base, pe, ops, _ = tc_operands(dev, B, S, shared, 17 * B + S)
+    pe = None if shared else pe
+    assert decoder_attn.variant(decoder_attn.I2T, BF16, S, qside.shape[-1], TC_C, 8, 8, 4, not shared,
+                                not shared)[0] == "wgmma"
+    got = i2t_ln_update(qside, base, **ops, heads=8, tp=8, pe=pe)
+    close_tc(got, reference_i2t_ln_update(qside, base, **ops, heads=8, tp=8, pe=pe))
+    assert torch.equal(got, i2t_ln_update(qside, base, **ops, heads=8, tp=8, pe=pe))
+
+
+@pytest.mark.parametrize("B,S,per_prompt_pe,qw_scale", [(3, 64, False, 1.0), (5, 4096, False, 40.0),
+                                                        (5, 4096, True, 1.0)])
+def test_t2i_ctx_tensor_core(dev, B, S, per_prompt_pe, qw_scale):
+    keys, _, pe, _, qw = tc_operands(dev, B, S, False, 13 * B + S, per_prompt_pe, qw_scale)
+    assert decoder_attn.variant(decoder_attn.T2I, BF16, S, TC_C, TC_C, 1, 8, 64, False, False)[0] == "wgmma"
+    got = t2i_ctx(keys, pe, qw)
+    close_tc(got, reference_t2i_ctx(keys, pe, qw))
+    assert torch.equal(got, t2i_ctx(keys, pe, qw))
+
+
+@pytest.mark.parametrize("m,kind", [(1, "wgmma"), (3, "wgmma"), (2, "cuda-core")])
+@pytest.mark.parametrize("B,g_", [(3, 8), (5, 64), (3, 10)])
+def test_upscale_hyper_tensor_core(dev, m, kind, B, g_):
+    """K4 at SAM's widths: one tile (g = 8), the production grid with a B
+    that leaves the persistent blocks uneven, and a grid whose last tile is
+    ragged (g = 10: 100 pixels); m = 2 stays on the CUDA-core kernel. The
+    kernel check's K4 bar, and bit-equal runs."""
+    gen = torch.Generator(device=dev).manual_seed(100 * m + g_)
+
+    def r(*shape, std=0.5, dtype=BF16):
+        return (torch.randn(shape, generator=gen, device=dev) * std).to(dtype)
+
+    f32 = torch.float32
+    args = (r(B, g_ * g_, 256), r(256, 256, std=1 / 16), r(64, std=0.1, dtype=f32), 1.0 + r(64, std=0.1, dtype=f32),
+            r(64, std=0.1, dtype=f32), r(64, 128, std=1 / 8), r(32, std=0.1, dtype=f32), r(B, m, 32))
+    assert upscale_mod.variant(BF16, 256, 64, 32, m)[0] == kind
+    before = upscale_hyper.launches
+    got = upscale_hyper(*args)
+    assert upscale_hyper.launches == before + 1
+    want = reference_upscale_hyper(*args)
+    assert got.shape == want.shape and torch.isfinite(got).all()
+    assert float((got - want).abs().max()) < 0.1
+    assert float(((got > 0) == (want > 0)).float().mean()) > 0.995
+    assert torch.equal(got, upscale_hyper(*args))
+
+
+def test_variant_functions_mirror_the_c_dispatch(dev):
+    """``variant`` (plain Python, also tested on the CPU) against the C
+    entry points' own dispatch and shared-memory sizes."""
+    lib = _build.library()
+    for mode in (decoder_attn.I2T, decoder_attn.T2I, decoder_attn.PASS):
+        for dtype in (BF16, torch.float32):
+            for S in (32, 64, 4064, 4096):
+                for Cq, C in ((256, 256), (128, 256), (128, 128), (64, 64)):
+                    for heads, tp in ((8, 8), (4, 16), (2, 8)):
+                        for GT2 in (64, 16):
+                            for add_pe, same_base in ((True, True), (False, False), (True, False), (False, True)):
+                                if mode == decoder_attn.T2I and Cq != C:
+                                    continue
+                                kind, smem = decoder_attn.variant(mode, dtype, S, Cq, C, heads, tp, GT2, add_pe,
+                                                                  same_base)
+                                takes = lib.hgl_decoder_attn_tc_takes(mode, S, Cq, C, heads, tp, GT2, int(add_pe),
+                                                                      int(same_base), int(dtype == BF16))
+                                assert (kind == "wgmma") == bool(takes)
+                                if takes:
+                                    assert smem == lib.hgl_decoder_attn_tc_smem()
+    for dtype in (BF16, torch.float32):
+        for C, c4, c8 in ((256, 64, 32), (128, 32, 16), (256, 64, 16)):
+            for m in (1, 2, 3, 4):
+                kind, smem = upscale_mod.variant(dtype, C, c4, c8, m)
+                takes = lib.hgl_upscale_hyper_tc_takes(C, c4, c8, m, int(dtype == BF16))
+                assert (kind == "wgmma") == bool(takes)
+                if takes:
+                    assert smem == lib.hgl_upscale_hyper_tc_smem()
