@@ -17,7 +17,11 @@ Phases (every phase asserts; any failure exits non-zero):
      held on both their kernels: the tensor-core (wgmma) one at B = 64 and
      at B = 128, the PhraseCut pass-2 batch, and the CUDA-core one in bf16
      at a shape the tensor-core dispatch refuses and in f32 at half width
-     (its f32 operands do not fit in shared memory at full width). The
+     (its f32 operands do not fit in shared memory at full width). K5 and
+     K6 likewise: the tensor-core kernels in bf16 at the served shapes (K5
+     at the RefCOCO window and both PhraseCut windows, K6 with query row 0
+     held on its own), the CUDA-core kernels in f32 and at a shape the
+     tensor-core dispatch refuses (n = 200; hd = 32). The
      check is the path of K9 (flash_attention_rel_pos) and K10
      (pass1_stats), which no serving path runs, as in the reference;
   4. small-input parity: the port on the card against the port on the CPU
@@ -30,7 +34,8 @@ Phases (every phase asserts; any failure exits non-zero):
      CLIP ViT-B/16, random bf16 weights from seed 0, AMG at RefCOCO
      settings with the quality thresholds zeroed as the reference bench
      does) on one warm-up and three measured synthetic images, checking
-     finite outputs and that every kernel of the path launched;
+     finite outputs, that every kernel of the path launched, and that every
+     K5 and K6 launch took its tensor-core kernel;
   6. PhraseCut pipeline: the same at AMG_PHRASECUT (pps 64, one crop layer,
      P = 128, canonical 1024), one warm-up and two measured images;
   7. fusion modes: all six at full width on one RefCOCO image's proposals
@@ -47,8 +52,8 @@ object with one entry per kernel; the last line is the JSON contract line.
 ``--profile`` adds a breakdown of one more RefCOCO image (stage wall times,
 device time by kernel from torch.profiler), the scoring stages on a full
 bucket of 64 synthetic proposals, the RefCOCO ms/img with the four decoder
-switches at 0 beside the default route, the decoder chunk times, and the
-multicrop stage times.
+switches at 0 beside the default route, the decoder chunk times, the
+multicrop stage times, and the device time of one more PhraseCut image.
 """
 
 from __future__ import annotations
@@ -327,7 +332,7 @@ def phase_pipeline(tag, amg, canonical, n_images, min_launches, weights):
 
     from hybridgl_tpu_torch.core.config import PipelineConfig
     from hybridgl_tpu_torch.lang import HeuristicParser
-    from hybridgl_tpu_torch.kernels import launch_counts
+    from hybridgl_tpu_torch.kernels import launch_counts, tc_launch_counts
     from hybridgl_tpu_torch.pipeline.runner import HybridGLPipeline
 
     cfg = PipelineConfig(sam_model="vit_h", clip_model="ViT-B/16", fusion_mode="G2L", canonical_size=canonical,
@@ -356,6 +361,12 @@ def phase_pipeline(tag, amg, canonical, n_images, min_launches, weights):
         short = {k: (delta[k], n) for k, n in min_launches.items() if delta[k] < n}
         if short:
             fail(f"{name}: kernels launched fewer times than the path needs: {short}")
+    # at full width in bf16 every K5 and K6 launch is the tensor-core kernel's
+    total, on_tc = launch_counts(), tc_launch_counts()
+    off_tc = {k: (n, total[k]) for k, n in on_tc.items() if n != total[k]}
+    log(f"  {tag}: launches on the tensor-core kernels {on_tc}")
+    if off_tc:
+        fail(f"{tag}: launches that missed the tensor-core kernel (on it, all): {off_tc}")
     acc = [float(v) for v in (*state.pure, *state.final)]
     if not all(np.isfinite(acc)) or int(state.pure.count) != 2 * len(samples):
         fail(f"{tag}: accumulators wrong: {state}")
@@ -392,7 +403,8 @@ def phase_profile(pipe, samples):
     """Stage wall times and device time by kernel for one more image, plus
     the scoring stages at a full bucket (random weights leave few proposals)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+
+    from hybridgl_tpu_torch.tools.device_time import profile_image
 
     sample = samples[-1]
     state = pipe.init_state()
@@ -417,20 +429,7 @@ def phase_profile(pipe, samples):
     for k, v in stage_ms.items():
         log(f"  stage {k}: {v:.1f} ms")
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        pipe.run_image(sample, state)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-    device_total = sum(e.self_device_time_total for e in kernels) / 1e3
-    log(f"  profiled image: wall {wall:.1f} ms, device time {device_total:.1f} ms over "
-        f"{sum(e.count for e in kernels)} kernels and copies (busy share {device_total / wall:.2f}, profiler on)")
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:15]
-    # the port's own kernels are listed wherever they rank
-    own = ("rel_pos_", "attention_kernel", "pass1_stats", "decoder_attn", "upscale_hyper")
-    for e in top + [e for e in kernels if e not in top and any(n in e.key for n in own)]:
-        log(f"  device {e.self_device_time_total / 1e3:8.2f} ms  x{e.count:<5d} {e.key[:90]}")
+    profile_image(pipe, sample, state, log=log, top_n=15)
 
 
 def _wall_ms(fn):
@@ -681,6 +680,11 @@ def main(argv):
         phase_profile(*paths["RefCOCO"])
         phase_routes(*paths["RefCOCO"])
         phase_multicrop_stages(*paths["PhraseCut"])
+        from hybridgl_tpu_torch.tools.device_time import profile_image
+
+        log("PhraseCut, one more image under torch.profiler:")
+        pipe, samples = paths["PhraseCut"]
+        profile_image(pipe, samples[-1], pipe.init_state(), log=log, top_n=15)
 
     import torch
 

@@ -11,8 +11,12 @@ and, when asked, its per-sentence parity log and progress checkpoint.
 The device is ``cuda`` unless the caller names ``--device cpu`` (where the
 kernels run their plain versions); without a card the run stops rather
 than falling back. Parameters are cast to ``PipelineConfig.compute_dtype``
-(bf16 by default). Not ported yet (each raises, see ROADMAP.md): torch
-``.pth``/``.pt`` checkpoints (``core/convert.py``) and ``--data_parallel``.
+(bf16 by default). Checkpoints are the converted ``.npz`` archives or the
+published torch ``.pth``/``.pt`` files (converted on the fly by
+``core/convert.py``); an orbax directory is refused. ``--profile`` prints the
+per-stage wall times of ``utils/profiling.py:StageTimer``, then the top
+operators of torch.profiler. Not ported yet (raises, see ROADMAP.md):
+``--data_parallel``.
 """
 
 from __future__ import annotations
@@ -28,7 +32,8 @@ import torch
 from ..core.config import AMG_PHRASECUT, AMG_REFCOCO, PipelineConfig
 from ..eval.parity import ParityLog, SelectionRecord
 
-from ..core.params import cast_tree, from_numpy_tree, init_clip, init_sam, load_npz
+from ..core import checkpoint, convert
+from ..core.params import cast_tree, from_numpy_tree, init_clip, init_sam
 from ..eval.logging import ProgressCheckpoint, write_result_log
 from ..pipeline.runner import HybridGLPipeline, materialize_results
 
@@ -56,8 +61,8 @@ def default_argument_parser(epilog=None) -> argparse.ArgumentParser:
     p.add_argument("--show_results", action="store_true")
     # additions of the JAX package
     p.add_argument("--sam_model", default="vit_h", help="vit_b, vit_l, vit_h")
-    p.add_argument("--sam_checkpoint", default="", help="the reference's converted .npz")
-    p.add_argument("--clip_checkpoint", default="", help="the reference's converted .npz")
+    p.add_argument("--sam_checkpoint", default="", help="a converted .npz or a segment-anything .pth")
+    p.add_argument("--clip_checkpoint", default="", help="a converted .npz or an OpenAI CLIP .pt")
     p.add_argument("--random-weights", action="store_true", help="random init from seed 0 (smoke runs)")
     p.add_argument("--max_proposals", type=int, default=0, help="proposal bucket override")
     p.add_argument("--max_images", type=int, default=0, help="truncate the eval set")
@@ -65,7 +70,7 @@ def default_argument_parser(epilog=None) -> argparse.ArgumentParser:
     p.add_argument("--parity_log", default="", help="write per-ref selection log here")
     p.add_argument("--progress_file", default="", help="checkpoint/resume eval progress")
     p.add_argument("--no-bug-compat", action="store_true", help="disable reference quirk reproduction")
-    p.add_argument("--profile", action="store_true", help="print the top operators by time (torch.profiler)")
+    p.add_argument("--profile", action="store_true", help="print wall time per pipeline stage (device synchronised after each), then the top operators")
     p.add_argument("--trace_dir", default="", help="write a torch.profiler chrome trace here")
     p.add_argument("--data_parallel", action="store_true",
                    help="shard the eval over all local devices (not ported yet: raises)")
@@ -96,17 +101,17 @@ def load_params(args, cfg: PipelineConfig, device):
             "smoke run). Convert torch checkpoints with tools/convert_checkpoints.py."
         )
 
-    def load_one(path):
+    def load_one(path, loader, model_cfg):
         if path.endswith((".pth", ".pt")):
-            raise NotImplementedError(
-                f"{path}: torch checkpoints need core/convert.py, which the port does not have yet "
-                "(ROADMAP.md, Queue 1 item 11); convert to .npz with tools/convert_checkpoints.py"
-            )
-        if not path.endswith(".npz"):
-            raise SystemExit(f"{path}: the port loads the reference's converted .npz checkpoints")
-        return from_numpy_tree(load_npz(path), device, dtype)
+            tree, _ = loader(path, model_cfg)
+        elif path.endswith(".npz"):
+            tree = checkpoint.load(path)
+        else:
+            raise SystemExit(f"{path}: {checkpoint.ORBAX_REFUSAL}")
+        return from_numpy_tree(tree, device, dtype)
 
-    return load_one(args.sam_checkpoint), load_one(args.clip_checkpoint)
+    return (load_one(args.sam_checkpoint, convert.load_torch_sam, cfg.sam),
+            load_one(args.clip_checkpoint, convert.load_torch_clip, cfg.clip))
 
 
 def build_config(args) -> PipelineConfig:
@@ -166,6 +171,10 @@ def main(argv=None) -> None:
     # name the active expression parser: a silent heuristic fallback would
     # change selections against the reference
     print(f"expression parser: {type(pipe.parser).__name__}", flush=True)
+    if args.profile:
+        from ..utils.profiling import StageTimer
+
+        pipe.timer = StageTimer(block=True, device=device)
 
     dataset, ref_ids = build_dataset(args, cfg)
     n = len(dataset)
@@ -214,6 +223,7 @@ def main(argv=None) -> None:
         os.makedirs(args.trace_dir, exist_ok=True)
         prof.export_chrome_trace(os.path.join(args.trace_dir, "trace.json"))
     if args.profile:
+        print(pipe.timer.summary())
         key = "self_cuda_time_total" if device.type == "cuda" else "self_cpu_time_total"
         print(prof.key_averages().table(sort_by=key, row_limit=20))
     write_result_log(args.log_dir, args.dataset, args.split, args.splitBy, args.fusion_mode, state.pure, state.final)

@@ -1,4 +1,5 @@
 """Parameter trees for the port: random init, numpy import, dtype casts.
+``core/checkpoint.py`` reads and writes them as ``.npz``.
 
 The trees have exactly the keys and shapes of the reference's
 (``hybridgl_tpu/core/params.py``: ``init_clip`` :66, ``init_sam`` :157):
@@ -253,30 +254,6 @@ def from_numpy_tree(tree, device="cpu", dtype: torch.dtype | None = None):
         lambda _, x: torch.from_numpy(np.array(x, copy=True)).to(device), tree
     )
     return cast_tree(out, dtype) if dtype is not None else out
-
-
-def load_npz(path: str):
-    """A parameter tree saved by the reference's ``core/checkpoint.save`` as
-    ``.npz`` (keys are '/'-joined paths, list indices as digits) -> nested
-    dicts and lists of numpy leaves, for :func:`from_numpy_tree`."""
-    with np.load(path) as z:
-        flat = {k: z[k] for k in z.files}
-    root: dict = {}
-    for key, val in flat.items():
-        node = root
-        *parents, leaf = key.split("/")
-        for p in parents:
-            node = node.setdefault(p, {})
-        node[leaf] = val
-
-    def listify(node):
-        if not isinstance(node, dict):
-            return node
-        if node and all(k.isdigit() for k in node):
-            return [listify(node[str(i)]) for i in range(len(node))]
-        return {k: listify(v) for k, v in node.items()}
-
-    return listify(root)
 
 
 def param_count(tree) -> int:

@@ -6,7 +6,8 @@
 //   K2 hybridgl_tpu/kernels/flash_attention.py:flash_attention_fused (SAM
 //      global blocks, S = 4096, G = 64),
 //   K6 hybridgl_tpu/kernels/clip_attention.py:clip_attention (CLIP blocks,
-//      L = 197, bias on query row 0 only),
+//      L = 197, bias on query row 0 only; in bf16 at hd 64 / 80 and L <= 256
+//      the entry point below hands it to attention_wgmma.cu),
 //   K9 hybridgl_tpu/kernels/flash_attention.py:flash_attention_rel_pos (the
 //      pre-scaled tiled form, scale 1; only the kernel check calls it).
 // The TPU kernels fold the SAM bias into an augmented 128-lane contraction;
@@ -244,6 +245,9 @@ int hgl_rel_pos_tc_takes(int S, int HD, int G);
 int hgl_rel_pos_attention_tc(const void* q, const void* k, const void* v, const float* rel_h,
                              const float* rel_w, void* out, int BH, int S, int HD, int G, float scale,
                              void* stream);
+int hgl_cls_tc_takes(int S, int HD);
+int hgl_cls_attention_tc(const void* q, const void* k, const void* v, const float* cls_bias, void* out, int BH,
+                         int S, int HD, int H, float scale, void* stream);
 
 // K1, K2 and K9: decomposed rel-pos attention. is_bf16 selects bf16 or f32
 // q/k/v/out. bf16 operands go to the tensor-core kernels where those take
@@ -265,11 +269,15 @@ int hgl_rel_pos_attention(const void* q, const void* k, const void* v,
 }
 
 // K6: attention with a bias on query row 0 only; cls_bias is [BH / H, S]
-// f32 or null (no bias).
+// f32 or null (no bias). bf16 operands go to the tensor-core resident kernel
+// where it takes the geometry (hd 64 or 80, S <= 256); f32 operands, the other
+// head dims and longer sequences run the CUDA-core kernel above.
 int hgl_cls_attention(const void* q, const void* k, const void* v,
                       const float* cls_bias, void* out, int BH, int S, int HD, int H,
                       float scale, int is_bf16, void* stream) {
   if (H < 1 || BH % H) return (int)cudaErrorInvalidValue;
+  if (is_bf16 && hgl_cls_tc_takes(S, HD))
+    return hgl_cls_attention_tc(q, k, v, cls_bias, out, BH, S, HD, H, scale, stream);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return is_bf16 ? dispatch_hd<__nv_bfloat16, CLS_ROW>(q, k, v, cls_bias, nullptr, out, BH,
                                                        S, HD, 0, H, scale, st)

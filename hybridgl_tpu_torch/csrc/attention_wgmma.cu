@@ -1,12 +1,13 @@
-// Tensor-core rel-pos attention for bf16 operands, for sm_90a (wgmma).
+// Tensor-core attention with an additive f32 bias for bf16 operands, for
+// sm_90a (wgmma).
 //
-// The bf16 path of K1, K2 and K9 (see attention.cu for the TPU kernels they
-// replace and for the f32 CUDA-core kernel that stays for f32 operands, for
-// other head dims and for K6):
+// The bf16 path of K1, K2, K9 and K6 (see attention.cu for the TPU kernels
+// they replace and for the f32 CUDA-core kernel that stays for f32 operands,
+// for other head dims and for longer CLIP sequences):
 //
 //   out = softmax(scale * q k^T + bias) v
-//   bias[q, k] = rel_h[q, k / G] + rel_w[q, k % G]        (f32, added to the
-//                                                          f32 accumulator)
+//   REL_POS: bias[q, k] = rel_h[q, k / G] + rel_w[q, k % G]   (f32, added to the
+//   CLS_ROW: bias[0, k] = cls_bias[n, k], other rows unbiased  f32 accumulator)
 //
 // Both kernels here share one inner step. A warpgroup owns 64 query rows.
 // Q is scaled in f32, rounded once to bf16 and kept in registers as the A
@@ -54,6 +55,17 @@
 // rel_h / rel_w rows sit in shared memory. wgmma rather than mma.sync: the
 // kernel is memory-bound either way, and wgmma lets it share the stream
 // kernel's inner step and shared-memory layout.
+//
+// resident kernel, CLS_ROW mode (K6, hybridgl_tpu/kernels/clip_attention.py:
+// clip_attention: L = 197 tokens, hd = 64, up to 1536 stream-heads; bound by
+// bytes: 155 MB per call). The same kernel with the bias tables left out of
+// shared memory (53 KB a block instead of 65): 197 rows split into 4 x 50,
+// and only the four lanes that own global row 0 (block 0, warp 0) read
+// cls_bias[bh / H, key] from device memory and add it to that row's f32
+// accumulator entries before the softmax. Masked patches carry
+// finfo(float32).min: score + bias stays finite, row 0 always keeps its own
+// key (bias 0), so the running max is finite and masked keys get exp = 0
+// exactly. A null cls_bias runs the kernel with no bias.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -66,6 +78,8 @@ namespace {
 
 constexpr int BK = 64;       // keys per tile
 constexpr int WG_ROWS = 64;  // query rows per warpgroup
+
+enum { REL_POS = 0, CLS_ROW = 1 };  // bias modes of the resident kernel
 
 // d[64 x 80] (+)= a[64 x 16] (registers) * B (shared memory, by descriptor)
 template <int TRANS_B>
@@ -352,11 +366,11 @@ rel_pos_stream_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
   }
 }
 
-// ---- resident kernel: S <= 256, any G with G * G = S ---------------------------
+// ---- resident kernel: S <= 256; REL_POS any G with G * G = S, CLS_ROW any S ----
 
 constexpr int MAX_RESIDENT_S = 256;
 constexpr int MAX_KTILES = MAX_RESIDENT_S / BK;  // cp.async groups a block commits, one per key tile
-static_assert(MAX_KTILES == 4, "the wait ladder in rel_pos_resident_kernel names four groups");
+static_assert(MAX_KTILES == 4, "the wait ladder in resident_kernel names four groups");
 
 struct ResidentLayout {
   int sp;        // S rounded up to 16 keys
@@ -366,6 +380,7 @@ struct ResidentLayout {
   int bytes;
 };
 
+// G = 0: no bias tables in shared memory (CLS_ROW).
 inline ResidentLayout resident_layout(int S, int G, int HD) {
   ResidentLayout L;
   L.sp = (S + 15) / 16 * 16;
@@ -374,19 +389,22 @@ inline ResidentLayout resident_layout(int S, int G, int HD) {
   L.kv_bytes = kv_rows * HD * 2;
   L.qtiles = (S + WG_ROWS - 1) / WG_ROWS;
   L.rows = (S + L.qtiles - 1) / L.qtiles;
-  L.bytes = L.kv_bytes + 2 * L.rows * G * 4 + MAX_RESIDENT_S * 2;
+  L.bytes = L.kv_bytes + (G > 0 ? 2 * L.rows * G * 4 + MAX_RESIDENT_S * 2 : 0);
   return L;
 }
 
-template <int HD>
+// REL_POS: rel_h, rel_w [BH, S, G]. CLS_ROW: rel_h is cls_bias [BH / G, S] or
+// null, rel_w unused, and G carries the number of heads H.
+template <int HD, int MODE>
 __global__ void __launch_bounds__(128, 3)
-rel_pos_resident_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                        const __nv_bfloat16* __restrict__ v, const float* __restrict__ rel_h,
-                        const float* __restrict__ rel_w, __nv_bfloat16* __restrict__ out, int S, int G, int sp,
-                        int kv_bytes, int rows, float scale) {
+resident_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                const __nv_bfloat16* __restrict__ v, const float* __restrict__ rel_h,
+                const float* __restrict__ rel_w, __nv_bfloat16* __restrict__ out, int S, int G, int sp,
+                int kv_bytes, int rows, float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
   const uint32_t ks = smem_u32(smem);
   const uint32_t vs = ks + sp * HD * 2;
+  // REL_POS only; in CLS_ROW mode the block has no shared memory past kv_bytes
   float* Rh = reinterpret_cast<float*>(smem + kv_bytes);  // [rows][G]
   float* Rw = Rh + rows * G;                              // [rows][G]
   uint16_t* split = reinterpret_cast<uint16_t*>(Rw + rows * G);  // key -> (k / G) | (k % G) << 8
@@ -399,7 +417,7 @@ rel_pos_resident_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16
 
   // the block's rel_h / rel_w rows are contiguous in device memory: a
   // linear 4-byte copy (no divide), zero past the last row, in tile 0's group
-  {
+  if constexpr (MODE == REL_POS) {
     const size_t rel_base = ((size_t)bh * S + q0) * G;
     const int live = (min(q0 + rows, S) - q0) * G;
     const uint32_t rh_s = smem_u32(Rh), rw_s = smem_u32(Rw);
@@ -439,7 +457,8 @@ rel_pos_resident_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16
   // the wait below counts back from MAX_KTILES groups: commit empty ones for
   // the tiles a short sequence does not have
   for (int t = ktiles; t < MAX_KTILES; ++t) cp_async_commit();
-  for (int key = tid; key < MAX_RESIDENT_S; key += 128) split[key] = (uint16_t)((key / G) | ((key % G) << 8));
+  if constexpr (MODE == REL_POS)
+    for (int key = tid; key < MAX_RESIDENT_S; key += 128) split[key] = (uint16_t)((key / G) | ((key % G) << 8));
 
   const int r0 = warp * 16 + (lane >> 2), r1 = r0 + 8;  // rows inside the tile
   const int col = (lane & 3) * 2;
@@ -449,6 +468,10 @@ rel_pos_resident_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16
                        live1 ? q + base + (size_t)(q0 + r1) * HD : nullptr, col, scale);
   // dead rows read a live row's bias: their output is never stored
   const int b0 = min(r0, rows - 1) * G, b1 = min(r1, rows - 1) * G;
+  // CLS_ROW: the bias row of this stream, for the four lanes that own global row 0
+  const float* cls = nullptr;
+  if constexpr (MODE == CLS_ROW)
+    if (rel_h != nullptr && q0 + r0 == 0) cls = rel_h + (size_t)(bh / G) * S;
 
   float o[HD / 2];
 #pragma unroll
@@ -472,9 +495,13 @@ rel_pos_resident_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16
       for (int e = 0; e < 2; ++e) {
         const int key = t * BK + j * 8 + col + e;
         if (key < S) {
-          const int hw = split[key];
-          s[j * 4 + e] += Rh[b0 + (hw & 0xff)] + Rw[b0 + (hw >> 8)];
-          s[j * 4 + 2 + e] += Rh[b1 + (hw & 0xff)] + Rw[b1 + (hw >> 8)];
+          if constexpr (MODE == REL_POS) {
+            const int hw = split[key];
+            s[j * 4 + e] += Rh[b0 + (hw & 0xff)] + Rw[b0 + (hw >> 8)];
+            s[j * 4 + 2 + e] += Rh[b1 + (hw & 0xff)] + Rw[b1 + (hw >> 8)];
+          } else if (cls != nullptr) {
+            s[j * 4 + e] += cls[key];  // row r0 = global row 0 alone
+          }
         } else {
           s[j * 4 + e] = -INFINITY;
           s[j * 4 + 2 + e] = -INFINITY;
@@ -500,11 +527,11 @@ int launch_stream(const void* q, const void* k, const void* v, const float* rel_
   return (int)cudaGetLastError();
 }
 
-template <int HD>
+template <int HD, int MODE>
 int launch_resident(const void* q, const void* k, const void* v, const float* rel_h, const float* rel_w, void* out,
                     int BH, int S, int G, float scale, cudaStream_t stream) {
-  auto kern = rel_pos_resident_kernel<HD>;
-  const ResidentLayout L = resident_layout(S, G, HD);
+  auto kern = resident_kernel<HD, MODE>;
+  const ResidentLayout L = resident_layout(S, MODE == REL_POS ? G : 0, HD);
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, L.bytes);
   if (err != cudaSuccess) return (int)err;
   // three blocks an SM need the largest shared-memory carve-out
@@ -536,8 +563,20 @@ int hgl_rel_pos_attention_tc(const void* q, const void* k, const void* v, const 
   if (G == 64)
     return HD == 80 ? launch_stream<80>(q, k, v, rel_h, rel_w, out, BH, S, scale, st)
                     : launch_stream<64>(q, k, v, rel_h, rel_w, out, BH, S, scale, st);
-  return HD == 80 ? launch_resident<80>(q, k, v, rel_h, rel_w, out, BH, S, G, scale, st)
-                  : launch_resident<64>(q, k, v, rel_h, rel_w, out, BH, S, G, scale, st);
+  return HD == 80 ? launch_resident<80, REL_POS>(q, k, v, rel_h, rel_w, out, BH, S, G, scale, st)
+                  : launch_resident<64, REL_POS>(q, k, v, rel_h, rel_w, out, BH, S, G, scale, st);
+}
+
+// 1 where the resident kernel takes this CLS-row geometry (bf16 operands only).
+int hgl_cls_tc_takes(int S, int HD) { return (HD == 64 || HD == 80) && S >= 1 && S <= MAX_RESIDENT_S; }
+
+// K6 in bf16 on the tensor cores: cls_bias [BH / H, S] f32 or null; the caller
+// has checked hgl_cls_tc_takes. Returns a cudaError_t code (0 = launched).
+int hgl_cls_attention_tc(const void* q, const void* k, const void* v, const float* cls_bias, void* out, int BH,
+                         int S, int HD, int H, float scale, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return HD == 80 ? launch_resident<80, CLS_ROW>(q, k, v, cls_bias, nullptr, out, BH, S, H, scale, st)
+                  : launch_resident<64, CLS_ROW>(q, k, v, cls_bias, nullptr, out, BH, S, H, scale, st);
 }
 
 }  // extern "C"

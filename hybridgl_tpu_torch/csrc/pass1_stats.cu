@@ -1,4 +1,6 @@
-// AMG pass-1 statistics for sm_90a: two entry points.
+// AMG pass-1 statistics for sm_90a on the CUDA cores: two entry points. K5
+// with bf16 operands runs pass1_stats_wgmma.cu instead where that kernel takes
+// the shape; this file serves K5 in f32 and at the other shapes, and K10.
 //
 // K5 replaces hybridgl_tpu/kernels/pass1_stats.py:pass1_stats_half (the
 // Pallas `_stats_call` with pre_half=True). For every candidate b it completes the

@@ -6,7 +6,10 @@ hand-written CUDA kernels in ``csrc/`` (built by ``_build``); the other
 modules are the plain tensor primitives the reference wrote as XLA.
 
 Each kernel wrapper counts its launches in a plain integer attribute
-(``wrapper.launches``), incremented only where it launches its kernel.
+(``wrapper.launches``), incremented only where it launches its kernel. The
+two wrappers whose C dispatch is not mirrored call by call elsewhere (K5,
+K6) also count the launches that took the tensor-core kernel
+(``wrapper.tc_launches``).
 """
 
 from __future__ import annotations
@@ -40,6 +43,13 @@ def launch_counts() -> dict:
     return {name: fn.launches for name, fn in kernel_wrappers().items()}
 
 
+def tc_launch_counts() -> dict:
+    """{name: launches that took the tensor-core kernel} for the wrappers that count them."""
+    return {name: fn.tc_launches for name, fn in kernel_wrappers().items() if hasattr(fn, "tc_launches")}
+
+
 def reset_launch_counts() -> None:
     for fn in kernel_wrappers().values():
         fn.launches = 0
+        if hasattr(fn, "tc_launches"):
+            fn.tc_launches = 0

@@ -41,6 +41,10 @@ _SIGNATURES = {
     "hgl_cls_attention": [_vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _f, _i, _vp],
     "hgl_pass1_stats": [_vp, _vp, _i, _i, _i, _f, _f, _f, _f, _f, _f, _vp, _vp, _vp, _i, _vp],
     "hgl_pass1_stats_full": [_vp, _vp, _vp, _i, _i, _i, _i, _f, _f, _f, _f, _f, _f, _vp, _vp, _vp, _i, _vp],
+    "hgl_pass1_stats_tc": [_vp, _vp, _i, _i, _i, _f, _f, _f, _f, _f, _f, _vp, _vp, _vp, _vp],
+    "hgl_pass1_stats_tc_takes": [_i, _i],
+    "hgl_pass1_stats_tc_smem": [_i],
+    "hgl_cls_tc_takes": [_i, _i],
     "hgl_decoder_attn": [_i] + [_vp] * 15 + [_i] * 14 + [_vp],
     "hgl_upscale_hyper": [_vp] * 9 + [_i] * 10 + [_vp],
     "hgl_decoder_attn_tc_takes": [_i] * 10,

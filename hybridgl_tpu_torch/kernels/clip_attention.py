@@ -3,10 +3,20 @@
 :func:`clip_attention` replaces the Pallas kernel of the same name
 (``hybridgl_tpu/kernels/clip_attention.py:78``): the ViT-B/16 blocks of the
 hybrid fusion stage, up to 2P = 128 crop streams x 12 heads of L = 197
-tokens, hd = 64. It launches ``csrc/attention.cu`` in CLS_ROW mode: the
-additive bias ``cls_bias[n, k]`` applies to query row 0 only, every other
-row is unbiased (the reference's ``make_attn_mask``, backbone.py:108-115,
-arrives compact as [N, L]; see models/clip/fusion.py:make_cls_bias).
+tokens, hd = 64. The additive bias ``cls_bias[n, k]`` applies to query row 0
+only, every other row is unbiased (the reference's ``make_attn_mask``,
+backbone.py:108-115, arrives compact as [N, L]; see
+models/clip/fusion.py:make_cls_bias).
+
+Two kernels stand behind it (:func:`variant` says which a call takes, by
+dtype and shape alone, inside the C entry point): bf16 operands with head
+dim 64 or 80 and L <= 256 run the resident tensor-core kernel of
+``csrc/attention_wgmma.cu`` in CLS_ROW mode (all K and V of a head in shared
+memory, the bias added to row 0's f32 accumulator entries); f32 operands, the
+other head dims (16, 32) and 256 < L <= 512 (ViT-L/14's 257) run the
+CUDA-core kernel of ``csrc/attention.cu`` (CLS_ROW mode), which is exact in
+f32. The tensor-core kernel rounds the scaled q and the probabilities to bf16;
+the bias and all sums stay f32.
 
 The bias stays f32: masked patches carry ``finfo(float32).min``, which a
 cast to bf16 would turn into -inf. Row 0 always attends to itself (bias 0),
@@ -28,6 +38,16 @@ from . import _build
 # longer sequences (GEM's 785 tokens) take the plain path
 MAX_ROWS = 512
 SUPPORTED_HEAD_DIMS = (16, 32, 64, 80)
+TC_HEAD_DIMS = (64, 80)
+TC_MAX_ROWS = 256  # the resident kernel keeps a head's K and V in shared memory
+
+
+def variant(dtype, L: int, hd: int) -> str:
+    """Which kernel a CUDA call takes: "wgmma" or "cuda-core". Mirrors
+    ``hgl_cls_tc_takes`` (csrc/attention_wgmma.cu)."""
+    if dtype == torch.bfloat16 and hd in TC_HEAD_DIMS and 1 <= L <= TC_MAX_ROWS:
+        return "wgmma"
+    return "cuda-core"
 
 
 def reference_clip_attention(q, k, v, cls_bias, num_heads: int, scale: float):
@@ -68,6 +88,8 @@ def clip_attention(q, k, v, cls_bias, num_heads: int, scale: float):
     for t in tensors:
         if t.device != q.device or not t.is_contiguous():
             raise ValueError("clip_attention: inputs must be contiguous and on one device")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("clip_attention: q/k/v must be 16-byte aligned (the kernels load 16 bytes a thread)")
     out = torch.empty_like(q)
     lib = _build.library()
     code = lib.hgl_cls_attention(
@@ -78,7 +100,9 @@ def clip_attention(q, k, v, cls_bias, num_heads: int, scale: float):
     )
     _build.check(code, "clip_attention")
     clip_attention.launches += 1
+    clip_attention.tc_launches += variant(q.dtype, L, hd) == "wgmma"
     return out
 
 
 clip_attention.launches = 0
+clip_attention.tc_launches = 0  # of those, the launches of csrc/attention_wgmma.cu's resident kernel

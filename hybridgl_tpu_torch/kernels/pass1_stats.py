@@ -10,10 +10,16 @@ main path runs K5, as the reference's does; only the kernel check
 the two stability threshold counts, the row/column occupancy profiles (for
 the box), and non-emptiness. The canonical-frame logits they derive from are
 ``Wy @ tmp`` where ``tmp = low @ Wx^T`` is the column half-transform (a plain
-matmul outside the kernel, :func:`half_transform`); the kernel
-(``csrc/pass1_stats.cu``) completes the row transform one tile at a time
-inside the placement window and reduces in place, so the [B, C, C] frame is
-never stored.
+matmul outside the kernel, :func:`half_transform`); the kernel completes the
+row transform one tile at a time inside the placement window and reduces in
+place, so the [B, C, C] frame is never stored.
+
+K5 has two kernels (:func:`variant` says which a call takes, by dtype and
+shape alone): bf16 stats, the default, run ``csrc/pass1_stats_wgmma.cu`` on
+the tensor cores (n a multiple of 16 up to 256, C a multiple of 8); f32 stats
+and every other shape run the CUDA-core kernel of ``csrc/pass1_stats.cu``,
+which sums in f32 in the plain version's order of magnitude and is held to
+equal boxes. K10 runs ``csrc/pass1_stats.cu`` in both dtypes.
 
 Dtype policy (reference ``use_bf16_stats``, pass1_stats.py:39-55): the
 half-transform and the row matmul take bf16 operands with f32 sums by
@@ -69,6 +75,27 @@ def reference_pass1_stats_half(tmp, Wy, window, thresh: float, offset: float):
     return hi / lo.clamp(min=1.0), m.any(dim=-1), m.any(dim=-2)
 
 
+TC_MAX_N = 256  # the strip and four Wy tiles take 768 n bytes of shared memory
+
+
+def variant(dtype, n: int, C: int) -> str:
+    """Which K5 kernel a CUDA call takes: "wgmma" or "cuda-core". Mirrors
+    ``hgl_pass1_stats_tc_takes`` (csrc/pass1_stats_wgmma.cu)."""
+    if dtype == torch.bfloat16 and 16 <= n <= TC_MAX_N and n % 16 == 0 and C >= 8 and C % 8 == 0:
+        return "wgmma"
+    return "cuda-core"
+
+
+def _zeroed_outputs(B: int, C: int, device):
+    """(counts [B, 2] int32, row_any [B, C] bool, col_any [B, C] bool) as views
+    of one zeroed buffer: the kernels that meet only in their outputs add to
+    the counts and store 1 into the flags."""
+    buf = torch.zeros(B * (8 + 2 * C), dtype=torch.uint8, device=device)
+    counts = buf[: B * 8].view(torch.int32).view(B, 2)
+    flags = buf[B * 8 :].view(torch.bool).view(2, B, C)
+    return counts, flags[0], flags[1]
+
+
 def pass1_stats_half(tmp, Wy, window, thresh: float, offset: float):
     """tmp [B, n, C] (pre-applied column half-transform), Wy [C, n] composed
     row weights, window (y0, x0, dh, dw) -> (stab [B] f32, row_any [B, C]
@@ -90,10 +117,23 @@ def pass1_stats_half(tmp, Wy, window, thresh: float, offset: float):
     if not (tmp.is_contiguous() and Wy.is_contiguous()):
         raise ValueError("pass1_stats_half: inputs must be contiguous")
     y0, x0, dh, dw = _window(window)
+    lib = _build.library()
+    if variant(dt, n, C) == "wgmma":
+        if tmp.data_ptr() % 16 or Wy.data_ptr() % 16:
+            raise ValueError("pass1_stats_half: inputs must be 16-byte aligned (the kernel copies 16 bytes a thread)")
+        counts, row_any, col_any = _zeroed_outputs(B, C, tmp.device)
+        code = lib.hgl_pass1_stats_tc(
+            tmp.data_ptr(), Wy.data_ptr(), B, n, C, y0, x0, dh, dw, float(thresh), float(offset),
+            counts.data_ptr(), row_any.data_ptr(), col_any.data_ptr(), _build.stream_handle(tmp.device),
+        )
+        _build.check(code, "pass1_stats_half")
+        pass1_stats_half.launches += 1
+        pass1_stats_half.tc_launches += 1
+        counts = counts.float()
+        return counts[:, 0] / counts[:, 1].clamp(min=1.0), row_any, col_any
     counts = torch.empty((B, 2), dtype=torch.float32, device=tmp.device)
     row_any = torch.empty((B, C), dtype=torch.bool, device=tmp.device)
     col_any = torch.empty((B, C), dtype=torch.bool, device=tmp.device)
-    lib = _build.library()
     code = lib.hgl_pass1_stats(
         tmp.data_ptr(), Wy.data_ptr(), B, n, C, y0, x0, dh, dw,
         float(thresh), float(offset), counts.data_ptr(), row_any.data_ptr(),
@@ -139,9 +179,7 @@ def pass1_stats(low, WxT, Wy, window, thresh: float, offset: float, tile: int = 
     if smem > _MAX_SMEM_BYTES - 2048:  # static shared memory: flags and the block sums
         raise ValueError(f"pass1_stats: n={n}, C={C} needs {smem} bytes of shared memory per block")
     y0, x0, dh, dw = _window(window)
-    counts = torch.zeros((B, 2), dtype=torch.int32, device=low.device)
-    row_any = torch.zeros((B, C), dtype=torch.bool, device=low.device)
-    col_any = torch.zeros((B, C), dtype=torch.bool, device=low.device)
+    counts, row_any, col_any = _zeroed_outputs(B, C, low.device)
     lib = _build.library()
     code = lib.hgl_pass1_stats_full(
         low.data_ptr(), WxT.data_ptr(), Wy.data_ptr(), B, n, n2, C, y0, x0, dh, dw,
@@ -155,4 +193,5 @@ def pass1_stats(low, WxT, Wy, window, thresh: float, offset: float, tile: int = 
 
 
 pass1_stats_half.launches = 0
+pass1_stats_half.tc_launches = 0  # of those, the launches of csrc/pass1_stats_wgmma.cu
 pass1_stats.launches = 0

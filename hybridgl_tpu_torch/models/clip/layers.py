@@ -13,6 +13,7 @@ from typing import Optional
 
 import torch
 
+from ...core.dtypes import score_dtype, softmax_scores
 from ...kernels.clip_attention import MAX_ROWS, clip_attention
 
 
@@ -69,10 +70,16 @@ def multi_head_attention(p, x, num_heads: int, attn_bias: Optional[torch.Tensor]
             assert attn_bias is None, "attn_bias and cls_bias are mutually exclusive"
             attn_bias = cls_bias_to_attn_bias(cls_bias)
         q, k, v = (t.reshape(N, L, H, hd).transpose(1, 2) for t in qkv.split(D, dim=-1))
-        attn = torch.matmul(q.float() * scale, k.float().transpose(-1, -2))
+        # the reference's rounding points (core/dtypes.py policy): the scale and
+        # q * scale round in x's dtype, QK sums in f32 and is stored in the score
+        # dtype, the bias is added there (finfo(f32).min becomes -inf under bf16),
+        # PV sums in f32 and rounds to x's dtype
+        scale_dt = float(1.0 / torch.sqrt(torch.tensor(float(hd))).to(dt))
+        sdt = score_dtype(dt)
+        attn = torch.matmul((q * scale_dt).float(), k.float().transpose(-1, -2)).to(sdt)
         if attn_bias is not None:
-            attn = attn + attn_bias.float()
-        attn = torch.softmax(attn, dim=-1).to(dt)
+            attn = attn + attn_bias.to(sdt)
+        attn = softmax_scores(attn).to(dt)
         out = torch.matmul(attn, v).transpose(1, 2).reshape(N, L, D)
     return out @ p["out_w"].to(dt) + p["out_b"].to(dt)
 

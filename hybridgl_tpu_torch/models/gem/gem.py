@@ -14,7 +14,7 @@ from __future__ import annotations
 import torch
 
 from ...core.config import ClipConfig, GemConfig
-
+from ...core.dtypes import score_dtype, softmax_scores
 from ...kernels.resize import resize_bilinear
 from ..clip.layers import layer_norm, linear, quick_gelu
 
@@ -43,24 +43,31 @@ def _merge_heads(t):
 
 
 def _l2norm(t, eps=1e-6):
-    return t / torch.clamp(torch.linalg.norm(t, dim=-1, keepdim=True), min=eps)
+    # the squares round in t's dtype before the sum, as in the reference's jnp.linalg.norm
+    return t / torch.clamp(torch.sqrt((t * t).sum(dim=-1, keepdim=True)), min=eps)
+
+
+def _scores(a, b, scale, sdt):
+    """scale * a b^T with f32 sums, stored in the score dtype (core/dtypes.py)."""
+    return (scale * torch.matmul(a.float(), b.float().transpose(-1, -2))).to(sdt)
 
 
 def self_self_attention(q, k, v, temp: float, iters: int):
     """qq/kk/vv ensemble; returns [N, H, L, hd]."""
+    sdt = score_dtype(q.dtype)
     outs = []
     for t in (q, k, v):
         tn = _l2norm(t)
         attn = None
         for _ in range(max(iters, 1)):
-            attn = torch.softmax(temp * torch.matmul(tn.float(), tn.float().transpose(-1, -2)), dim=-1).to(t.dtype)
+            attn = softmax_scores(_scores(tn, tn, temp, sdt)).to(t.dtype)
             tn = _l2norm(torch.matmul(attn, tn))
         outs.append(torch.matmul(attn, v))
     return (outs[0] + outs[1] + outs[2]) / 3.0
 
 
 def _std_attention(q, k, v, scale):
-    attn = torch.softmax(scale * torch.matmul(q.float(), k.float().transpose(-1, -2)), dim=-1).to(v.dtype)
+    attn = softmax_scores(_scores(q, k, scale, score_dtype(q.dtype))).to(v.dtype)
     return torch.matmul(attn, v)
 
 

@@ -23,6 +23,7 @@ cleanup.
 
 from __future__ import annotations
 
+import contextlib
 import warnings
 from dataclasses import dataclass
 from typing import Iterable, List, NamedTuple, Optional, Sequence
@@ -100,6 +101,12 @@ class HybridGLPipeline:
         self._sentence_rows = {}  # sentence -> parsed/tokenized row cache
         self.last_proposals: Optional[Proposals] = None  # run_image's bundle, for inspection
         self._warned_overflow = False
+        self.timer = None  # optional utils.profiling.StageTimer: per-stage wall times
+
+    def _span(self, name: str):
+        if self.timer is None:
+            return contextlib.nullcontext()
+        return self.timer.span(name)
 
     def init_state(self) -> PipelineState:
         g = self.cfg.guidance
@@ -110,7 +117,9 @@ class HybridGLPipeline:
     def propose(self, sample: ImageSample) -> Proposals:
         """SAM proposals + the host small-region cleanup, which the reference
         applies whenever min_mask_region_area > 0 (automatic_mask_generator.py:166-171)."""
-        return self._finish_proposals(self._launch_proposals(sample), (sample.h, sample.w))
+        with self._span("proposals"):
+            props = self._launch_proposals(sample)
+        return self._finish_proposals(props, (sample.h, sample.w))
 
     def _launch_proposals(self, sample: ImageSample) -> Proposals:
         """The proposal stage on the device (SAM encoder + AMG)."""
@@ -142,8 +151,10 @@ class HybridGLPipeline:
                 stacklevel=2,
             )
             self._warned_overflow = True
-        if cfg.amg.min_mask_region_area > 0 and props.num > 0:
-            props = self._cleanup_host(props, hw)
+        if cfg.amg.min_mask_region_area > 0:
+            with self._span("small_region_cleanup"):
+                if props.num > 0:
+                    props = self._cleanup_host(props, hw)
         return props
 
     def _cleanup_host(self, props: Proposals, hw) -> Proposals:
@@ -277,7 +288,8 @@ class HybridGLPipeline:
         last of those reads overlaps the previous image's cleanup."""
         pending = None  # (sample, launched proposals)
         for sample in samples:
-            launched = (sample, self._launch_proposals(sample))
+            with self._span("proposals_dispatch"):
+                launched = (sample, self._launch_proposals(sample))
             if pending is not None:
                 yield self._emit(*pending, state, yield_props)
             pending = launched
@@ -316,7 +328,8 @@ class HybridGLPipeline:
 
         props = self._bucket_props(props)
         image_c = torch.from_numpy(np.asarray(sample.image_canonical)).to(self.device)
-        feats, gem_pf = self._feature_stage(props, image_c, sample.h, sample.w)
+        with self._span("crops+fusion"):
+            feats, gem_pf = self._feature_stage(props, image_c, sample.h, sample.w)
 
         # sticky clamp (reference: Hybridgl_main.py:178-181)
         if self.cfg.compat.k_clamp_sticky:
@@ -333,11 +346,12 @@ class HybridGLPipeline:
             if has_gt
             else torch.zeros((C, C), dtype=torch.bool, device=self.device)
         )
+        with self._span("parse+tokenize"):
+            rows = [self._row(sentence) for sentence in sample.sentences]
         results = []
-        for sentence in sample.sentences:
-            sel, pure, final = self._sentence_stage(
-                props, feats, gem_pf, sample.h, sample.w, self._row(sentence), k1, k2, gt
-            )
+        for sentence, row in zip(sample.sentences, rows):
+            with self._span("sentence_stage"):
+                sel, pure, final = self._sentence_stage(props, feats, gem_pf, sample.h, sample.w, row, k1, k2, gt)
             if has_gt:
                 state.pure = accumulate(state.pure, pure)
                 state.final = accumulate(state.final, final)

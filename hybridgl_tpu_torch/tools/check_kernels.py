@@ -8,7 +8,11 @@ around a batch of back-to-back calls, :func:`time_ms`). K3 and K4 have two
 kernels each: the tensor-core one is checked at B = 64 and 128, the
 CUDA-core one in bf16 at a shape the tensor-core dispatch refuses (ragged S,
 m = 2) and in f32 at half width (at full width its f32 operands do not fit
-in shared memory). Each time stands beside the kernel's
+in shared memory). K5 and K6 have two each as well: K5's tensor-core kernel
+at the three served windows in bf16, its CUDA-core kernel in f32 and in bf16
+at n = 200, which the tensor-core dispatch refuses; K6's tensor-core kernel
+at [1536, 197, 64] in bf16 with query row 0 (the only biased row) also held
+on its own, its CUDA-core kernel in f32 and at hd = 32. Each time stands beside the kernel's
 bound, the least time the card could take for the same work
 (:func:`kernel_work` and :func:`bound_ms`: operations over the bf16
 tensor-core peak or bytes over the memory rate, whichever is larger), and,
@@ -33,7 +37,8 @@ Geometry: SAM ViT-H attention (K1: 25 windows x 16 heads, S = 196, G = 14;
 K2 and K9: 16 heads, S = 4096, G = 64, hd = 80), CLIP ViT-B/16 (K6: 128
 streams x 12 heads, L = 197, hd = 64), the SAM decoder (C = 256, 8 heads x
 tp 8, S = 4096; B = 64 and 128 for K3/K4, 128 for K7/K8), pass 1 (K5: 192 RefCOCO
-candidates at C = 640 and a PhraseCut crop window at C = 1024; K10: 16
+candidates at C = 640, and PhraseCut's layer-1 crop window and full-image
+window at C = 1024; K10: 16
 points x 3 masks at C = 1024 and window (17, 5, 451, 633), and 192
 candidates at C = 640). The check needs a CUDA card; it refuses to run
 without one.
@@ -51,8 +56,8 @@ import torch
 KERNELS = {
     "flash_windowed_fused": ("hybridgl_tpu_torch/csrc/attention_wgmma.cu", "hybridgl_tpu/kernels/flash_attention.py:276"),
     "flash_attention_fused": ("hybridgl_tpu_torch/csrc/attention_wgmma.cu", "hybridgl_tpu/kernels/flash_attention.py:171"),
-    "pass1_stats_half": ("hybridgl_tpu_torch/csrc/pass1_stats.cu", "hybridgl_tpu/kernels/pass1_stats.py:257"),
-    "clip_attention": ("hybridgl_tpu_torch/csrc/attention.cu", "hybridgl_tpu/kernels/clip_attention.py:78"),
+    "pass1_stats_half": ("hybridgl_tpu_torch/csrc/pass1_stats_wgmma.cu", "hybridgl_tpu/kernels/pass1_stats.py:257"),
+    "clip_attention": ("hybridgl_tpu_torch/csrc/attention_wgmma.cu", "hybridgl_tpu/kernels/clip_attention.py:78"),
     "i2t_ln_then_t2i": ("hybridgl_tpu_torch/csrc/decoder_attn_wgmma.cu", "hybridgl_tpu/kernels/decoder_pass.py:209"),
     "upscale_hyper_blocked": ("hybridgl_tpu_torch/csrc/upscale_hyper_wgmma.cu", "hybridgl_tpu/kernels/upscale_hyper.py:153"),
     "i2t_ln_update": ("hybridgl_tpu_torch/csrc/decoder_attn_wgmma.cu", "hybridgl_tpu/kernels/decoder_attn.py:95"),
@@ -236,25 +241,46 @@ def _rel_pos(run: _Run):
 
 def _clip(run: _Run):
     """K6: 2P = 128 crop streams x 12 heads, L = 197, hd = 64; the CLS-row
-    bias masks about half the patches with finfo(float32).min."""
-    from ..kernels.clip_attention import clip_attention, reference_clip_attention
+    bias masks about half the patches with finfo(float32).min. bf16 on the
+    tensor-core kernel, with query row 0 of every head (the only biased row)
+    also held on its own; then the CUDA-core kernel in f32 and at hd = 32."""
+    from ..kernels.clip_attention import clip_attention, reference_clip_attention, variant
 
-    N, H, L, hd = 128, 12, 197, 64
-    q, k, v = run.randn(N * H, L, hd), run.randn(N * H, L, hd), run.randn(N * H, L, hd)
-    allowed = torch.rand((N, L), generator=run.gen, device=run.dev) > 0.5
-    allowed[:, 0] = True
-    bias = torch.where(allowed, 0.0, torch.finfo(torch.float32).min).float().contiguous()
-    scale = hd**-0.5
-    kernel = lambda: clip_attention(q, k, v, bias, H, scale)  # noqa: E731
-    plain = lambda: reference_clip_attention(q, k, v, bias, H, scale)  # noqa: E731
-    got, want = kernel(), plain()
-    torch.cuda.synchronize()
-    ok, err = run.attention("clip_attention", got, want)
-    mask = torch.zeros((N, H, L, L), dtype=q.dtype, device=run.dev)
-    mask[:, :, 0, :] = bias[:, None, :].to(q.dtype)  # the CLS row only
-    mask = mask.reshape(N * H, L, L)
-    run.record("clip_attention", ok, err, kernel, plain, f"[{N * H}, {L}, {hd}] bf16",
-               dict(BH=N * H, S=L, hd=hd, N=N, esize=2), library=lambda: _sdpa(q, k, v, mask, scale))
+    N, H, L = 128, 12, 197
+    for hd, dtype, want_kind in ((64, torch.bfloat16, "wgmma"), (64, torch.float32, "cuda-core"),
+                                 (32, torch.bfloat16, "cuda-core")):
+        name = str(dtype).split(".")[-1]
+        q, k, v = (run.randn(N * H, L, hd, dtype=dtype) for _ in range(3))
+        allowed = torch.rand((N, L), generator=run.gen, device=run.dev) > 0.5
+        allowed[:, 0] = True
+        bias = torch.where(allowed, 0.0, torch.finfo(torch.float32).min).float().contiguous()
+        scale = hd**-0.5
+        kernel = lambda: clip_attention(q, k, v, bias, H, scale)  # noqa: E731
+        plain = lambda: reference_clip_attention(q, k, v, bias, H, scale)  # noqa: E731
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        kind = variant(dtype, L, hd)
+        label = f"clip_attention ({kind}, hd = {hd}, {name})"
+        ok_v = run.verdict(f"{label} kernel", kind == want_kind, kind)
+        ok, err = run.attention(label, got, want)
+        ok_0, err_0 = run.attention(f"{label} row 0", got[:, 0], want[:, 0])
+        # without a bias row 0 must differ: the bias is really applied
+        ok_b = run.verdict(f"{label} bias applied", not torch.allclose(
+            got[:, 0].float(), clip_attention(q, k, v, None, H, scale)[:, 0].float(), atol=1e-2), "row 0 moves with the bias")
+        del got, want
+        library = None
+        if dtype == torch.bfloat16:
+            mask = torch.zeros((N, H, L, L), dtype=q.dtype, device=run.dev)
+            mask[:, :, 0, :] = bias[:, None, :].to(q.dtype)  # the CLS row only
+            mask = mask.reshape(N * H, L, L)
+            library = lambda: _sdpa(q, k, v, mask, scale)  # noqa: E731
+        run.record("clip_attention", ok_v and ok and ok_0 and ok_b, max(err, err_0), kernel, plain,
+                   f"({kind}) [{N * H}, {L}, {hd}] {name}",
+                   dict(BH=N * H, S=L, hd=hd, N=N, esize=q.element_size()), library=library)
+        del q, k, v
+        if library is not None:
+            del mask, library
+        torch.cuda.empty_cache()
 
 
 def _stats_verdict(run: _Run, label, got, want, exact):
@@ -290,6 +316,7 @@ def _pass1(run: _Run):
         pass1_stats_half,
         reference_pass1_stats_half,
         stats_dtype,
+        variant,
     )
     from ..kernels.resize import _composed_axis_weights
 
@@ -306,6 +333,14 @@ def _pass1(run: _Run):
         Cp, win_p = 1024, (159, 239, 321, 401)
         Wy_p = _composed_axis_weights(Cp, n, 1024, 820, win_p[0], win_p[2], run.dev)
         Wx_p = _composed_axis_weights(Cp, n, 1024, 1024, win_p[1], win_p[3], run.dev)
+        # PhraseCut's full-image crop: the RefCOCO window in the 1024 frame
+        Wy_f = _composed_axis_weights(Cp, n, 1024, 768, 0, h, run.dev)
+        Wx_f = _composed_axis_weights(Cp, n, 1024, 1024, 0, w, run.dev)
+        # n = 200: no whole number of wgmma K steps, so bf16 stays on the CUDA-core kernel
+        n_r = 200
+        low_n = _smooth_logits(run, Bc, n_r)
+        Wy_n = _composed_axis_weights(C, n_r, 1024, 768, 0, h, run.dev)
+        Wx_n = _composed_axis_weights(C, n_r, 1024, 1024, 0, w, run.dev)
         # the reference check's K10 geometry: 16 points x 3 masks, soft
         # nonnegative weights, window (17, 5, 451, 633)
         Br, Cr, win_r = 48, 1024, (17.0, 5.0, 451.0, 633.0)
@@ -316,17 +351,25 @@ def _pass1(run: _Run):
         for bf16 in (True, False):
             _stats_dtype_env(bf16)
             tag = "bf16" if bf16 else "f32"
-            for (Wy_, Wx_, win, note) in ((Wy, Wx, window, f"C = {C}"), (Wy_p, Wx_p, win_p, f"crop window, C = {Cp}")):
-                tmp = half_transform(low, Wx_.T)
+            shapes = [(low, Wy, Wx, window, f"C = {C}", "wgmma"),
+                      (low, Wy_p, Wx_p, win_p, f"crop window, C = {Cp}", "wgmma"),
+                      (low, Wy_f, Wx_f, window, f"full-image window, C = {Cp}", "wgmma")]
+            if bf16:
+                shapes.append((low_n, Wy_n, Wx_n, window, f"n = {n_r}, C = {C}", "cuda-core"))
+            for (low_, Wy_, Wx_, win, note, want_kind) in shapes:
+                tmp = half_transform(low_, Wx_.T)
                 Wyd = Wy_.to(tmp.dtype)
+                kind = variant(tmp.dtype, tmp.shape[1], Wy_.shape[0])
+                want_kind = want_kind if bf16 else "cuda-core"
                 kernel = lambda: pass1_stats_half(tmp, Wyd, win, 0.0, 1.0)  # noqa: E731
                 plain = lambda: reference_pass1_stats_half(tmp, Wyd, win, 0.0, 1.0)  # noqa: E731
-                ok, err = _stats_verdict(run, f"pass1_stats_half ({note}, {tag})", kernel(), plain(), not bf16)
-                if bf16:
-                    run.record("pass1_stats_half", ok, err, kernel, plain, f"[{Bc}, {n}, {Wy_.shape[0]}] {note} bf16",
-                               dict(B=Bc, n=n, C=Wy_.shape[0], dh=int(win[2]), dw=int(win[3]), esize=2))
-                else:
-                    run.results["pass1_stats_half"]["ok"] &= ok
+                label = f"pass1_stats_half ({kind}, {note}, {tag})"
+                ok_v = run.verdict(f"{label} kernel", kind == want_kind, kind)
+                ok, err = _stats_verdict(run, label, kernel(), plain(), not bf16)
+                run.record("pass1_stats_half", ok and ok_v, err, kernel, plain,
+                           f"({kind}) [{Bc}, {tmp.shape[1]}, {Wy_.shape[0]}] {note} {tag}",
+                           dict(B=Bc, n=tmp.shape[1], C=Wy_.shape[0], dh=int(win[2]), dw=int(win[3]),
+                                esize=tmp.element_size()))
             for (low_, WxT_, Wy_, win, note) in ((low_r, WxT_r, Wy_r, win_r, f"B = {Br}, C = {Cr}"),
                                                  (low, Wx.T, Wy, window, f"B = {Bc}, C = {C}")):
                 kernel = lambda: pass1_stats(low_, WxT_, Wy_, win, 0.0, 1.0)  # noqa: E731

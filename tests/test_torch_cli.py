@@ -170,14 +170,62 @@ def test_cli_end_to_end(refer_root, tmp_path, monkeypatch):
         assert len(os.listdir(tmp_path / "logs" / "results_viz")) == 1
 
 
-@pytest.mark.parametrize("extra,match", [
-    (("--data_parallel",), "Queue 1 item 13"),
-    (("--sam_checkpoint", "sam.pth", "--clip_checkpoint", "clip.pth"), "core/convert.py"),
+@pytest.mark.parametrize("extra,error,match", [
+    (("--data_parallel",), NotImplementedError, "Queue 1 item 13"),
+    (("--sam_checkpoint", "ckpts/sam_orbax", "--clip_checkpoint", "ckpts/clip_orbax"), SystemExit,
+     "does not read orbax directories"),
 ])
-def test_cli_unported_options_raise(refer_root, tmp_path, extra, match):
+def test_cli_unported_options_raise(refer_root, tmp_path, extra, error, match):
+    """What the port does not take stops the run with its reason: multi-GPU
+    evaluation, and the reference's orbax checkpoint directories."""
     args = [a for a in tiny_cli_args(refer_root, tmp_path) if a != "--random-weights"]
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(error, match=match):
         cli_main(args + list(extra))
+
+
+def test_cli_loads_torch_checkpoints(refer_root, tmp_path, monkeypatch, capsys):
+    """--sam_checkpoint/--clip_checkpoint take synthetic .pth/.pt state dicts
+    (written with torch.save in the published layouts) through the converter:
+    load_params gives the converter's tree, and the run reaches its end."""
+    import argparse
+
+    from hybridgl_tpu_torch.cli.main import load_params
+    from hybridgl_tpu_torch.core.config import tiny_smoke_config
+    from torch_ref import make_tiny_clip
+    from torch_ref_sam import make_tiny_sam
+
+    clip_model, _ = make_tiny_clip()
+    sam_model, _ = make_tiny_sam()
+    sam_path, clip_path = str(tmp_path / "sam.pth"), str(tmp_path / "clip.pt")
+    torch.save(sam_model.state_dict_upstream(), sam_path)
+    torch.save(clip_model.openai_state_dict(), clip_path)
+    ns = argparse.Namespace(random_weights=False, sam_checkpoint=sam_path, clip_checkpoint=clip_path)
+    sam, clip = load_params(ns, tiny_smoke_config(), torch.device("cpu"))
+    assert clip["visual"]["conv1"].dtype == torch.bfloat16 and clip["logit_scale"].dtype == torch.float32
+    want = clip_model.token_embedding.weight.detach().to(torch.bfloat16)
+    assert torch.equal(clip["text"]["token_embedding"], want)
+    want = sam_model.state_dict_upstream()["image_encoder.blocks.0.attn.qkv.weight"].detach().T.to(torch.bfloat16)
+    assert torch.equal(sam["encoder"]["blocks"][0]["attn"]["qkv_w"], want)
+
+    monkeypatch.chdir(tmp_path)
+    args = [a for a in tiny_cli_args(refer_root, tmp_path) if a != "--random-weights"]
+    cli_main(args + ["--sam_checkpoint", sam_path, "--clip_checkpoint", clip_path])
+    assert "done: 1 images" in capsys.readouterr().out
+
+
+def test_cli_profile_prints_stage_summary(refer_root, tmp_path, monkeypatch, capsys):
+    """--profile prints StageTimer.summary() under the reference's stage names
+    (run_dataset's: proposals_dispatch, crops+fusion, parse+tokenize,
+    sentence_stage), then the operator table."""
+    monkeypatch.chdir(tmp_path)
+    cli_main(tiny_cli_args(refer_root, tmp_path, "--profile"))
+    out = capsys.readouterr().out
+    header = f"{'stage':<24}{'total_s':>10}{'calls':>8}{'avg_ms':>10}{'pct':>7}"
+    assert header in out
+    table = out[out.index(header):]
+    for stage in ("proposals_dispatch", "crops+fusion", "parse+tokenize", "sentence_stage"):
+        assert any(line.startswith(stage) for line in table.splitlines()), stage
+    assert table.index("sentence_stage") < table.index("Self CPU")  # the operator table comes after
 
 
 def test_cli_without_card_refuses_cuda(refer_root, tmp_path):
@@ -197,7 +245,8 @@ def test_cli_loads_reference_npz(refer_root, tmp_path):
     from hybridgl_tpu.core import checkpoint
     from hybridgl_tpu.core.config import tiny_smoke_config
     from hybridgl_tpu.core.params import init_clip as jax_init_clip, init_sam as jax_init_sam
-    from hybridgl_tpu_torch.core.params import from_numpy_tree, load_npz
+    from hybridgl_tpu_torch.core.checkpoint import load as load_npz
+    from hybridgl_tpu_torch.core.params import from_numpy_tree
 
     cfg = tiny_smoke_config()
     k1, k2 = jax.random.split(jax.random.PRNGKey(0))

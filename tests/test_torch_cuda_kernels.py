@@ -480,3 +480,198 @@ def test_variant_functions_mirror_the_c_dispatch(dev):
                 assert (kind == "wgmma") == bool(takes)
                 if takes:
                     assert smem == lib.hgl_upscale_hyper_tc_smem()
+
+
+# ---- K5 and K6 on their tensor-core kernels (bf16), beside the CUDA-core ones ----
+
+
+def _k5_inputs(dev, B, n, C, window, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    tmp = torch.randn((B, n, C), generator=g, device=dev) * 2.0
+    Wy = _composed_axis_weights(C, n, 2 * C, 2 * C - 26, window[0], window[2], dev)
+    return tmp, Wy
+
+
+K5_SHAPES = [
+    # B, n, C, window (y0, x0, dh, dw)
+    (7, 256, 640, (0, 0, 480, 640)),     # the RefCOCO window; C = 640 is five strips, not a multiple of 128 x 2
+    (3, 256, 1024, (159, 239, 321, 401)),  # a PhraseCut layer-1 crop: y0, x0 no multiples of 8, four of eight strips
+    (1, 256, 640, (0, 0, 480, 640)),     # B = 1
+    (5, 64, 200, (0, 0, 128, 128)),      # n < 256; the window ends on a tile edge and a strip edge; C % 128 = 72
+    (5, 16, 136, (3, 5, 61, 40)),        # one wgmma K step; a window narrower than one strip, inside one row tile
+    (4, 48, 320, (63, 127, 2, 2)),       # a 2 x 2 window across a tile corner: two row tiles, two strips
+    (4, 112, 264, (130, 250, 134, 14)),  # the last strip holds 8 live columns; the last row tile is ragged
+    (2, 256, 72, (10, 0, 50, 72)),       # C smaller than one strip
+]
+
+
+@pytest.mark.parametrize("bf16", ["1", "0"])
+@pytest.mark.parametrize("B,n,C,window", K5_SHAPES)
+def test_pass1_stats_half_both_kernels(dev, monkeypatch, bf16, B, n, C, window):
+    """Short and ragged windows: bf16 on the tensor-core kernel, f32 on the
+    CUDA-core kernel, each against the plain version: stability |d| <= 1e-3
+    (bf16) or 1e-4 (f32), box edges within 1 px (bf16) or equal (f32), and no
+    flag outside the window at all."""
+    from hybridgl_tpu_torch.kernels import pass1_stats as mod
+    from hybridgl_tpu_torch.kernels.masks import box_from_profiles
+
+    monkeypatch.setenv("HYBRIDGL_STATS_BF16", bf16)
+    dt = torch.bfloat16 if bf16 == "1" else torch.float32
+    assert mod.variant(dt, n, C) == ("wgmma" if bf16 == "1" else "cuda-core")
+    tmp, Wy = _k5_inputs(dev, B, n, C, window, seed=n + C)
+    before = (pass1_stats_half.launches, pass1_stats_half.tc_launches)
+    s, r, c = pass1_stats_half(tmp, Wy, window, 0.0, 1.0)
+    torch.cuda.synchronize()
+    assert pass1_stats_half.launches == before[0] + 1
+    assert pass1_stats_half.tc_launches == before[1] + int(bf16 == "1")
+    s0, r0, c0 = reference_pass1_stats_half(tmp.to(dt), Wy.to(dt), window, 0.0, 1.0)
+    assert r0.any() and c0.any()
+    assert torch.isfinite(s).all()
+    assert float((s - s0).abs().max()) <= (1e-3 if bf16 == "1" else 1e-4)
+    db = float((box_from_profiles(r, c) - box_from_profiles(r0, c0)).abs().max())
+    assert db <= (1.0 if bf16 == "1" else 0.0)
+    y0, x0, dh, dw = window
+    idx = torch.arange(C, device=dev)
+    assert not r[:, (idx < y0) | (idx >= y0 + dh)].any()
+    assert not c[:, (idx < x0) | (idx >= x0 + dw)].any()
+
+
+@pytest.mark.parametrize("axis", ["rows", "columns"])
+@pytest.mark.parametrize("sign", ["outside", "inside"])
+def test_pass1_stats_half_tensor_core_masks_the_window(dev, axis, sign):
+    """Logits that pass the threshold only outside the window (along one axis)
+    must raise nothing: no count, no row flag from a dead column, no column
+    flag from a dead row. With the signs swapped the flags are exactly the window."""
+    B, n, C, window = 3, 32, 200, (21, 70, 90, 61)
+    y0, x0, dh, dw = window
+    idx = torch.arange(C, device=dev)
+    in_rows, in_cols = (idx >= y0) & (idx < y0 + dh), (idx >= x0) & (idx < x0 + dw)
+    live = in_rows if axis == "rows" else in_cols
+    pattern = torch.where(live if sign == "inside" else ~live, 1.0, -1.0)
+    Wy = torch.ones((C, n), device=dev)
+    tmp = torch.ones((B, n, C), device=dev)
+    if axis == "rows":
+        Wy = Wy * pattern[:, None]
+    else:
+        tmp = tmp * pattern[None, None, :]
+    s, r, c = pass1_stats_half(tmp.bfloat16(), Wy.bfloat16(), window, 0.0, 1.0)
+    torch.cuda.synchronize()
+    if sign == "outside":
+        assert not r.any() and not c.any() and float(s.abs().max()) == 0.0
+    else:
+        assert torch.equal(r, in_rows.expand(B, C)) and torch.equal(c, in_cols.expand(B, C))
+        assert torch.equal(s, torch.ones_like(s))  # |logit| = n = 32 > offset: hi = lo = dh * dw
+
+
+def test_pass1_stats_half_tensor_core_repeats_and_refuses(dev):
+    """Integer atomics: the same call gives the same result bit for bit; a
+    misaligned operand is refused."""
+    tmp, Wy = _k5_inputs(dev, 6, 256, 640, (0, 0, 480, 640), seed=1)
+    tmp, Wy = tmp.bfloat16(), Wy.bfloat16()
+    first = pass1_stats_half(tmp, Wy, (0, 0, 480, 640), 0.0, 1.0)
+    for _ in range(3):
+        again = pass1_stats_half(tmp, Wy, (0, 0, 480, 640), 0.0, 1.0)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+    buf = torch.zeros(2 * 32 * 64 + 1, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        pass1_stats_half(buf[1:].view(2, 32, 64), torch.zeros((64, 32), device=dev, dtype=torch.bfloat16),
+                         (0, 0, 64, 64), 0.0, 1.0)
+
+
+def _k6_inputs(dev, N, H, L, hd, with_bias, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v = (torch.randn((N * H, L, hd), generator=g, device=dev).bfloat16() for _ in range(3))
+    bias = None
+    if with_bias:
+        allowed = torch.rand((N, L), generator=g, device=dev) > 0.5
+        allowed[:, 0] = True
+        allowed[1, 1:] = False  # a proposal whose CLS row sees only itself
+        bias = torch.where(allowed, 0.0, torch.finfo(torch.float32).min).float()
+    return q, k, v, bias
+
+
+def _attention_bar(got, want):
+    got, want = got.float().flatten(), want.float().flatten()
+    assert torch.isfinite(got).all()
+    assert float(got @ want / (got.norm() * want.norm())) >= 0.999
+    assert float((got - want).abs().mean() / want.abs().mean()) < 0.02
+
+
+@pytest.mark.parametrize("with_bias", [True, False])
+@pytest.mark.parametrize("N,H,L,hd", [
+    (128, 12, 197, 64),  # ViT-B/16 at 2P = 128 streams: four query tiles of 50 rows, four key tiles
+    (16, 12, 50, 64),    # ViT-B/32: one query tile, one key tile
+    (5, 2, 17, 64),      # the tiny presets' length at a tensor-core head dim
+    (5, 2, 64, 64),      # exactly one full key tile
+    (5, 2, 65, 80),      # one key past a tile; hd = 80
+    (5, 2, 200, 80),
+    (5, 2, 256, 64),     # the longest resident sequence
+])
+def test_clip_attention_tensor_core(dev, N, H, L, hd, with_bias):
+    """bf16 at hd 64 / 80 and L <= 256 on the resident tensor-core kernel, at
+    the kernel check's attention bar over the whole output and over query row 0
+    alone: only row 0 is biased, and a cosine over all rows would hide it."""
+    from hybridgl_tpu_torch.kernels import clip_attention as mod
+
+    assert mod.variant(torch.bfloat16, L, hd) == "wgmma"
+    q, k, v, bias = _k6_inputs(dev, N, H, L, hd, with_bias, seed=L + hd)
+    before = (clip_attention.launches, clip_attention.tc_launches)
+    got = clip_attention(q, k, v, bias, H, hd**-0.5)
+    torch.cuda.synchronize()
+    assert (clip_attention.launches, clip_attention.tc_launches) == (before[0] + 1, before[1] + 1)
+    want = reference_clip_attention(q.float(), k.float(), v.float(), bias, H, hd**-0.5)
+    _attention_bar(got, want)
+    _attention_bar(got[:, 0], want[:, 0])
+    _attention_bar(got[:, 1:], want[:, 1:])
+    if with_bias:  # the masked stream's CLS row attends to itself alone: its output is v[0]
+        for h in range(H):
+            assert torch.allclose(got[H + h, 0].float(), v[H + h, 0].float(), atol=1e-2)
+
+
+@pytest.mark.parametrize("L,hd", [(50, 64), (17, 64), (130, 80)])
+def test_clip_attention_resident_short_sequences_under_load(dev, L, hd):
+    """One to three key tiles with thousands of stream-heads in flight, so that
+    the K/V copies really lag the first product; every element is held."""
+    q, k, v, bias = _k6_inputs(dev, 200, 12, L, hd, True, seed=L)
+    want = reference_clip_attention(q.float(), k.float(), v.float(), bias, 12, hd**-0.5)
+    for _ in range(3):
+        got = clip_attention(q, k, v, bias, 12, hd**-0.5).float()
+        torch.cuda.synchronize()
+        assert torch.isfinite(got).all()
+        assert float((got - want).abs().max()) < 0.05
+
+
+@pytest.mark.parametrize("dtype,L,hd,kind", [
+    (torch.float32, 197, 64, "cuda-core"), (torch.bfloat16, 197, 32, "cuda-core"),
+    (torch.bfloat16, 257, 64, "cuda-core"), (torch.float32, 50, 80, "cuda-core"),
+])
+def test_clip_attention_cuda_core_kernel_kept(dev, dtype, L, hd, kind):
+    """f32, the other head dims and L > 256 (ViT-L/14's 257) stay on the
+    CUDA-core kernel; row 0 on its own here too."""
+    from hybridgl_tpu_torch.kernels import clip_attention as mod
+
+    assert mod.variant(dtype, L, hd) == kind
+    q, k, v, bias = _k6_inputs(dev, 5, 2, L, hd, True, seed=L)
+    q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+    before = clip_attention.tc_launches
+    got = clip_attention(q, k, v, bias, 2, hd**-0.5)
+    assert clip_attention.tc_launches == before
+    want = reference_clip_attention(q, k, v, bias, 2, hd**-0.5)
+    close(got, want, dtype)
+    close(got[:, 0], want[:, 0], dtype)
+
+
+def test_k5_k6_variant_functions_mirror_the_c_dispatch(dev):
+    from hybridgl_tpu_torch.kernels import clip_attention as k6
+    from hybridgl_tpu_torch.kernels import pass1_stats as k5
+
+    lib = _build.library()
+    for n in (8, 16, 40, 48, 200, 256, 272, 512):
+        for C in (4, 8, 72, 100, 640, 1024):
+            assert (k5.variant(BF16, n, C) == "wgmma") == bool(lib.hgl_pass1_stats_tc_takes(n, C))
+            assert k5.variant(torch.float32, n, C) == "cuda-core"
+    assert lib.hgl_pass1_stats_tc_smem(256) == 256 * 768 <= 227 * 1024
+    for L in (1, 17, 50, 197, 256, 257, 512):
+        for hd in (16, 32, 64, 80):
+            assert (k6.variant(BF16, L, hd) == "wgmma") == bool(lib.hgl_cls_tc_takes(L, hd))
+            assert k6.variant(torch.float32, L, hd) == "cuda-core"

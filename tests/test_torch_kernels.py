@@ -132,6 +132,74 @@ def test_k5_pass1_stats_half_bf16_close_to_jax(monkeypatch, window):
     assert (c1 != c0).mean() < 0.03
 
 
+# the short and ragged shapes the card tests hold the CUDA kernels to
+# (tests/test_torch_cuda_kernels.py): there the plain versions are the
+# yardstick, so here they are themselves held to the JAX kernels at those shapes
+RAGGED_K5 = [
+    # B, n, C, window (y0, x0, dh, dw)
+    (5, 64, 200, (0.0, 0.0, 128, 128)),      # the window ends on a 64-row tile edge and a 128-column strip edge
+    (5, 16, 136, (3.0, 5.0, 61, 40)),        # narrower than one strip, inside one row tile
+    (4, 48, 320, (63.0, 127.0, 2, 2)),       # a 2 x 2 window across a tile corner
+    (4, 112, 264, (130.0, 250.0, 134, 14)),  # 8 live columns in the last strip, a ragged last row tile
+    (1, 32, 72, (10.0, 0.0, 50, 72)),        # B = 1, C smaller than one strip
+]
+
+
+@pytest.mark.parametrize("bf16", ["0", "1"])
+@pytest.mark.parametrize("B,n,C,window", RAGGED_K5)
+def test_k5_pass1_stats_half_ragged_windows_match_jax(monkeypatch, bf16, B, n, C, window):
+    """f32: stability within 1e-5 and equal flags; bf16 operands on both
+    sides: the bar of test_k5_pass1_stats_half_bf16_close_to_jax. No flag
+    outside the window in either."""
+    monkeypatch.setenv("HYBRIDGL_STATS_BF16", bf16)
+    rng = np.random.default_rng(n + C)
+    y0, x0, dh, dw = window
+    tmp = (rng.standard_normal((B, n, C)) * 2.0).astype(np.float32)
+    Wy = np.asarray(jresize._composed_axis_weights(C, n, 2 * C, 2 * C - 26, y0, dh))
+    s0, r0, c0 = (np.asarray(a) for a in jstats.pass1_stats_half(jnp.asarray(tmp), jnp.asarray(Wy), window, 0.0, 1.0))
+    s1, r1, c1 = (a.numpy() for a in pass1_stats_half(t(tmp), t(Wy), window, 0.0, 1.0))
+    assert r0.any() and c0.any()
+    if bf16 == "0":
+        np.testing.assert_allclose(s1, s0, atol=1e-5)
+        np.testing.assert_array_equal(r1, r0)
+        np.testing.assert_array_equal(c1, c0)
+    else:
+        assert np.abs(s1 - s0).max() < 2e-2
+        assert (r1 != r0).mean() < 0.03
+        assert (c1 != c0).mean() < 0.03
+    idx = np.arange(C)
+    assert not r1[:, (idx < y0) | (idx >= y0 + dh)].any()
+    assert not c1[:, (idx < x0) | (idx >= x0 + dw)].any()
+
+
+@pytest.mark.parametrize("with_bias", [True, False])
+@pytest.mark.parametrize("L,hd", [(50, 64), (197, 64), (65, 16)])
+def test_k6_clip_attention_lengths_match_jax(L, hd, with_bias):
+    """ViT-B/32's L = 50 and ViT-B/16's L = 197 at hd = 64, and one key past a
+    64-key tile; query row 0, the only biased row, also on its own."""
+    rng = np.random.default_rng(L + hd)
+    N, H = 2, 2
+    q, k, v = (rng.standard_normal((N, H, L, hd)).astype(np.float32) for _ in range(3))
+    scale = hd**-0.5
+    allowed = rng.random((N, L)) > 0.5
+    allowed[:, 0] = True
+    allowed[1, 1:] = False  # a proposal whose CLS row sees only itself
+    bias = np.where(allowed, 0.0, np.finfo(np.float32).min).astype(np.float32) if with_bias else None
+    qkv = np.stack([q * scale, k, v], axis=2).transpose(0, 3, 1, 2, 4).reshape(N, L, H * 3 * hd)
+    want = np.asarray(jclip.clip_attention(jnp.asarray(qkv), None if bias is None else jnp.asarray(bias), H))
+    want = want.reshape(N, L, H, hd)
+    got = clip_attention(
+        t(q.reshape(N * H, L, hd)), t(k.reshape(N * H, L, hd)), t(v.reshape(N * H, L, hd)),
+        None if bias is None else t(bias), H, scale,
+    )
+    got = got.reshape(N, H, L, hd).permute(0, 2, 1, 3).numpy()
+    assert np.isfinite(got).all()
+    assert maxdiff(got, want) <= TOL
+    assert maxdiff(got[:, 0], want[:, 0]) <= TOL
+    if with_bias:
+        assert maxdiff(got[1, 0], v[1, :, 0]) <= TOL  # the masked stream's CLS row returns v[0]
+
+
 # --------------------------------------------------------------------------
 # plain primitives around the kernels
 # --------------------------------------------------------------------------
@@ -202,3 +270,58 @@ def test_nms_and_boxes_match_jax():
     m = rng.random((4, 20, 24)) > 0.7
     m[2] = False
     np.testing.assert_array_equal(masks.mask_to_box(t(m)).numpy(), np.asarray(jmasks.mask_to_box(jnp.asarray(m))))
+
+
+# --------------------------------------------------------------------------
+# which CUDA kernel a call takes (plain Python, mirrored by the C dispatch)
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype,n,C,kind", [
+    (torch.bfloat16, 256, 640, "wgmma"), (torch.bfloat16, 256, 1024, "wgmma"), (torch.bfloat16, 16, 72, "wgmma"),
+    (torch.float32, 256, 640, "cuda-core"),  # f32 stats are held to equal boxes: the f32 kernel stays
+    (torch.bfloat16, 200, 640, "cuda-core"),  # no whole number of 16-deep product steps
+    (torch.bfloat16, 272, 640, "cuda-core"),  # the strip and the Wy tiles would not fit in shared memory
+    (torch.bfloat16, 256, 100, "cuda-core"),  # rows of C elements are no whole 16-byte chunks
+])
+def test_k5_variant(dtype, n, C, kind):
+    from hybridgl_tpu_torch.kernels import pass1_stats as mod
+
+    assert mod.variant(dtype, n, C) == kind
+
+
+@pytest.mark.parametrize("dtype,L,hd,kind", [
+    (torch.bfloat16, 197, 64, "wgmma"), (torch.bfloat16, 50, 64, "wgmma"), (torch.bfloat16, 256, 80, "wgmma"),
+    (torch.float32, 197, 64, "cuda-core"), (torch.bfloat16, 197, 32, "cuda-core"),
+    (torch.bfloat16, 257, 64, "cuda-core"),  # ViT-L/14: past the resident kernel's 256 keys
+])
+def test_k6_variant(dtype, L, hd, kind):
+    from hybridgl_tpu_torch.kernels import clip_attention as mod
+
+    assert mod.variant(dtype, L, hd) == kind
+
+
+def test_tensor_core_launch_counts_reset_with_the_others():
+    from hybridgl_tpu_torch.kernels import kernel_wrappers, launch_counts, reset_launch_counts, tc_launch_counts
+
+    wrappers = kernel_wrappers()
+    assert set(tc_launch_counts()) == {"pass1_stats_half", "clip_attention"}
+    wrappers["pass1_stats_half"].launches = wrappers["pass1_stats_half"].tc_launches = 3
+    reset_launch_counts()
+    assert not any(launch_counts().values()) and not any(tc_launch_counts().values())
+    # a CPU call runs the plain version and counts nothing
+    x = torch.zeros((2, 5, 16))
+    clip_attention(x, x, x, None, 2, 0.25)
+    assert not any(launch_counts().values()) and not any(tc_launch_counts().values())
+
+
+def test_k5_zeroed_outputs_are_views_of_one_buffer():
+    from hybridgl_tpu_torch.kernels.pass1_stats import _zeroed_outputs
+
+    counts, rows, cols = _zeroed_outputs(3, 24, "cpu")
+    assert (counts.shape, counts.dtype) == ((3, 2), torch.int32)
+    assert rows.shape == cols.shape == (3, 24) and rows.dtype == cols.dtype == torch.bool
+    assert not counts.any() and not rows.any() and not cols.any()
+    assert rows.is_contiguous() and cols.is_contiguous() and counts.is_contiguous()
+    base = counts.untyped_storage().data_ptr()
+    assert rows.untyped_storage().data_ptr() == base and cols.untyped_storage().data_ptr() == base
