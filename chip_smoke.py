@@ -17,11 +17,15 @@ Phases (every phase asserts; any failure exits non-zero):
      held on both their kernels: the tensor-core (wgmma) one at B = 64 and
      at B = 128, the PhraseCut pass-2 batch, and the CUDA-core one in bf16
      at a shape the tensor-core dispatch refuses and in f32 at half width
-     (its f32 operands do not fit in shared memory at full width). K5 and
+     (its f32 operands do not fit in shared memory at full width), and at
+     SamPredictor's shapes (B = 1: K3 at 7 tokens and, on its split route,
+     at 9; K4 at m = 3 and 1). K5 and
      K6 likewise: the tensor-core kernels in bf16 at the served shapes (K5
      at the RefCOCO window and both PhraseCut windows, K6 with query row 0
      held on its own), the CUDA-core kernels in f32 and at a shape the
-     tensor-core dispatch refuses (n = 200; hd = 32). The
+     tensor-core dispatch refuses (n = 200; hd = 32), and K10 the same way
+     (its tensor-core kernel at both shapes in bf16, beside the time of
+     half_transform + K5 on the same inputs). The
      check is the path of K9 (flash_attention_rel_pos) and K10
      (pass1_stats), which no serving path runs, as in the reference;
   4. small-input parity: the port on the card against the port on the CPU
@@ -33,19 +37,39 @@ Phases (every phase asserts; any failure exits non-zero):
   5. RefCOCO pipeline: HybridGLPipeline.run_image at full width (SAM ViT-H +
      CLIP ViT-B/16, random bf16 weights from seed 0, AMG at RefCOCO
      settings with the quality thresholds zeroed as the reference bench
-     does) on one warm-up and three measured synthetic images, checking
+     does) on one warm-up and two measured synthetic images, checking
      finite outputs, that every kernel of the path launched, and that every
-     K5 and K6 launch took its tensor-core kernel;
+     launch of a wrapper with two kernels (K3-K8) took its tensor-core one;
   6. PhraseCut pipeline: the same at AMG_PHRASECUT (pps 64, one crop layer,
-     P = 128, canonical 1024), one warm-up and two measured images;
+     P = 128, canonical 1024), one warm-up and one measured image;
   7. fusion modes: all six at full width on one RefCOCO image's proposals
      and on a bucket of 64 live synthetic proposals: finite features, and
      K6 launched as often as each mode's blocks need (the CLS-row bias in
      attn_masking, L2G and G2L&L2G);
-  8. dataset path: run_dataset equals run_image on the three RefCOCO
+  8. dataset path: run_dataset equals run_image on the two RefCOCO
      images, then the port's CLI (``hybridgl_tpu_torch.cli.main``) at full
      width on a synthetic REFER tree: the reference's result log, one
-     parity record per sentence, ms/img.
+     parity record per sentence, ms/img;
+  9. predictor: SamPredictor at full width (ViT-H, the same random bf16
+     weights) on one 480x640 image: set_image (K1 x 28, K2 x 4), then predict
+     with one point, with a box, and with a box and two points, multimask
+     both ways (K3's two layer passes and K4 x 1 a call; the first two prompts
+     give 7 tokens and one tensor-core K3 launch a pass, the third 9 tokens and
+     K3's split route: one I2T launch on the CUDA cores and two T2I launches
+     on the tensor cores a pass), each
+     held against the same decoder on the CPU from the card's embedding; and
+     the predictor at test-tiny in f32 on the card against the CPU
+     (thresholded-pixel agreement > 99.5%, IoU predictions |d| < 2e-2);
+ 10. batched sentences: one RefCOCO image with three sentences, on its own
+     proposals and on 64 live synthetic ones, through the sentence stage in
+     one call (the runner's path) and one call a sentence: equal selections,
+     IoU sums equal to 1e-5;
+ 11. device cleanup: synthetic survivors with holes and islands around
+     min_mask_region_area, and noisy blobs, 16 at 640^2 and 128 at 1024^2,
+     then one RefCOCO image's own proposals, through the runner's host pass
+     (the native library) and through kernels/connected.py on the card
+     (plain PyTorch; the runner does not call it): equal masks, boxes and
+     validity, both times.
 The decoder runs its default route: the HYBRIDGL_FUSED_* switches are
 removed from the environment at start. The second-to-last line is a JSON
 object with one entry per kernel; the last line is the JSON contract line.
@@ -361,7 +385,7 @@ def phase_pipeline(tag, amg, canonical, n_images, min_launches, weights):
         short = {k: (delta[k], n) for k, n in min_launches.items() if delta[k] < n}
         if short:
             fail(f"{name}: kernels launched fewer times than the path needs: {short}")
-    # at full width in bf16 every K5 and K6 launch is the tensor-core kernel's
+    # at full width in bf16 every launch of a wrapper with two kernels is the tensor-core kernel's
     total, on_tc = launch_counts(), tc_launch_counts()
     off_tc = {k: (n, total[k]) for k, n in on_tc.items() if n != total[k]}
     log(f"  {tag}: launches on the tensor-core kernels {on_tc}")
@@ -601,7 +625,7 @@ def _write_refer_tree(root, n_images=3, h=480, w=640):
 
 
 def phase_dataset_path(pipe, samples, card):
-    """run_dataset equals run_image on the three RefCOCO images; then the
+    """run_dataset equals run_image on the measured RefCOCO images; then the
     port's CLI at full width on a synthetic REFER tree."""
     import json
     import tempfile
@@ -646,6 +670,280 @@ def phase_dataset_path(pipe, samples, card):
         fail("the CLI's result or parity log is wrong")
 
 
+PROMPTS = (
+    # name, predict arguments, tokens the decoder sees, K3's route at SAM's widths in bf16 (decoder_pass.pass_route)
+    ("one point", dict(point_coords=[[320.0, 240.0]], point_labels=[1.0]), 7, "wgmma"),
+    ("box", dict(box=[100.0, 80.0, 500.0, 400.0]), 7, "wgmma"),
+    ("box + two points", dict(point_coords=[[320.0, 240.0], [120.0, 90.0]], point_labels=[1.0, 0.0],
+                              box=[100.0, 80.0, 500.0, 400.0]), 9, "split"),
+)
+# K3's launches a predict call (two layer passes), all of them and those on the
+# tensor cores: one PASS launch a pass, or on the split route one I2T launch on
+# the CUDA cores and two T2I launches (64 context columns each) on the tensor cores
+K3_LAUNCHES_PER_PREDICT = {"wgmma": (2, 2), "split": (6, 4)}
+
+
+def _predict_kwargs(kw):
+    import numpy as np
+
+    return {k: np.asarray(v, np.float32) for k, v in kw.items()}
+
+
+def phase_predictor(weights):
+    """SamPredictor on the card: full width (launch counts, the K3 kernel each
+    prompt takes, the decoder against its CPU plain versions from the card's
+    embedding: low-res logits max|d| < 0.1 and IoU predictions |d| < 2e-2, the
+    decoder's bar, and thresholded pixels > 99% equal: random weights leave
+    many logits within bf16 rounding of the threshold, 99.6-99.8% measured),
+    then test-tiny in f32 against the CPU end to end (> 99.5%, |d| < 2e-2)."""
+    import numpy as np
+    import torch
+
+    from hybridgl_tpu_torch import SamPredictor
+    from hybridgl_tpu_torch.core.config import sam_preset
+    from hybridgl_tpu_torch.core.params import init_sam, tree_map
+    from hybridgl_tpu_torch.kernels import launch_counts, reset_launch_counts, tc_launch_counts
+    from hybridgl_tpu_torch.kernels.decoder_pass import pass_route
+
+    cfg = sam_preset("vit_h")
+    sam_p = weights[0]
+    pred = SamPredictor(sam_p, cfg)
+    if pred.device.type != "cuda":
+        fail(f"predictor: the device defaults to the params', got {pred.device}")
+    image = np.random.default_rng(0).integers(0, 255, (480, 640, 3), np.uint8)
+    pred.set_image(image)  # warm-up
+    reset_launch_counts()
+    ms, _ = _wall_ms(lambda: pred.set_image(image))
+    counts = launch_counts()
+    ok = counts["flash_windowed_fused"] == 28 and counts["flash_attention_fused"] == 4 and pred.is_image_set
+    log(f"{'PASS' if ok else 'FAIL'} predictor set_image (ViT-H, 480x640): {ms:.1f} ms, K1 x "
+        f"{counts['flash_windowed_fused']}, K2 x {counts['flash_attention_fused']}")
+    if not ok:
+        fail("predictor: set_image did not launch K1 x 28 and K2 x 4")
+    # the same decoder on the CPU (plain versions, bf16) from the card's embedding
+    cpu = SamPredictor({k: tree_map(lambda _, t: t.cpu(), sam_p[k]) for k in ("prompt", "decoder")}, cfg, device="cpu")
+    cpu._features, cpu._orig_hw, cpu._input_hw = pred.get_image_embedding().cpu(), pred._orig_hw, pred._input_hw
+    totals = dict.fromkeys(("i2t_ln_then_t2i", "upscale_hyper_blocked"), 0)
+    for name, kw, tokens, k3_kind in PROMPTS:
+        for multimask in (True, False):
+            kw_np = _predict_kwargs(kw)
+            pred.predict(multimask_output=multimask, **kw_np)  # warm-up
+            reset_launch_counts()
+            ms, (masks, iou, low) = _wall_ms(lambda: pred.predict(multimask_output=multimask, **kw_np))
+            counts, on_tc = launch_counts(), tc_launch_counts()
+            k3 = (counts["i2t_ln_then_t2i"], on_tc["i2t_ln_then_t2i"])
+            route = pass_route(torch.bfloat16, 4096, 256, 256, 8, 8 if tokens <= 8 else 16,
+                               64 if tokens <= 8 else 128, False)
+            M = 3 if multimask else 1
+            logits = pred.predict(multimask_output=multimask, return_logits=True, **kw_np)[0]
+            want_masks, want_iou, want_low = cpu.predict(multimask_output=multimask, **kw_np)
+            agree = float((masks == want_masks).mean())
+            d_iou = float(np.abs(iou - want_iou).max())
+            d_low = float(np.abs(low - want_low).max())
+            ok = (masks.shape == (M, 480, 640) and masks.dtype == np.bool_ and iou.shape == (M,)
+                  and low.shape == (M, 256, 256) and bool(np.isfinite(low).all() and np.isfinite(iou).all())
+                  and bool(np.isfinite(logits).all()) and route == k3_kind
+                  and k3 == K3_LAUNCHES_PER_PREDICT[k3_kind] and counts["upscale_hyper_blocked"] == 1
+                  and on_tc["upscale_hyper_blocked"] == 1 and agree > 0.99 and d_iou < 2e-2 and d_low < 0.1)
+            log(f"{'PASS' if ok else 'FAIL'} predictor predict, {name} ({tokens} tokens), multimask {multimask}: "
+                f"{ms:.1f} ms, K3 route {route} (expected {k3_kind}): {k3[0]} launches, {k3[1]} on the tensor cores "
+                f"(expected {K3_LAUNCHES_PER_PREDICT[k3_kind]}), K4 x "
+                f"{counts['upscale_hyper_blocked']} (wgmma {on_tc['upscale_hyper_blocked']}), masks {masks.shape}, "
+                f"card vs CPU decoder: pixel agreement {agree:.6f}, IoU-pred max|d| {d_iou:.2e}, "
+                f"low-res logits max|d| {d_low:.4f}")
+            if not ok:
+                fail(f"predictor: predict with {name} failed")
+            for k in totals:
+                totals[k] += counts[k]
+    pred.reset_image()
+    if pred.is_image_set:
+        fail("predictor: reset_image left the image set")
+
+    # end to end at test-tiny, f32: the card against the CPU
+    tiny = sam_preset("test-tiny")
+    g = torch.Generator().manual_seed(5)
+    tiny_p = init_sam(g, tiny)
+    for blk in tiny_p["encoder"]["blocks"]:
+        for key in ("rel_pos_h", "rel_pos_w"):
+            blk["attn"][key] = torch.randn(blk["attn"][key].shape, generator=g) * 0.2
+    small = np.random.default_rng(1).integers(0, 255, (24, 32, 3), np.uint8)
+    on_cpu = SamPredictor(tiny_p, tiny)
+    on_card = SamPredictor(tree_map(lambda _, t: t.cuda(), tiny_p), tiny)
+    on_cpu.set_image(small)
+    on_card.set_image(small)
+    scale = np.float32([32 / 640, 24 / 480] * 2)
+    for name, kw, _, _ in PROMPTS:
+        kw_np = {k: (v * scale[: v.shape[-1]] if k != "point_labels" else v) for k, v in _predict_kwargs(kw).items()}
+        for multimask in (True, False):
+            got = on_card.predict(multimask_output=multimask, **kw_np)
+            want = on_cpu.predict(multimask_output=multimask, **kw_np)
+            agree = float((got[0] == want[0]).mean())
+            d_iou, d_low = float(np.abs(got[1] - want[1]).max()), float(np.abs(got[2] - want[2]).max())
+            ok = agree > 0.995 and d_iou < 2e-2 and got[0].shape == want[0].shape
+            log(f"{'PASS' if ok else 'FAIL'} predictor at test-tiny, f32, {name}, multimask {multimask} (card vs cpu): "
+                f"pixel agreement {agree:.6f}, IoU-pred max|d| {d_iou:.2e}, low-res logits max|d| {d_low:.2e}")
+            if not ok:
+                fail(f"predictor: test-tiny parity with {name} failed")
+    return totals
+
+
+def phase_batched_sentences(pipe, samples):
+    """Three sentences of one RefCOCO image through the sentence stage in one
+    call (the runner's path: a leading sentence dimension) and one call a
+    sentence, on the same features, on the image's own proposals and on 64
+    live synthetic ones: a sentence's selections and IoUs do not depend on the
+    sentences beside it."""
+    import torch
+
+    sentences = SENTENCES + ["the small cup to the right of the person"]
+    sample = samples[1]._replace(sentences=sentences)
+    g = pipe.cfg.guidance
+    with torch.inference_mode():
+        image_c = torch.from_numpy(sample.image_canonical).to(pipe.device)
+        gt = torch.from_numpy(sample.gt_mask).to(pipe.device)
+        rows = [pipe._row(sentence) for sentence in sentences]
+        for label, props in (("the image's proposals", pipe.propose(sample)),
+                             ("64 live synthetic proposals", _synthetic_full_bucket(pipe))):
+            props = pipe._bucket_props(props)
+            feats, gem_pf = pipe._feature_stage(props, image_c, sample.h, sample.w)
+            k1, k2 = min(g.k1, props.num), min(g.k2, props.num)
+
+            def together(state):
+                return pipe._sentence_stage(sample, props, feats, gem_pf, rows, k1, k2, gt, state)
+
+            def one_by_one(state):
+                return [r for sentence, row in zip(sentences, rows) for r in pipe._sentence_stage(
+                    sample._replace(sentences=[sentence]), props, feats, gem_pf, [row], k1, k2, gt, state)]
+
+            out = {}
+            for mode, fn in (("one call a sentence", one_by_one), ("one call", together)):
+                fn(pipe.init_state())  # warm-up
+                state = pipe.init_state()
+                ms, results = _wall_ms(lambda: fn(state))
+                out[mode] = (ms, results, [float(v) for v in (*state.pure, *state.final)])
+            (ms_l, r_l, s_l), (ms_b, r_b, s_b) = out["one call a sentence"], out["one call"]
+            same = [(r.pure_index, r.final_index) for r in r_l] == [(r.pure_index, r.final_index) for r in r_b]
+            d_sum = max(abs(a - b) for a, b in zip(s_l, s_b))
+            ok = same and d_sum <= 1e-5 and len(r_b) == len(sentences)
+            log(f"  sentence stage of 3 sentences, {label}: one call a sentence {ms_l:.1f} ms, one call {ms_b:.1f} ms")
+            log(f"{'PASS' if ok else 'FAIL'} sentences in one call == one call a sentence, {label}: selections "
+                f"{[(r.pure_index, r.final_index) for r in r_b]}, same {same}, IoU sums max|d| {d_sum:.2e}")
+            if not ok:
+                fail(f"the batched sentence stage depends on the batch ({label})")
+
+
+def _survivors_with_holes_and_islands(pipe, n_live=16, h=480, w=640):
+    """A bundle of ``n_live`` live rectangles in P = max_proposals slots, all
+    inside the (h, w) image: each has a hole and an island whose areas
+    straddle min_mask_region_area (one below it, to be repaired, one above it,
+    to stay); every fifth is a duplicate of its predecessor but for one more
+    small island, which the cleanup removes; and one has a small pocket open
+    at the image's bottom edge."""
+    import torch
+
+    from hybridgl_tpu_torch.kernels.masks import mask_to_box
+    from hybridgl_tpu_torch.models.sam.amg import Proposals
+
+    dev, C, P = pipe.device, pipe.cfg.canonical_size, pipe.cfg.amg.max_proposals
+    area = pipe.cfg.amg.min_mask_region_area
+    small, large = max(int((area * 0.8) ** 0.5), 1), int((area * 1.3) ** 0.5) + 1
+    g = torch.Generator().manual_seed(4)
+    masks = torch.zeros((P, C, C), dtype=torch.bool)
+    for i in range(n_live):
+        if i % 5 == 1:  # its predecessor again, with a small island in the corner
+            masks[i] = masks[i - 1]
+            masks[i, h - small - 2 : h - 2, w - small - 2 : w - 2] = True
+            continue
+        y0, x0 = int(torch.randint(0, h // 4, (1,), generator=g)), int(torch.randint(0, w // 4, (1,), generator=g))
+        hh = int(torch.randint(2 * h // 5, 3 * h // 5, (1,), generator=g))
+        ww = int(torch.randint(2 * w // 5, 9 * w // 20, (1,), generator=g))
+        masks[i, y0 : y0 + hh, x0 : x0 + ww] = True  # ends left of 0.7 w
+        hole, island = (small, large) if i % 2 else (large, small)
+        masks[i, y0 + hh // 4 : y0 + hh // 4 + hole, x0 + ww // 4 : x0 + ww // 4 + hole] = False
+        masks[i, h // 2 : h // 2 + island, w - large - 4 : w - large - 4 + island] = True
+    masks[2, h - h // 4 : h, w // 10 : w // 3] = True
+    masks[2, h - max(small // 2, 2) : h, w // 6 : w // 6 + max(small // 2, 2)] = False  # open at the bottom edge
+    masks = masks.to(dev)
+    valid = torch.arange(P, device=dev) < n_live
+    ones = valid.float()
+    return Proposals(masks * valid[:, None, None], mask_to_box(masks) * ones[:, None], ones, ones,
+                     torch.zeros((P, 2), device=dev), masks.sum((-2, -1)).float(), valid, num=n_live, overflow=0)
+
+
+def _noisy_survivors(pipe, n_live, h=480, w=640):
+    """``n_live`` live blob masks in P = max_proposals slots: a smooth random
+    field thresholded at 0 (a few irregular components a mask), with 0.5% of
+    the pixels flipped (hundreds of one-pixel holes and islands a mask, as a
+    decoder's raw logits leave them)."""
+    import torch
+
+    from hybridgl_tpu_torch.kernels.masks import mask_to_box
+    from hybridgl_tpu_torch.models.sam.amg import Proposals
+
+    dev, C, P = pipe.device, pipe.cfg.canonical_size, pipe.cfg.amg.max_proposals
+    g = torch.Generator(device=dev).manual_seed(6)
+    coarse = torch.randn((n_live, 1, h // 32, w // 32), generator=g, device=dev)
+    blobs = torch.nn.functional.interpolate(coarse, size=(h, w), mode="bilinear")[:, 0] > 0
+    flip = torch.rand((n_live, h, w), generator=g, device=dev) < 0.005
+    masks = torch.zeros((P, C, C), dtype=torch.bool, device=dev)
+    masks[:n_live, :h, :w] = blobs ^ flip
+    valid = torch.arange(P, device=dev) < n_live
+    ones = valid.float()
+    return Proposals(masks, mask_to_box(masks) * ones[:, None], ones, ones, torch.zeros((P, 2), device=dev),
+                     masks.sum((-2, -1)).float(), valid, num=n_live, overflow=0)
+
+
+def phase_device_cleanup(refcoco, phrasecut):
+    """The two cleanup passes, the runner's native one on the host (with the
+    masks' download and upload) and kernels/connected.py on the card (plain
+    PyTorch, which the runner does not call), on synthetic survivors with
+    holes and islands around min_mask_region_area and on noisy blobs, 16 at
+    RefCOCO's 640^2 frame and 128 at PhraseCut's 1024^2, then on one RefCOCO
+    image's own proposals: equal masks, boxes and validity, both times
+    printed."""
+    import torch
+
+    from hybridgl_tpu_torch.kernels.connected import cleanup_proposals_jit
+    from hybridgl_tpu_torch.kernels.resize import valid_mask
+
+    live = lambda p: p.masks & p.valid[:, None, None]  # noqa: E731  (a dead slot keeps its pixels on the host pass)
+    for tag, (pipe, samples), n_live in (("RefCOCO", refcoco, 16), ("PhraseCut", phrasecut, 128)):
+        sample, amg, C = samples[1], pipe.cfg.amg, pipe.cfg.canonical_size
+        hw = (sample.h, sample.w)
+
+        def on_card(bundle, hw):
+            return cleanup_proposals_jit(bundle, valid_mask((C, C), hw, pipe.device), amg.min_mask_region_area,
+                                         max(amg.box_nms_thresh, amg.crop_nms_thresh))
+
+        bundles = [("rectangles with holes and islands", _survivors_with_holes_and_islands(pipe, n_live)),
+                   ("noisy blobs", _noisy_survivors(pipe, n_live))]
+        if tag == "RefCOCO":
+            with torch.inference_mode():
+                bundles.append(("the image's own proposals", pipe._launch_proposals(sample)))
+        for kind, bundle in bundles:
+            out = {}
+            for name, fn in (("host", pipe._cleanup_host), ("device", on_card)):
+                fn(bundle, hw)  # warm-up (the host pass builds its library at first use)
+                out[name] = _wall_ms(lambda: fn(bundle, hw))
+            (ms_h, host), (ms_d, dev) = out["host"], out["device"]
+            changed = int((live(host) != live(bundle)).flatten(1).any(1).sum())
+            equal = (torch.equal(live(host), live(dev)), torch.equal(host.boxes_xyxy, dev.boxes_xyxy),
+                     torch.equal(host.valid, dev.valid))
+            ok = all(equal) and host.num == dev.num and 0 < host.num <= bundle.num
+            if kind != "the image's own proposals":
+                ok = ok and changed > 0
+            if kind.startswith("rectangles"):
+                ok = ok and host.num < bundle.num  # every fifth is a duplicate once cleaned
+            log(f"  cleanup of {bundle.num} survivors, {kind}, at {C}^2 (min area {amg.min_mask_region_area}): "
+                f"host pass {ms_h:.1f} ms, pass on the card {ms_d:.1f} ms")
+            log(f"{'PASS' if ok else 'FAIL'} cleanup on the card == host cleanup, {tag}, {kind}: {changed} masks changed, "
+                f"{bundle.num - host.num} duplicates suppressed, equal masks {equal[0]}, boxes {equal[1]}, valid {equal[2]}")
+            if not ok:
+                fail(f"the cleanup on the card differs from the host cleanup ({tag}, {kind})")
+        del bundles, bundle, host, dev, out
+        torch.cuda.empty_cache()
+
+
 def main(argv):
     card = phase_environment()
     phase_build()
@@ -661,8 +959,8 @@ def main(argv):
     phase_small_parity()
     weights = full_width_weights()
     for tag, amg, canonical, n_images, mins in (
-        ("RefCOCO", AMG_REFCOCO, 640, 3, MIN_LAUNCHES_PER_IMAGE),
-        ("PhraseCut", AMG_PHRASECUT, 1024, 2, MIN_LAUNCHES_PER_PHRASECUT_IMAGE),
+        ("RefCOCO", AMG_REFCOCO, 640, 2, MIN_LAUNCHES_PER_IMAGE),
+        ("PhraseCut", AMG_PHRASECUT, 1024, 1, MIN_LAUNCHES_PER_PHRASECUT_IMAGE),
     ):
         reset_launch_counts()
         paths[tag] = phase_pipeline(tag, amg, canonical, n_images, mins, weights)
@@ -676,6 +974,13 @@ def main(argv):
     reset_launch_counts()
     phase_dataset_path(*paths["RefCOCO"], card)
     counts["dataset path"] = launch_counts()
+    reset_launch_counts()
+    phase_predictor(weights)
+    counts["predictor"] = launch_counts()
+    reset_launch_counts()
+    phase_batched_sentences(*paths["RefCOCO"])
+    phase_device_cleanup(paths["RefCOCO"], paths["PhraseCut"])
+    counts["runner switches"] = launch_counts()
     if "--profile" in argv:  # opt-in: CUPTI tracing is not part of the contract run
         phase_profile(*paths["RefCOCO"])
         phase_routes(*paths["RefCOCO"])

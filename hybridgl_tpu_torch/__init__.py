@@ -30,3 +30,24 @@ a CUDA tensor.
 """
 
 __version__ = "0.1.0"
+
+
+def __getattr__(name):
+    """Lazy top-level convenience exports (keeps ``import hybridgl_tpu_torch`` light)."""
+    if name == "PipelineConfig":
+        from .core.config import PipelineConfig
+
+        return PipelineConfig
+    if name == "HybridGLPipeline":
+        from .pipeline.runner import HybridGLPipeline
+
+        return HybridGLPipeline
+    if name == "SamPredictor":
+        from .models.sam.predictor import SamPredictor
+
+        return SamPredictor
+    if name == "tokenize":
+        from .models.clip.tokenizer import tokenize
+
+        return tokenize
+    raise AttributeError(name)

@@ -1,8 +1,9 @@
 // AMG pass-1 statistics on the tensor cores, for sm_90a (wgmma): the bf16
-// kernel of K5.
+// kernels of K5 and K10.
 //
 // Replaces hybridgl_tpu/kernels/pass1_stats.py:pass1_stats_half (the Pallas
-// `_stats_call` with pre_half=True) for bf16 stats, the default dtype policy.
+// `_stats_call` with pre_half=True) and pass1_stats (the full mode,
+// pre_half=False) for bf16 stats, the default dtype policy.
 // For every candidate b, inside the placement window (y0, x0, dh, dw),
 //   logit[r, c] = sum_j Wy[r, j] * tmp[b, j, c]      (bf16 operands, f32 sums)
 //   counts[b, 0] = #(logit > thresh + offset), counts[b, 1] = #(> thresh - offset)
@@ -38,6 +39,33 @@
 // stored as 1 by any block that sees one (the wrapper zeroes the outputs).
 // No producer warp and no mbarrier: every thread starts its share of the next
 // tile's cp.async and waits for its own.
+//
+// K10 (the full mode, template FULL) is the same grid and the same sweep; what
+// differs is how the strip gets into shared memory. Instead of copying tmp, the
+// block computes it from the raw logits:
+//   strip[n, 128] = low[b] [n, n2] @ WxT[:, c0 : c0 + 128]   (bf16, f32 sums)
+// with the same wgmma m64n128k16. The WxT strip [n2, 128] (MN-major B operand,
+// the layout of the tmp strip) and one 64-row tile of low[b] (K-major A
+// operand, the layout of a Wy tile) per warpgroup are staged with cp.async in
+// the space of the four Wy buffers, which the sweep does not need yet; the
+// warpgroups take alternate 64-row tiles of low[b], and a warpgroup fetches
+// its next tile under the epilogue of the last. The f32 sums are rounded to
+// bf16 once, where the reference rounds tmp (pass1_stats.py:94), and stored
+// from the accumulator fragment into the strip's core-matrix layout (a warp
+// writes 8 rows x 16 bytes: 128 contiguous bytes, no bank conflict). Then
+// fence.proxy.async and a block barrier, and the sweep starts as in K5. The
+// transform's accumulator dies before the sweep's is born, so the full mode
+// holds no more registers than K5. Shared memory, resident when: the strip
+// (256 n bytes) throughout; beside it first the WxT strip (256 n2) and two low
+// tiles (2 x 128 n2), then, once every product of the transform is done, the
+// four Wy tiles (4 x 128 n): 256 n + 512 max(n, n2) bytes, 192 KB at 256.
+// Work at 192 x [256, 256] -> C = 640: 16 GFLOP on top of the sweep's 30, and
+// each block pulls low[b] (128 KB) and its WxT strip (64 KB) out of L2: that
+// traffic, ~13 bytes a ns an SM, is what the transform phase costs (0.105 of
+// 0.26 ms), not the wait for the first product: committing the first fetch in
+// four groups along k, with the products following the groups, gave 0.256 ms
+// for 0.260 and was not kept.
+//
 // A variant with one warpgroup a block, Wy in 16 KB chunks of 128 of n (a ring
 // of three) and 112 KB a block, so that an SM holds two blocks and strip loads
 // hide under the other block's products, was no faster (0.196 against 0.186 ms
@@ -48,7 +76,9 @@
 //
 // Compile-time switches for tools/take_one_out.py (a variant's results are
 // wrong by design): HGL_K5_MMA=0 skips the products, HGL_K5_THRESH=0 the
-// thresholds, HGL_K5_FETCH=0 fetches only each warpgroup's first Wy tile.
+// thresholds, HGL_K5_FETCH=0 fetches only each warpgroup's first Wy tile;
+// HGL_K10_TRANSFORM=0 skips the column transform's products (its loads and
+// stores stay), HGL_K10_SWEEP=0 leaves after the transform.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -64,6 +94,12 @@
 #endif
 #ifndef HGL_K5_FETCH
 #define HGL_K5_FETCH 1
+#endif
+#ifndef HGL_K10_TRANSFORM
+#define HGL_K10_TRANSFORM 1
+#endif
+#ifndef HGL_K10_SWEEP
+#define HGL_K10_SWEEP 1
 #endif
 
 namespace {
@@ -108,6 +144,7 @@ __device__ __forceinline__ bool inside(int i, int C, float lo, float extent) {
 // One warpgroup's share of a Wy tile [64][n] at shared address dst: rows
 // r0 .. r0 + 63 of wy [C, n], rows at or past C zero-filled (no commit). Unit
 // u of the tile is row (u / n) * 8 + u % 8, chunk (u % n) / 8, at byte 16 u.
+// The full mode's tiles of low[b] [n, n2] take the same form.
 __device__ __forceinline__ void fill_wy(uint32_t dst, const __nv_bfloat16* wy, int r0, int n, int C, int t) {
   for (int u = t; u < ROWS * (n / 8); u += 128) {
     const int r = r0 + (u / n) * 8 + (u & 7), c = (u % n) >> 3;
@@ -116,10 +153,14 @@ __device__ __forceinline__ void fill_wy(uint32_t dst, const __nv_bfloat16* wy, i
   }
 }
 
+// FULL = false: src is tmp [B, n, C] and wxt, n2 are unused. FULL = true: src
+// is low [B, n, n2] and wxt [n2, C]; the block computes its strip of tmp.
+template <bool FULL>
 __global__ void __launch_bounds__(THREADS, 1)
-pass1_stats_tc_kernel(const __nv_bfloat16* __restrict__ tmp, const __nv_bfloat16* __restrict__ wy, int n, int C,
-                      float y0, float x0, float dh, float dw, float thresh, float offset, int* __restrict__ counts,
-                      uint8_t* __restrict__ row_any, uint8_t* __restrict__ col_any) {
+pass1_stats_tc_kernel(const __nv_bfloat16* __restrict__ src, const __nv_bfloat16* __restrict__ wxt,
+                      const __nv_bfloat16* __restrict__ wy, int n, int n2, int C, float y0, float x0, float dh,
+                      float dw, float thresh, float offset, int* __restrict__ counts, uint8_t* __restrict__ row_any,
+                      uint8_t* __restrict__ col_any) {
   const int c0 = blockIdx.x * STRIP;
   if (!meets(c0, STRIP, x0, dw)) return;  // the whole block leaves together
   extern __shared__ __align__(128) unsigned char smem[];
@@ -129,7 +170,8 @@ pass1_stats_tc_kernel(const __nv_bfloat16* __restrict__ tmp, const __nv_bfloat16
 
   const int tid = threadIdx.x, wg = tid >> 7, t = tid & 127, warp = t >> 5, lane = tid & 31;
   const int b = blockIdx.y;
-  const uint32_t wy_buf = strip + strip_bytes + wg * 2 * tile_bytes;  // this warpgroup's two buffers
+  const uint32_t stage = strip + strip_bytes;           // the Wy buffers; first the transform's operands
+  const uint32_t wy_buf = stage + wg * 2 * tile_bytes;  // this warpgroup's two buffers
   if (tid == 0) red[0] = red[1] = 0;
 
   // the window's row tiles are a contiguous range [rt_lo, rt_hi)
@@ -141,15 +183,76 @@ pass1_stats_tc_kernel(const __nv_bfloat16* __restrict__ tmp, const __nv_bfloat16
       rt_hi = rt + 1;
     }
 
-  // the strip: unit u is row (u / 128) * 8 + u % 8 of tmp[b], chunk (u % 128) / 8
-  // of the strip's 16; columns at or past C are zero-filled
-  const __nv_bfloat16* tb = tmp + (size_t)b * n * C + c0;
-  for (int u = tid; u < n * (STRIP / 8); u += THREADS) {
-    const int j = (u / STRIP) * 8 + (u & 7), c = (u % STRIP) >> 3;
-    const bool live = c0 + c * 8 < C;
-    cp_async16(strip + (uint32_t)u * 16, tb + (live ? (size_t)j * C + c * 8 : 0), live ? 16 : 0);
-  }
   int rt = rt_lo + wg;
+  if constexpr (!FULL) {
+    // the strip: unit u is row (u / 128) * 8 + u % 8 of tmp[b], chunk (u % 128) / 8
+    // of the strip's 16; columns at or past C are zero-filled
+    const __nv_bfloat16* tb = src + (size_t)b * n * C + c0;
+    for (int u = tid; u < n * (STRIP / 8); u += THREADS) {
+      const int j = (u / STRIP) * 8 + (u & 7), c = (u % STRIP) >> 3;
+      const bool live = c0 + c * 8 < C;
+      cp_async16(strip + (uint32_t)u * 16, tb + (live ? (size_t)j * C + c * 8 : 0), live ? 16 : 0);
+    }
+  } else {
+    // the column transform: the WxT strip [n2][128] (as the tmp strip above)
+    // at stage, then one tile of low[b] [64][n2] per warpgroup
+    const uint32_t wbuf = stage, abuf = stage + n2 * STRIP * 2 + wg * ROWS * n2 * 2;
+    const __nv_bfloat16* lb = src + (size_t)b * n * n2;
+    for (int u = tid; u < n2 * (STRIP / 8); u += THREADS) {
+      const int j = (u / STRIP) * 8 + (u & 7), c = (u % STRIP) >> 3;
+      const bool live = c0 + c * 8 < C;
+      cp_async16(wbuf + (uint32_t)u * 16, wxt + (live ? (size_t)j * C + c0 + c * 8 : 0), live ? 16 : 0);
+    }
+    const int nt = (n + ROWS - 1) / ROWS;
+    if (wg < nt) fill_wy(abuf, lb, wg * ROWS, n2, n, t);
+    cp_async_commit();
+    cp_async_wait<0>();
+    fence_async_proxy();
+    __syncthreads();  // the WxT strip and both warpgroups' first tiles have landed
+    const uint64_t wdesc = make_desc(wbuf, STRIP * 16, 128), ldesc = make_desc(abuf, 128, n2 * 16);
+    for (int lt = wg; lt < nt; lt += 2) {
+      if (lt > wg) {
+        cp_async_wait<0>();
+        fence_async_proxy();
+        warpgroup_sync(wg);  // this tile has landed for every thread of the warpgroup
+      }
+      float acc[64];
+#if HGL_K10_TRANSFORM
+      wgmma_fence();
+#pragma unroll 4
+      for (int kk = 0; kk < n2 / 16; ++kk)
+        wgmma_ss_n128<1>(acc, ldesc + (uint64_t)(kk * 256 >> 4), wdesc + (uint64_t)(kk * 2 * STRIP * 16 >> 4), kk > 0);
+      wgmma_commit();
+      wgmma_wait0();
+#else
+#pragma unroll
+      for (int i = 0; i < 64; ++i) acc[i] = (float)(i + lt) - 40.f;
+#endif
+      pin(acc);
+      warpgroup_sync(wg);  // every warp is past the products that read the tile
+      if (lt + 2 < nt) fill_wy(abuf, lb, (lt + 2) * ROWS, n2, n, t);
+      cp_async_commit();
+      // rows ja and ja + 8 of tmp, rounded to bf16 once; n is a multiple of 16,
+      // so a warp's 16 rows are all inside the strip or all past it
+      const int ja = lt * ROWS + warp * 16 + (lane >> 2);
+      if (lt * ROWS + warp * 16 < n) {
+#pragma unroll
+        for (int j = 0; j < STRIP / 8; ++j) {
+          const uint32_t at = strip + tile_at<STRIP>(ja, j * 8 + (lane & 3) * 2);
+          asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(at), "r"(pack_bf16(acc[j * 4], acc[j * 4 + 1])) : "memory");
+          // eight rows further is the next group of core matrices
+          asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(at + STRIP * 16), "r"(pack_bf16(acc[j * 4 + 2], acc[j * 4 + 3]))
+                       : "memory");
+        }
+      }
+    }
+    cp_async_wait<0>();
+    fence_async_proxy();
+    __syncthreads();  // the strip is whole, and nothing reads the staged operands any more
+#if !HGL_K10_SWEEP
+    return;
+#endif
+  }
   if (rt < rt_hi) fill_wy(wy_buf, wy, rt * ROWS, n, C, t);
   cp_async_commit();
 
@@ -274,6 +377,14 @@ int hgl_pass1_stats_tc_takes(int n, int C) { return n >= 16 && n % 16 == 0 && n 
 // Dynamic shared memory of a block at this n.
 int hgl_pass1_stats_tc_smem(int n) { return n * STRIP * 2 + 4 * ROWS * n * 2; }
 
+// The same for the full mode (K10): n2, the contraction of the column
+// transform, is held to n's limits, and the staged operands share the Wy
+// buffers' space.
+int hgl_pass1_stats_full_tc_takes(int n, int n2, int C) {
+  return hgl_pass1_stats_tc_takes(n, C) && n2 >= 16 && n2 % 16 == 0 && n2 <= MAX_N;
+}
+int hgl_pass1_stats_full_tc_smem(int n, int n2) { return n * STRIP * 2 + 4 * ROWS * (n > n2 ? n : n2) * 2; }
+
 // K5 in bf16: tmp [B, n, C] and wy [C, n] bf16; counts [B, 2] int32, row_any
 // and col_any [B, C] bytes, all zeroed by the caller. The caller has checked
 // hgl_pass1_stats_tc_takes. Returns a cudaError_t code (0 = launched).
@@ -283,12 +394,31 @@ int hgl_pass1_stats_tc(const void* tmp, const void* wy, int B, int n, int C, flo
   if (B > 65535 || !hgl_pass1_stats_tc_takes(n, C)) return (int)cudaErrorInvalidValue;
   const int bytes = hgl_pass1_stats_tc_smem(n);
   cudaError_t err =
-      cudaFuncSetAttribute(pass1_stats_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      cudaFuncSetAttribute(pass1_stats_tc_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((C + STRIP - 1) / STRIP, B);
-  pass1_stats_tc_kernel<<<grid, THREADS, bytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(tmp), static_cast<const __nv_bfloat16*>(wy), n, C, y0, x0, dh, dw, thresh,
-      offset, counts, static_cast<uint8_t*>(row_any), static_cast<uint8_t*>(col_any));
+  pass1_stats_tc_kernel<false><<<grid, THREADS, bytes, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(tmp), nullptr, static_cast<const __nv_bfloat16*>(wy), n, 0, C, y0, x0, dh, dw,
+      thresh, offset, counts, static_cast<uint8_t*>(row_any), static_cast<uint8_t*>(col_any));
+  return (int)cudaGetLastError();
+}
+
+// K10 in bf16: low [B, n, n2], wxt [n2, C] and wy [C, n] bf16; outputs as
+// above, zeroed by the caller, who has checked hgl_pass1_stats_full_tc_takes.
+int hgl_pass1_stats_full_tc(const void* low, const void* wxt, const void* wy, int B, int n, int n2, int C, float y0,
+                            float x0, float dh, float dw, float thresh, float offset, int* counts, void* row_any,
+                            void* col_any, void* stream) {
+  if (B < 1) return 0;
+  if (B > 65535 || !hgl_pass1_stats_full_tc_takes(n, n2, C)) return (int)cudaErrorInvalidValue;
+  const int bytes = hgl_pass1_stats_full_tc_smem(n, n2);
+  cudaError_t err =
+      cudaFuncSetAttribute(pass1_stats_tc_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((C + STRIP - 1) / STRIP, B);
+  pass1_stats_tc_kernel<true><<<grid, THREADS, bytes, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(low), static_cast<const __nv_bfloat16*>(wxt),
+      static_cast<const __nv_bfloat16*>(wy), n, n2, C, y0, x0, dh, dw, thresh, offset, counts,
+      static_cast<uint8_t*>(row_any), static_cast<uint8_t*>(col_any));
   return (int)cudaGetLastError();
 }
 

@@ -6,10 +6,10 @@ hand-written CUDA kernels in ``csrc/`` (built by ``_build``); the other
 modules are the plain tensor primitives the reference wrote as XLA.
 
 Each kernel wrapper counts its launches in a plain integer attribute
-(``wrapper.launches``), incremented only where it launches its kernel. The
-two wrappers whose C dispatch is not mirrored call by call elsewhere (K5,
-K6) also count the launches that took the tensor-core kernel
-(``wrapper.tc_launches``).
+(``wrapper.launches``), incremented only where it launches its kernel, once
+a kernel launch (K3's split route makes several a call). The wrappers with a
+tensor-core and a CUDA-core kernel behind them (K3-K8, K10) also count the
+launches that took the tensor-core one (``wrapper.tc_launches``).
 """
 
 from __future__ import annotations

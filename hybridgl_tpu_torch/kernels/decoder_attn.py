@@ -113,7 +113,8 @@ def _num_splits(B: int, S: int, device, tc: bool) -> int:
 def _launch(name, mode, B, S, C, *, qside, base=None, pe=None, w=None, off=None, vo=None, const=None,
             ln_scale=None, ln_bias=None, qw=None, heads=1, tp=8, add_pe=False):
     """Check the operands and launch csrc/decoder_attn.cu in ``mode``.
-    Returns (keys' [B, S, C] or None, ctx [B, GT2, C] f32 or None)."""
+    Returns (keys' [B, S, C] or None, ctx [B, GT2, C] f32 or None, whether
+    the call took the tensor-core kernel)."""
     dev, dt = qside.device, qside.dtype
     if dt not in (torch.bfloat16, torch.float32):
         raise TypeError(f"{name}: image streams must be bf16 or f32, got {dt}")
@@ -180,7 +181,7 @@ def _launch(name, mode, B, S, C, *, qside, base=None, pe=None, w=None, off=None,
         _build.stream_handle(dev),
     )
     _build.check(code, name)
-    return keys, ctx
+    return keys, ctx, tc
 
 
 def i2t_ln_update(qside, base, w, off, vo, const, ln_scale, ln_bias, heads: int, tp: int, pe=None):
@@ -193,13 +194,15 @@ def i2t_ln_update(qside, base, w, off, vo, const, ln_scale, ln_bias, heads: int,
         raise RuntimeError(f"i2t_ln_update: unsupported device {qside.device}")
     dt = base.dtype
     B, S, Co = w.shape[0], qside.shape[1], base.shape[-1]
-    keys, _ = _launch(
+    keys, _, tc = _launch(
         "i2t_ln_update", I2T, B, S, Co, qside=qside.to(dt), base=base,
         pe=None if pe is None else pe.to(dt), w=_f32(w), off=_f32(off), vo=vo.to(dt).contiguous(), const=_f32(const),
         ln_scale=_f32(ln_scale), ln_bias=_f32(ln_bias), heads=heads, tp=tp, add_pe=pe is not None,
     )
     i2t_ln_update.launches += 1
+    i2t_ln_update.tc_launches += int(tc)
     return keys
 
 
 i2t_ln_update.launches = 0
+i2t_ln_update.tc_launches = 0  # of those, the launches of csrc/decoder_attn_wgmma.cu

@@ -42,9 +42,11 @@ def t2i_ctx(keys, pe, qw):
     if keys.device.type != "cuda":
         raise RuntimeError(f"t2i_ctx: unsupported device {keys.device}")
     B, S, C = keys.shape
-    _, ctx = _launch("t2i_ctx", T2I, B, S, C, qside=keys, pe=pe.to(keys.dtype), qw=_f32(qw))
+    _, ctx, tc = _launch("t2i_ctx", T2I, B, S, C, qside=keys, pe=pe.to(keys.dtype), qw=_f32(qw))
     t2i_ctx.launches += 1
+    t2i_ctx.tc_launches += int(tc)
     return ctx
 
 
 t2i_ctx.launches = 0
+t2i_ctx.tc_launches = 0  # of those, the launches of csrc/decoder_attn_wgmma.cu

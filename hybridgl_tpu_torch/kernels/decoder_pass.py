@@ -23,12 +23,19 @@ token-side operands resident in shared memory, both softmaxes and the LN
 on the accumulator fragments, and keys' / kpe written over the stage they
 were computed from; what bounds it is that element-wise work, which its
 two warpgroups do in lockstep (``PERF.md``). f32 and every other shape run
-the CUDA-core ``csrc/decoder_attn.cu``.
+the CUDA-core ``csrc/decoder_attn.cu``. One block of that kernel keeps the
+token-side operands in shared memory and the context sums in registers, which
+at SAM's width holds 8 token lanes a head; a prompt of more than 8 tokens (a
+box with two or more points: 16 lanes a head) runs the pass as its two halves
+in the same kernels, the I2T mode and then the T2I mode over groups of 64
+context columns, which are independent of one another (:func:`pass_route`).
 """
 
 from __future__ import annotations
 
-from .decoder_attn import PASS, _f32, _launch, reference_i2t_ln_update
+import torch
+
+from .decoder_attn import I2T, MAX_CTX, PASS, SMEM_LIMIT, T2I, _f32, _launch, reference_i2t_ln_update, variant
 from .decoder_attn_t2i import reference_t2i_ctx
 
 
@@ -40,6 +47,23 @@ def reference_i2t_ln_then_t2i(qside, base, pe, w, off, vo, const, ln_scale, ln_b
     else:
         keys = reference_i2t_ln_update(qside, qside, w, off, vo, const, ln_scale, ln_bias, heads, tp, pe=pe)
     return keys, reference_t2i_ctx(keys, pe, qw_next)
+
+
+def pass_route(dtype, S: int, Cq: int, C: int, heads: int, tp: int, GT2: int, shared_qside: bool) -> str:
+    """How a CUDA call of K3 runs, by dtype and shape alone: "wgmma" or
+    "cuda-core" (one launch in PASS mode), or "split" where the CUDA-core
+    kernel cannot hold the pass in one block (GT2 * C context sums in
+    registers, the operands in shared memory): the I2T mode, then the T2I
+    mode per group of :func:`split_columns` context columns."""
+    kind, smem = variant(PASS, dtype, S, Cq, C, heads, tp, GT2, not shared_qside, not shared_qside)
+    if kind == "cuda-core" and (GT2 * C > MAX_CTX or smem > SMEM_LIMIT):
+        return "split"
+    return kind
+
+
+def split_columns(C: int, GT2: int) -> int:
+    """Context columns per T2I launch of the split route."""
+    return max(4, min(GT2, MAX_CTX // C // 4 * 4))
 
 
 def i2t_ln_then_t2i(qside, base, pe, w, off, vo, const, ln_scale, ln_bias, qw_next, heads: int, tp: int,
@@ -55,14 +79,28 @@ def i2t_ln_then_t2i(qside, base, pe, w, off, vo, const, ln_scale, ln_bias, qw_ne
         raise RuntimeError(f"i2t_ln_then_t2i: unsupported device {qside.device}")
     dt = base.dtype if shared_qside else qside.dtype
     B, S, C = w.shape[0], qside.shape[1], (base.shape[-1] if shared_qside else qside.shape[-1])
-    keys, ctx = _launch(
-        "i2t_ln_then_t2i", PASS, B, S, C, qside=qside.to(dt), base=base if shared_qside else qside,
-        pe=pe.to(dt), w=_f32(w), off=_f32(off), vo=vo.to(dt).contiguous(), const=_f32(const),
-        ln_scale=_f32(ln_scale), ln_bias=_f32(ln_bias), qw=_f32(qw_next), heads=heads, tp=tp,
-        add_pe=not shared_qside,
-    )
-    i2t_ln_then_t2i.launches += 1
+    i2t = dict(qside=qside.to(dt), base=base if shared_qside else qside, pe=pe.to(dt), w=_f32(w), off=_f32(off),
+               vo=vo.to(dt).contiguous(), const=_f32(const), ln_scale=_f32(ln_scale), ln_bias=_f32(ln_bias),
+               heads=heads, tp=tp, add_pe=not shared_qside)
+    GT2 = qw_next.shape[-1]
+    if pass_route(dt, S, qside.shape[-1], C, heads, tp, GT2, shared_qside) == "split":
+        if shared_qside:
+            i2t["pe"] = None  # the shared score side carries no pe; the T2I half adds it to keys'
+        keys, _, tc = _launch("i2t_ln_then_t2i", I2T, B, S, C, **i2t)
+        on_tc, step, parts = [tc], split_columns(C, GT2), []
+        for at in range(0, GT2, step):
+            _, part, tc = _launch("i2t_ln_then_t2i", T2I, B, S, C, qside=keys, pe=pe.to(dt),
+                                  qw=_f32(qw_next[:, :, at : at + step]))
+            parts.append(part)
+            on_tc.append(tc)
+        ctx = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+    else:
+        keys, ctx, tc = _launch("i2t_ln_then_t2i", PASS, B, S, C, qw=_f32(qw_next), **i2t)
+        on_tc = [tc]
+    i2t_ln_then_t2i.launches += len(on_tc)  # one a kernel launch: the split route makes 1 + GT2 / step
+    i2t_ln_then_t2i.tc_launches += sum(on_tc)
     return keys, ctx
 
 
 i2t_ln_then_t2i.launches = 0
+i2t_ln_then_t2i.tc_launches = 0  # of those, the launches of csrc/decoder_attn_wgmma.cu

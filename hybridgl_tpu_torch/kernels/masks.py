@@ -5,6 +5,15 @@ from __future__ import annotations
 import torch
 
 
+def stability_score(logits: torch.Tensor, mask_threshold: float, offset: float) -> torch.Tensor:
+    """IoU between the +offset and -offset thresholdings of mask logits
+    [..., H, W] -> [...] (utils/amg.py:156-176: one thresholding contains the
+    other, so intersection and union are the two areas)."""
+    hi = (logits > (mask_threshold + offset)).sum(dim=(-2, -1))
+    lo = (logits > (mask_threshold - offset)).sum(dim=(-2, -1))
+    return hi.float() / lo.float()
+
+
 def box_from_profiles(in_h: torch.Tensor, in_w: torch.Tensor) -> torch.Tensor:
     """XYXY boxes [..., 4] f32 from row/column occupancy profiles; empty -> 0."""
     H, W = in_h.shape[-1], in_w.shape[-1]
@@ -33,6 +42,16 @@ def box_iou_matrix(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     wh = torch.clamp(rb - lt, min=0.0)
     inter = wh[..., 0] * wh[..., 1]
     union = area_a[:, None] + area_b[None, :] - inter
+    return torch.where(union > 0, inter / union, 0.0)
+
+
+def mask_iou_matrix(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Pairwise IoU of boolean masks [N, H, W] x [M, H, W] -> [N, M], as one
+    matmul over the flattened masks."""
+    af = a.reshape(a.shape[0], -1).float()
+    bf = b.reshape(b.shape[0], -1).float()
+    inter = af @ bf.T
+    union = af.sum(-1)[:, None] + bf.sum(-1)[None, :] - inter
     return torch.where(union > 0, inter / union, 0.0)
 
 

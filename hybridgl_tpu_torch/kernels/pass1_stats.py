@@ -19,7 +19,10 @@ shape alone): bf16 stats, the default, run ``csrc/pass1_stats_wgmma.cu`` on
 the tensor cores (n a multiple of 16 up to 256, C a multiple of 8); f32 stats
 and every other shape run the CUDA-core kernel of ``csrc/pass1_stats.cu``,
 which sums in f32 in the plain version's order of magnitude and is held to
-equal boxes. K10 runs ``csrc/pass1_stats.cu`` in both dtypes.
+equal boxes. K10 has the same two (:func:`variant_full`): in bf16, with n2
+held to n's limits, the full mode of ``csrc/pass1_stats_wgmma.cu`` computes
+its strip of tmp on the tensor cores and runs K5's sweep on it; f32 stats and
+every other shape run ``hgl_pass1_stats_full`` of ``csrc/pass1_stats.cu``.
 
 Dtype policy (reference ``use_bf16_stats``, pass1_stats.py:39-55): the
 half-transform and the row matmul take bf16 operands with f32 sums by
@@ -86,6 +89,14 @@ def variant(dtype, n: int, C: int) -> str:
     return "cuda-core"
 
 
+def variant_full(dtype, n: int, n2: int, C: int) -> str:
+    """Which K10 kernel a CUDA call takes. Mirrors
+    ``hgl_pass1_stats_full_tc_takes`` (csrc/pass1_stats_wgmma.cu)."""
+    if variant(dtype, n, C) == "wgmma" and 16 <= n2 <= TC_MAX_N and n2 % 16 == 0:
+        return "wgmma"
+    return "cuda-core"
+
+
 def _zeroed_outputs(B: int, C: int, device):
     """(counts [B, 2] int32, row_any [B, C] bool, col_any [B, C] bool) as views
     of one zeroed buffer: the kernels that meet only in their outputs add to
@@ -116,35 +127,35 @@ def pass1_stats_half(tmp, Wy, window, thresh: float, offset: float):
         raise ValueError("pass1_stats_half: tmp and Wy on different devices")
     if not (tmp.is_contiguous() and Wy.is_contiguous()):
         raise ValueError("pass1_stats_half: inputs must be contiguous")
-    y0, x0, dh, dw = _window(window)
+    tc = variant(dt, n, C) == "wgmma"
+    if tc and (tmp.data_ptr() % 16 or Wy.data_ptr() % 16):
+        raise ValueError("pass1_stats_half: inputs must be 16-byte aligned (the kernel copies 16 bytes a thread)")
     lib = _build.library()
-    if variant(dt, n, C) == "wgmma":
-        if tmp.data_ptr() % 16 or Wy.data_ptr() % 16:
-            raise ValueError("pass1_stats_half: inputs must be 16-byte aligned (the kernel copies 16 bytes a thread)")
-        counts, row_any, col_any = _zeroed_outputs(B, C, tmp.device)
-        code = lib.hgl_pass1_stats_tc(
-            tmp.data_ptr(), Wy.data_ptr(), B, n, C, y0, x0, dh, dw, float(thresh), float(offset),
-            counts.data_ptr(), row_any.data_ptr(), col_any.data_ptr(), _build.stream_handle(tmp.device),
-        )
-        _build.check(code, "pass1_stats_half")
-        pass1_stats_half.launches += 1
-        pass1_stats_half.tc_launches += 1
-        counts = counts.float()
-        return counts[:, 0] / counts[:, 1].clamp(min=1.0), row_any, col_any
-    counts = torch.empty((B, 2), dtype=torch.float32, device=tmp.device)
-    row_any = torch.empty((B, C), dtype=torch.bool, device=tmp.device)
-    col_any = torch.empty((B, C), dtype=torch.bool, device=tmp.device)
-    code = lib.hgl_pass1_stats(
-        tmp.data_ptr(), Wy.data_ptr(), B, n, C, y0, x0, dh, dw,
-        float(thresh), float(offset), counts.data_ptr(), row_any.data_ptr(),
-        col_any.data_ptr(), int(dt == torch.bfloat16), _build.stream_handle(tmp.device),
-    )
-    _build.check(code, "pass1_stats_half")
-    pass1_stats_half.launches += 1
+    entry, tail = (lib.hgl_pass1_stats_tc, ()) if tc else (lib.hgl_pass1_stats, (int(dt == torch.bfloat16),))
+    return _launch_stats(pass1_stats_half, tc, B, C, tmp.device, entry, (tmp.data_ptr(), Wy.data_ptr(), B, n, C),
+                         window, thresh, offset, tail, f32_counts=not tc)
+
+
+def _launch_stats(wrapper, tc: bool, B: int, C: int, device, entry, operands, window, thresh, offset, tail,
+                  f32_counts: bool = False):
+    """Launch one pass-1 entry point of the library on zeroed outputs, count
+    the launch on ``wrapper`` and turn the two counts into the stability
+    score: (stab [B] f32, row_any [B, C] bool, col_any [B, C] bool). K5's
+    CUDA-core kernel stores its counts as f32, the others add integers."""
+    y0, x0, dh, dw = _window(window)
+    counts, row_any, col_any = _zeroed_outputs(B, C, device)
+    if f32_counts:
+        counts = counts.view(torch.float32)
+    code = entry(*operands, y0, x0, dh, dw, float(thresh), float(offset), counts.data_ptr(), row_any.data_ptr(),
+                 col_any.data_ptr(), *tail, _build.stream_handle(device))
+    _build.check(code, wrapper.__name__)
+    wrapper.launches += 1
+    wrapper.tc_launches += int(tc)
+    counts = counts.float()
     return counts[:, 0] / counts[:, 1].clamp(min=1.0), row_any, col_any
 
 
-# K10's shared memory: two staging tiles, the [n, 64] column block of tmp
+# The CUDA-core K10's shared memory: two staging tiles, the [n, 64] column block of tmp
 # (f32, n rounded up to 32) and the row flags; the card gives a block 227 KB
 _MAX_SMEM_BYTES = 232448
 
@@ -174,24 +185,21 @@ def pass1_stats(low, WxT, Wy, window, thresh: float, offset: float, tile: int = 
     low, WxT, Wy = low.to(dt).contiguous(), WxT.to(dt).contiguous(), Wy.to(dt).contiguous()
     if WxT.device != low.device or Wy.device != low.device:
         raise ValueError("pass1_stats: low, WxT and Wy on different devices")
-    n_pad = -(-n // 32) * 32
-    smem = (64 * 33 + 32 * 65 + n_pad * 64) * 4 + C * 4
-    if smem > _MAX_SMEM_BYTES - 2048:  # static shared memory: flags and the block sums
-        raise ValueError(f"pass1_stats: n={n}, C={C} needs {smem} bytes of shared memory per block")
-    y0, x0, dh, dw = _window(window)
-    counts, row_any, col_any = _zeroed_outputs(B, C, low.device)
+    tc = variant_full(dt, n, n2, C) == "wgmma"
+    if tc and (low.data_ptr() % 16 or WxT.data_ptr() % 16 or Wy.data_ptr() % 16):
+        raise ValueError("pass1_stats: inputs must be 16-byte aligned (the kernel copies 16 bytes a thread)")
+    if not tc:
+        n_pad = -(-n // 32) * 32
+        smem = (64 * 33 + 32 * 65 + n_pad * 64) * 4 + C * 4
+        if smem > _MAX_SMEM_BYTES - 2048:  # static shared memory: flags and the block sums
+            raise ValueError(f"pass1_stats: n={n}, C={C} needs {smem} bytes of shared memory per block")
     lib = _build.library()
-    code = lib.hgl_pass1_stats_full(
-        low.data_ptr(), WxT.data_ptr(), Wy.data_ptr(), B, n, n2, C, y0, x0, dh, dw,
-        float(thresh), float(offset), counts.data_ptr(), row_any.data_ptr(),
-        col_any.data_ptr(), int(dt == torch.bfloat16), _build.stream_handle(low.device),
-    )
-    _build.check(code, "pass1_stats")
-    pass1_stats.launches += 1
-    counts = counts.float()
-    return counts[:, 0] / counts[:, 1].clamp(min=1.0), row_any, col_any
+    entry, tail = (lib.hgl_pass1_stats_full_tc, ()) if tc else (lib.hgl_pass1_stats_full, (int(dt == torch.bfloat16),))
+    return _launch_stats(pass1_stats, tc, B, C, low.device, entry,
+                         (low.data_ptr(), WxT.data_ptr(), Wy.data_ptr(), B, n, n2, C), window, thresh, offset, tail)
 
 
 pass1_stats_half.launches = 0
 pass1_stats_half.tc_launches = 0  # of those, the launches of csrc/pass1_stats_wgmma.cu
 pass1_stats.launches = 0
+pass1_stats.tc_launches = 0  # of those, the launches of the full mode of csrc/pass1_stats_wgmma.cu

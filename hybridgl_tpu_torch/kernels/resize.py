@@ -59,6 +59,44 @@ def resize_bilinear(img: torch.Tensor, out_hw, src_hw=None, axis: int = 0) -> to
     return top + (bot - top) * wyb
 
 
+def resize_bilinear_batched(imgs: torch.Tensor, out_hw, src_hw=None) -> torch.Tensor:
+    """:func:`resize_bilinear` over a leading batch axis ([N, H, W, ...])."""
+    return resize_bilinear(imgs, out_hw, src_hw, axis=1)
+
+
+def place_valid_region(img: torch.Tensor, src_hw, out_frame, dst_hw) -> torch.Tensor:
+    """Resize img[:src_h, :src_w] to (dst_h, dst_w) at the origin of a
+    zero-padded (OH, OW) frame (reference :91): :func:`place_region` with
+    both origins at (0, 0)."""
+    return place_region(img, src_hw, out_frame, (0, 0), dst_hw)
+
+
+def sample_region(img: torch.Tensor, src_origin, src_hw, out_hw) -> torch.Tensor:
+    """Bilinear-resize img[y0:y0+sh, x0:x0+sw] to (OH, OW) (reference :142)."""
+    dev = img.device
+
+    def coords(n, o, s):
+        o, s = _f32(o, dev), _f32(s, dev)
+        i = torch.arange(n, dtype=torch.float32, device=dev)
+        c = o + torch.minimum(torch.clamp((i + 0.5) * (s / n) - 0.5, min=0.0), s - 1.0)
+        lo = torch.floor(c).long()
+        return lo, torch.minimum(lo + 1, (o + s).long() - 1), c - lo
+
+    ylo, yhi, wy = coords(out_hw[0], src_origin[0], src_hw[0])
+    xlo, xhi, wx = coords(out_hw[1], src_origin[1], src_hw[1])
+    compute = img if img.is_floating_point() else img.float()
+    trail = (1,) * (img.ndim - 2)
+    wxb = wx.reshape((1, out_hw[1]) + trail)
+
+    def lerp_rows(rows):
+        left = rows.index_select(1, xlo)
+        return left + (rows.index_select(1, xhi) - left) * wxb
+
+    top = lerp_rows(compute.index_select(0, ylo))
+    bot = lerp_rows(compute.index_select(0, yhi))
+    return top + (bot - top) * wy.reshape((out_hw[0], 1) + trail)
+
+
 def place_region(img: torch.Tensor, src_hw, out_frame, dst_origin, dst_hw, fill=0.0, src_origin=(0, 0)):
     """Resize img[sy0:sy0+sh, sx0:sx0+sw] to (dh, dw) placed at (y0, x0) of a
     fill-padded (OH, OW) frame (reference :187): multicrop AMG cuts each crop

@@ -126,7 +126,9 @@ def upscale_hyper(src, w1, b1, ln_s, ln_b, w2, b2, hyper):
     )
     _build.check(code, "upscale_hyper")
     upscale_hyper.launches += 1
+    upscale_hyper.tc_launches += int(tc)
     return out
 
 
 upscale_hyper.launches = 0
+upscale_hyper.tc_launches = 0  # of those, the launches of csrc/upscale_hyper_wgmma.cu

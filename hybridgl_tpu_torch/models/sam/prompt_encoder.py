@@ -1,7 +1,7 @@
 """SAM prompt encoder (port of hybridgl_tpu/models/sam/prompt_encoder.py).
 
 Random-Fourier positional encoding over normalized coordinates, learned
-point embeddings, and the dense no-mask embedding
+point and box-corner embeddings, and the dense no-mask embedding
 (reference: segment_anything/modeling/prompt_encoder.py).
 """
 
@@ -47,6 +47,14 @@ def embed_points(p, coords: torch.Tensor, labels: torch.Tensor, cfg: SamConfig, 
     emb = emb + torch.where(lab == 0, pts[0], 0.0)
     emb = emb + torch.where(lab == 1, pts[1], 0.0)
     return emb
+
+
+def embed_boxes(p, boxes: torch.Tensor, cfg: SamConfig) -> torch.Tensor:
+    """boxes [B, 4] XYXY in 1024-frame pixels -> [B, 2, prompt_dim] corner
+    embeddings (prompt_encoder.py:93-100)."""
+    corners = (boxes.reshape(-1, 2, 2) + 0.5) / cfg.img_size
+    emb = _pe_encode(p, corners)
+    return emb + p["point_embeddings"][2:4].to(emb.dtype)
 
 
 def no_mask_dense(p, cfg: SamConfig, batch: int) -> torch.Tensor:

@@ -85,26 +85,39 @@ def dir_mask(dir_flag: int, frame: int, hw, device="cpu") -> torch.Tensor:
     return torch.ones((frame, frame), dtype=torch.float32, device=device)
 
 
-def normalize_heatmap(imgattn: torch.Tensor, valid_region: torch.Tensor, dir_flag: int) -> torch.Tensor:
+def normalize_heatmap(imgattn: torch.Tensor, valid_region: torch.Tensor, dir_flag) -> torch.Tensor:
     """min-max normalise -> directional prior -> mean-normalise over the valid
-    region (Hybridgl_main.py:204-209)."""
-    lo = torch.where(valid_region, imgattn, torch.inf).min()
-    hi = torch.where(valid_region, imgattn, -torch.inf).max()
-    x = (imgattn - lo) / (hi - lo)
+    region (Hybridgl_main.py:204-209). One heatmap [C, C] with its flag, or a
+    batch [S, C, C] with a sequence of S flags."""
+    batched = imgattn.ndim == 3
+    x = imgattn if batched else imgattn[None]
+    flags = list(dir_flag) if batched else [dir_flag]
+    lo = torch.where(valid_region, x, torch.inf).amin(dim=(-2, -1), keepdim=True)
+    hi = torch.where(valid_region, x, -torch.inf).amax(dim=(-2, -1), keepdim=True)
+    x = (x - lo) / (hi - lo)
     x = torch.where(valid_region, x, 0.0)
     h = int(valid_region.any(dim=1).sum())
     w = int(valid_region.any(dim=0).sum())
-    x = x * dir_mask(dir_flag, imgattn.shape[0], (h, w), imgattn.device)
-    mean = x.sum() / valid_region.sum()
-    return torch.where(valid_region, x / mean, 0.0)
+    prior = {f: dir_mask(f, x.shape[-1], (h, w), x.device) for f in set(flags)}
+    x = x * torch.stack([prior[f] for f in flags])
+    mean = x.sum(dim=(-2, -1), keepdim=True) / valid_region.sum()
+    out = torch.where(valid_region, x / mean, 0.0)
+    return out if batched else out[0]
 
 
-def gem_mask_scores(imgattn, masks, valid_region, black: float) -> torch.Tensor:
+def gem_mask_scores(imgattn, masks, valid_region, black) -> torch.Tensor:
     """mean_in_mask(attn) * (2 - black) - mean_out_of_mask(attn) * black
-    (Hybridgl_main.py:218-222) -> [P]."""
+    (Hybridgl_main.py:218-222) -> [P]; for a batch of heatmaps [S, C, C] with
+    ``black`` a tensor [S] -> [S, P]."""
     P = masks.shape[0]
     m2 = (masks & valid_region[None]).float().reshape(P, -1)
     inv2 = (~masks & valid_region[None]).float().reshape(P, -1)
+    if imgattn.ndim == 3:
+        flat = imgattn.reshape(imgattn.shape[0], -1).T  # [C * C, S]
+        in_mean = ((m2 @ flat) / torch.clamp(m2.sum(-1), min=1.0)[:, None]).T
+        out_mean = ((inv2 @ flat) / torch.clamp(inv2.sum(-1), min=1.0)[:, None]).T
+        black = black[:, None]
+        return (2.0 - black) * in_mean - black * out_mean
     flat = imgattn.reshape(-1)
     in_mean = (m2 @ flat) / torch.clamp(m2.sum(-1), min=1.0)
     out_mean = (inv2 @ flat) / torch.clamp(inv2.sum(-1), min=1.0)

@@ -30,6 +30,38 @@ from ..utils import native_build
 _FORCE = "HYBRIDGL_FORCE_NATIVE_CLEANUP"
 
 
+def cleanup_threads() -> int:
+    """Host threads for the cleanup pass: ``$HYBRIDGL_CLEANUP_THREADS``, by
+    default the CPU count. The native pass releases the GIL for the length
+    of its C call and keeps its scratch per thread, so the bundle's rows are
+    split between that many calls."""
+    v = os.environ.get("HYBRIDGL_CLEANUP_THREADS")
+    if v is not None:
+        return max(1, int(v))
+    return os.cpu_count() or 1
+
+
+def _cleanup_batch_threaded(masks, boxes, process, hw, min_area):
+    """``postprocess_native.cleanup_batch`` over contiguous row ranges of the
+    bundle, one per thread (rows are independent, each range is cleaned in
+    place): (changed [P], boxes [P, 4], areas [P]) as one call gives them."""
+    live = np.nonzero(process)[0]
+    n_threads = min(cleanup_threads(), len(live))
+    if n_threads <= 1:
+        return postprocess_native.cleanup_batch(masks, boxes, process, hw, min_area)
+    from concurrent.futures import ThreadPoolExecutor
+
+    # equal shares of the live rows; masks[a:b] is a contiguous view
+    cuts = [int(live[i * len(live) // n_threads]) for i in range(n_threads)] + [len(masks)]
+    cuts[0] = 0
+    spans = list(zip(cuts[:-1], cuts[1:]))
+    with ThreadPoolExecutor(max_workers=n_threads) as pool:
+        parts = list(pool.map(
+            lambda ab: postprocess_native.cleanup_batch(masks[ab[0]:ab[1]], boxes[ab[0]:ab[1]], process[ab[0]:ab[1]],
+                                                        hw, min_area), spans))
+    return tuple(np.concatenate([part[k] for part in parts]) for k in range(3))
+
+
 @contextlib.contextmanager
 def _native_cleanup():
     """Make ``postprocess_native.cleanup_batch`` run the native library
@@ -97,9 +129,7 @@ def postprocess_small_regions(props: Proposals, min_area: int, nms_thresh: float
         H, W = int(hw[0]), int(hw[1])
     process = valid & (np.arange(len(masks)) < n)
     with _native_cleanup():
-        changed_flags, nat_boxes, nat_areas = postprocess_native.cleanup_batch(
-            new_masks, boxes, process, (H, W), min_area
-        )
+        changed_flags, nat_boxes, nat_areas = _cleanup_batch_threaded(new_masks, boxes, process, (H, W), min_area)
 
     idx = [i for i in range(n) if valid[i]]
     nms_boxes = np.stack([nat_boxes[i] if changed_flags[i] else boxes[i] for i in idx])

@@ -19,6 +19,17 @@ every live proposal before the feature stage, as the reference does.
 ``run_image`` processes one image; ``run_dataset`` iterates a dataset with
 the next image's proposal stage launched before the current one's host
 cleanup.
+
+All of an image's sentences go through one sentence stage with a leading
+sentence dimension (the reference's ``HYBRIDGL_BATCH_SENTENCES=1`` path). The
+small-region cleanup is the native host pass on every device: the pass on
+tensors (kernels/connected.py, the reference's ``HYBRIDGL_CLEANUP=device``)
+takes as many sweeps as the masks' components are wound: on an H100 from a
+fifth of the host pass's time (clean rectangles) to ten times it (speckled
+blobs; ``PERF.md``), and nothing the runner can see beforehand tells the two
+apart, so it is not wired in.
+``survival_hook``, where set, replaces the proposal bundle after the proposal
+stage.
 """
 
 from __future__ import annotations
@@ -32,7 +43,7 @@ import numpy as np
 import torch
 
 from ..core.config import PipelineConfig
-from ..lang import ExpressionParser, HeuristicParser, ParsedExpression
+from ..lang import ExpressionParser, ParsedExpression, get_parser
 
 from ..eval.metrics import IoUAccum, accumulate, mask_iou
 from ..kernels.masks import box_xyxy_to_xywh
@@ -41,6 +52,7 @@ from ..models.clip.fusion import calculate_score, hybrid_forward
 from ..models.clip.text import encode_text
 from ..models.gem.gem import gem_image_features, gem_preprocess
 from ..models.sam.amg import Proposals, generate_proposals, generate_proposals_multicrop
+from ..utils.buckets import next_pow2
 from .guidance import dir_flag_id, gem_mask_scores, normalize_heatmap, rela_flag_id, select_candidates
 from .postprocess import postprocess_small_regions
 from .preprocess import build_crops
@@ -77,13 +89,6 @@ class PipelineState:
     final: IoUAccum
 
 
-def _next_pow2(n: int, base: int = 8) -> int:
-    b = base
-    while b < n:
-        b *= 2
-    return b
-
-
 class HybridGLPipeline:
     def __init__(self, cfg: PipelineConfig, sam_params, clip_params, parser: Optional[ExpressionParser] = None, tokenizer=None, device=None):
         if cfg.amg.crop_n_layers > 1:
@@ -92,7 +97,7 @@ class HybridGLPipeline:
         self.device = torch.device(device) if device is not None else sam_params["prompt"]["pe_gaussian"].device
         self.sam_params = sam_params
         self.clip_params = clip_params
-        self.parser = parser or HeuristicParser(rela_right_bug=cfg.compat.rela_right_bug)
+        self.parser = parser or get_parser(rela_right_bug=cfg.compat.rela_right_bug)
         if tokenizer is None:
             from ..models.clip.tokenizer import default_tokenizer
 
@@ -102,6 +107,7 @@ class HybridGLPipeline:
         self.last_proposals: Optional[Proposals] = None  # run_image's bundle, for inspection
         self._warned_overflow = False
         self.timer = None  # optional utils.profiling.StageTimer: per-stage wall times
+        self.survival_hook = None  # optional Proposals -> Proposals override after the proposal stage
 
     def _span(self, name: str):
         if self.timer is None:
@@ -139,8 +145,8 @@ class HybridGLPipeline:
         return props
 
     def _finish_proposals(self, props: Proposals, hw) -> Proposals:
-        """The host side of the proposal stage: the overflow warning and the
-        small-region cleanup."""
+        """The host side of the proposal stage: the overflow warning, the
+        small-region cleanup and the survival hook."""
         cfg = self.cfg
         if props.overflow > 0 and not self._warned_overflow:
             # the reference keeps every NMS survivor; a full bucket drops some
@@ -155,6 +161,10 @@ class HybridGLPipeline:
             with self._span("small_region_cleanup"):
                 if props.num > 0:
                     props = self._cleanup_host(props, hw)
+        if self.survival_hook is not None:
+            # benchmarking and testing knob: random weights leave degenerate
+            # NMS survival, a hook sets a representative bucket occupancy
+            props = self.survival_hook(props)
         return props
 
     def _cleanup_host(self, props: Proposals, hw) -> Proposals:
@@ -180,8 +190,12 @@ class HybridGLPipeline:
         P = int(props.masks.shape[0])
         live = torch.nonzero(props.valid).flatten()
         extent = int(live.max()) + 1 if live.numel() else props.num
-        bucket = min(_next_pow2(extent), P)
-        if bucket >= P:
+        return HybridGLPipeline._slice_props(props, min(next_pow2(extent, base=8), P))
+
+    @staticmethod
+    def _slice_props(props: Proposals, bucket: int) -> Proposals:
+        """Slice the bundle to a known bucket size (no host reads)."""
+        if bucket >= int(props.masks.shape[0]):
             return props
         return props._replace(**{f: getattr(props, f)[:bucket] for f in Proposals._fields[:7]})
 
@@ -205,41 +219,57 @@ class HybridGLPipeline:
         gem_pf = gem_pf[0] / torch.clamp(torch.linalg.norm(gem_pf[0], dim=-1, keepdim=True), min=1e-6)
         return feats, gem_pf
 
-    def _sentence_stage(self, props, feats, gem_pf, h, w, row, k1, k2, gt_mask):
-        cfg = self.cfg
-        C = cfg.canonical_size
-        toks_all, n_others, dir_flag, rela_flag, black, has_other = row
-        tf = encode_text(self.clip_params["text"], torch.from_numpy(toks_all).to(self.device), cfg.clip)
-        sent_f, np_f, other_f = tf[0], tf[1], tf[2:]
-        r = cfg.guidance.r
-        text_ensemble = r * sent_f + (1 - r) * np_f
-        ls = self.clip_params["logit_scale"]
-        score = calculate_score(feats, text_ensemble[None], ls)[:, 0]
-        if n_others > 0:
-            neg_mean = other_f[:n_others].sum(0) / n_others
-        else:
-            neg_mean = torch.zeros_like(other_f[0])
-        # guard the zero vector (the reference leaves NaNs in the unused branch)
-        neg_norm = torch.clamp(torch.linalg.norm(neg_mean), min=1e-6)
-        score_neg = torch.exp(ls) * (feats / torch.linalg.norm(feats, dim=-1, keepdim=True)) @ (neg_mean / neg_norm)
+    def _sentence_stage(self, sample, props, feats, gem_pf, rows, k1, k2, gt, state):
+        """All sentences of an image through one sentence stage with a
+        leading sentence dimension (the reference's ``_sentences_batched``,
+        without its power-of-two sentence buckets: eager PyTorch compiles
+        nothing per shape): the text encoder, both scores, the heatmap's
+        resize, placement and normalisation and the per-mask GEM scores are
+        batched; ``select_candidates`` branches on each sentence's flags in
+        Python and is looped. A sentence's selections and IoUs do not depend
+        on the sentences beside it."""
+        cfg, C = self.cfg, self.cfg.canonical_size
+        h, w = sample.h, sample.w
+        S = len(rows)
+        with self._span("sentence_stage"):
+            toks = torch.from_numpy(np.stack([r[0] for r in rows])).to(self.device)  # [S, 2 + K, L]
+            tf = encode_text(self.clip_params["text"], toks.reshape(-1, toks.shape[-1]), cfg.clip)
+            tf = tf.reshape(S, toks.shape[1], -1)
+            sent_f, np_f, other_f = tf[:, 0], tf[:, 1], tf[:, 2:]
+            r = cfg.guidance.r
+            ls = self.clip_params["logit_scale"]
+            score = calculate_score(feats, r * sent_f + (1 - r) * np_f, ls).T  # [S, P]
+            n_others = torch.tensor([r_[1] for r_ in rows], device=self.device)
+            k_mask = torch.arange(other_f.shape[1], device=self.device)[None, :] < n_others[:, None]
+            neg_sum = torch.where(k_mask[..., None], other_f, 0.0).sum(1)
+            neg_mean = torch.where((n_others > 0)[:, None], neg_sum / torch.clamp(n_others, min=1)[:, None], 0.0)
+            neg_norm = torch.clamp(torch.linalg.norm(neg_mean, dim=-1, keepdim=True), min=1e-6)
+            score_neg = (torch.exp(ls) * (feats / torch.linalg.norm(feats, dim=-1, keepdim=True)) @ (neg_mean / neg_norm).T).T
 
-        # GEM heatmap of the noun phrase, moved into the original (h, w)
-        # corner of the canonical frame with antialias=True (Hybridgl_main.py:201)
-        g = cfg.gem.img_size // cfg.clip.patch_size
-        npf_n = np_f / torch.clamp(torch.linalg.norm(np_f), min=1e-6)
-        rel = (gem_pf @ npf_n).reshape(g, g)
-        heat448 = resize_bilinear(rel, (cfg.gem.img_size, cfg.gem.img_size))
-        heat = place_valid_region_antialias(heat448, (C, C), (h, w))
-        vm = valid_mask((C, C), (h, w), self.device)
-        heat = normalize_heatmap(heat, vm, dir_flag)
-        gem_scores = gem_mask_scores(heat, props.masks, vm, black)
-        sel = select_candidates(
-            score, score_neg, box_xyxy_to_xywh(props.boxes_xyxy), gem_scores, props.valid,
-            rela_flag, has_other, k1, k2, alpha=cfg.guidance.alpha,
-        )
-        pure = mask_iou(props.masks[sel.pure_index], gt_mask)
-        final = mask_iou(props.masks[sel.final_index], gt_mask)
-        return sel, pure, final
+            g = cfg.gem.img_size // cfg.clip.patch_size
+            npf_n = np_f / torch.clamp(torch.linalg.norm(np_f, dim=-1, keepdim=True), min=1e-6)
+            rel = (gem_pf @ npf_n.T).reshape(g, g, S)  # the sentence axis rides as the channel axis
+            heat448 = resize_bilinear(rel, (cfg.gem.img_size, cfg.gem.img_size))
+            heat = place_valid_region_antialias(heat448, (C, C), (h, w)).movedim(-1, 0)  # [S, C, C]
+            vm = valid_mask((C, C), (h, w), self.device)
+            heat = normalize_heatmap(heat, vm, [r_[2] for r_ in rows])
+            black = torch.tensor([r_[4] for r_ in rows], dtype=torch.float32, device=self.device)
+            gem_scores = gem_mask_scores(heat, props.masks, vm, black)  # [S, P]
+            boxes = box_xyxy_to_xywh(props.boxes_xyxy)
+            sels = [
+                select_candidates(score[i], score_neg[i], boxes, gem_scores[i], props.valid, rows[i][3], rows[i][5],
+                                  k1, k2, alpha=cfg.guidance.alpha)
+                for i in range(S)
+            ]
+        results = []
+        for sentence, sel in zip(sample.sentences, sels):
+            pure = mask_iou(props.masks[sel.pure_index], gt)
+            final = mask_iou(props.masks[sel.final_index], gt)
+            if sample.gt_mask is not None:
+                state.pure = accumulate(state.pure, pure)
+                state.final = accumulate(state.final, final)
+            results.append(SentenceResult(sentence, sel.pure_index, sel.final_index, float(pure[2]), float(final[2])))
+        return results
 
     # --------------------------------------------------------------- host
     def _tokenize_parsed(self, parsed: ParsedExpression):
@@ -348,17 +378,9 @@ class HybridGLPipeline:
         )
         with self._span("parse+tokenize"):
             rows = [self._row(sentence) for sentence in sample.sentences]
-        results = []
-        for sentence, row in zip(sample.sentences, rows):
-            with self._span("sentence_stage"):
-                sel, pure, final = self._sentence_stage(props, feats, gem_pf, sample.h, sample.w, row, k1, k2, gt)
-            if has_gt:
-                state.pure = accumulate(state.pure, pure)
-                state.final = accumulate(state.final, final)
-            results.append(
-                SentenceResult(sentence, sel.pure_index, sel.final_index, float(pure[2]), float(final[2]))
-            )
-        return results
+        if not rows:
+            return []
+        return self._sentence_stage(sample, props, feats, gem_pf, rows, k1, k2, gt, state)
 
 
 def materialize_results(results: List[SentenceResult]) -> List[SentenceResult]:

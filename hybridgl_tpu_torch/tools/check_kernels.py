@@ -8,11 +8,16 @@ around a batch of back-to-back calls, :func:`time_ms`). K3 and K4 have two
 kernels each: the tensor-core one is checked at B = 64 and 128, the
 CUDA-core one in bf16 at a shape the tensor-core dispatch refuses (ragged S,
 m = 2) and in f32 at half width (at full width its f32 operands do not fit
-in shared memory). K5 and K6 have two each as well: K5's tensor-core kernel
+in shared memory), and both are held at SamPredictor's shapes (B = 1: K3 at 7
+tokens and, on its split route, at 9; K4 at m = 3 and 1). K5 and K6 have two each as well: K5's tensor-core kernel
 at the three served windows in bf16, its CUDA-core kernel in f32 and in bf16
 at n = 200, which the tensor-core dispatch refuses; K6's tensor-core kernel
 at [1536, 197, 64] in bf16 with query row 0 (the only biased row) also held
-on its own, its CUDA-core kernel in f32 and at hd = 32. Each time stands beside the kernel's
+on its own, its CUDA-core kernel in f32 and at hd = 32. K10 likewise: its
+tensor-core kernel at both shapes in bf16, its CUDA-core kernel in f32 and in
+bf16 at n = 200, with the time of ``half_transform`` + K5 on the same inputs
+beside it (no single PyTorch call computes K10; that pair is the port's other
+route to the same numbers). Each time stands beside the kernel's
 bound, the least time the card could take for the same work
 (:func:`kernel_work` and :func:`bound_ms`: operations over the bf16
 tensor-core peak or bytes over the memory rate, whichever is larger), and,
@@ -52,6 +57,8 @@ import sys
 
 import torch
 
+from ..utils.flops import PEAK_FLOPS_BY_DEVICE
+
 # name -> (CUDA source of the kernel the main path launches, the TPU kernel it replaces)
 KERNELS = {
     "flash_windowed_fused": ("hybridgl_tpu_torch/csrc/attention_wgmma.cu", "hybridgl_tpu/kernels/flash_attention.py:276"),
@@ -63,12 +70,13 @@ KERNELS = {
     "i2t_ln_update": ("hybridgl_tpu_torch/csrc/decoder_attn_wgmma.cu", "hybridgl_tpu/kernels/decoder_attn.py:95"),
     "t2i_ctx": ("hybridgl_tpu_torch/csrc/decoder_attn_wgmma.cu", "hybridgl_tpu/kernels/decoder_attn_t2i.py:82"),
     "flash_attention_rel_pos": ("hybridgl_tpu_torch/csrc/attention_wgmma.cu", "hybridgl_tpu/kernels/flash_attention.py:78"),
-    "pass1_stats": ("hybridgl_tpu_torch/csrc/pass1_stats.cu", "hybridgl_tpu/kernels/pass1_stats.py:152"),
+    "pass1_stats": ("hybridgl_tpu_torch/csrc/pass1_stats_wgmma.cu", "hybridgl_tpu/kernels/pass1_stats.py:152"),
 }
 
 
-# published peaks of one H100 SXM: dense bf16 on the tensor cores, HBM3
-PEAK_BF16_FLOPS = 989e12
+# published peaks of one H100 SXM: dense bf16 on the tensor cores (the
+# FLOP model's table), HBM3
+PEAK_BF16_FLOPS = PEAK_FLOPS_BY_DEVICE["NVIDIA H100"]
 PEAK_BYTES_PER_S = 3.35e12
 
 
@@ -95,7 +103,7 @@ def kernel_work(name: str, **d) -> tuple[int, int]:
         if name == "pass1_stats_half":  # tmp's window columns, Wy's window rows
             return 2 * B * dh * dw * n, B * n * dw * e + dh * n * e + out
         n2 = d["n2"]
-        return 2 * B * n * n2 * dw + 2 * B * dh * dw * n, B * n * n2 * 4 + n2 * dw * 4 + dh * n * 4 + out
+        return 2 * B * n * n2 * dw + 2 * B * dh * dw * n, B * n * n2 * e + n2 * dw * e + dh * n * e + out
     if name in ("i2t_ln_then_t2i", "i2t_ln_update", "t2i_ctx"):
         B, S, C, Cq, GT, e = d["B"], d["S"], d["C"], d["Cq"], d["GT"], d.get("esize", 2)
         rows = 1 if d.get("shared") else B
@@ -317,6 +325,7 @@ def _pass1(run: _Run):
         reference_pass1_stats_half,
         stats_dtype,
         variant,
+        variant_full,
     )
     from ..kernels.resize import _composed_axis_weights
 
@@ -370,17 +379,32 @@ def _pass1(run: _Run):
                            f"({kind}) [{Bc}, {tmp.shape[1]}, {Wy_.shape[0]}] {note} {tag}",
                            dict(B=Bc, n=tmp.shape[1], C=Wy_.shape[0], dh=int(win[2]), dw=int(win[3]),
                                 esize=tmp.element_size()))
-            for (low_, WxT_, Wy_, win, note) in ((low_r, WxT_r, Wy_r, win_r, f"B = {Br}, C = {Cr}"),
-                                                 (low, Wx.T, Wy, window, f"B = {Bc}, C = {C}")):
-                kernel = lambda: pass1_stats(low_, WxT_, Wy_, win, 0.0, 1.0)  # noqa: E731
-                plain = lambda: reference_pass1_stats_half(  # noqa: E731
-                    half_transform(low_, WxT_), Wy_.to(stats_dtype()), win, 0.0, 1.0)
-                ok, err = _stats_verdict(run, f"pass1_stats ({note}, {tag})", kernel(), plain(), not bf16)
-                if bf16:
-                    run.record("pass1_stats", ok, err, kernel, plain, f"low [{low_.shape[0]}, {n}, {n}] {note} bf16",
-                               dict(B=low_.shape[0], n=n, n2=n, C=Wy_.shape[0], dh=int(win[2]), dw=int(win[3]), esize=2))
-                else:
-                    run.results["pass1_stats"]["ok"] &= ok
+            full = [(low_r, WxT_r, Wy_r, win_r, f"B = {Br}, C = {Cr}", "wgmma"),
+                    (low, Wx.T.contiguous(), Wy, window, f"B = {Bc}, C = {C}", "wgmma")]
+            if bf16:
+                full.append((low_n, Wx_n.T.contiguous(), Wy_n, window, f"n = {n_r}, C = {C}", "cuda-core"))
+            for (low_, WxT_, Wy_, win, note, want_kind) in full:
+                dt = stats_dtype()
+                low_d, WxT_d, Wy_d = low_.to(dt), WxT_.to(dt), Wy_.to(dt)
+                kind = variant_full(dt, low_.shape[1], low_.shape[2], Wy_.shape[0])
+                want_kind = want_kind if bf16 else "cuda-core"
+                kernel = lambda: pass1_stats(low_d, WxT_d, Wy_d, win, 0.0, 1.0)  # noqa: E731
+                plain = lambda: reference_pass1_stats_half(half_transform(low_d, WxT_d), Wy_d, win, 0.0, 1.0)  # noqa: E731
+                label = f"pass1_stats ({kind}, {note}, {tag})"
+                tc0 = pass1_stats.tc_launches
+                got = kernel()
+                took = "wgmma" if pass1_stats.tc_launches > tc0 else "cuda-core"
+                ok_v = run.verdict(f"{label} kernel", kind == want_kind and took == want_kind, f"{kind}, launched {took}")
+                ok, err = _stats_verdict(run, label, got, plain(), not bf16)
+                run.record("pass1_stats", ok and ok_v, err, kernel, plain,
+                           f"({kind}) low [{low_.shape[0]}, {low_.shape[1]}, {low_.shape[2]}] {note} {tag}",
+                           dict(B=low_.shape[0], n=low_.shape[1], n2=low_.shape[2], C=Wy_.shape[0], dh=int(win[2]),
+                                dw=int(win[3]), esize=low_d.element_size()))
+                # the port's other route to the same numbers: one matmul, then K5
+                pair = time_ms(lambda: pass1_stats_half(half_transform(low_d, WxT_d), Wy_d, win, 0.0, 1.0))
+                run.log(f"  pass1_stats {note} {tag}: half_transform + pass1_stats_half {pair:.3f} ms")
+                if bf16 and want_kind == "wgmma":
+                    run.results["pass1_stats"].setdefault("pair_ms", pair)
     finally:
         if saved is None:
             os.environ.pop("HYBRIDGL_STATS_BF16", None)
@@ -390,7 +414,7 @@ def _pass1(run: _Run):
 
 def _i2t_ops(run: _Run, B, Cq, C=256, heads=8, tp=8, T=7, dtype=torch.bfloat16):
     """Token-side operands of K3/K7 at SAM's decoder widths: w [B, Cq, 64]
-    f32, off (-1e30 on the padding lane t = 7), vo [B, 64, C], const/LN."""
+    f32, off (-1e30 on the padding lanes t >= T), vo [B, 64, C], const/LN."""
     f32 = torch.float32
     off = run.randn(B, heads, tp, std=0.5, dtype=f32)
     off[:, :, T:] = -1e30
@@ -399,27 +423,40 @@ def _i2t_ops(run: _Run, B, Cq, C=256, heads=8, tp=8, T=7, dtype=torch.bfloat16):
                 ln_scale=1.0 + run.randn(C, std=0.1, dtype=f32), ln_bias=run.randn(C, std=0.1, dtype=f32))
 
 
-def _check_pass(run: _Run, label, B, S, shared, want_kind, C=256, dtype=torch.bfloat16):
+def _check_pass(run: _Run, label, B, S, shared, want_kind, C=256, dtype=torch.bfloat16, tp=8, T=7):
     """K3 in one operand form (pass A: shared once-projected queries [1, S,
     C/2], raw image and pe [1, S, C]; pass B: per-prompt keys [B, S, C])
-    against its plain version; asserts the kernel the dispatch chose."""
+    against its plain version; asserts the route the dispatch chose
+    (``pass_route``) and the launches the call counted: one, or on the split
+    route (tp = 16: T tokens over 8) one I2T launch on the CUDA cores and one
+    T2I launch per 64 context columns on the tensor cores."""
     from ..kernels.decoder_attn import PASS, variant
-    from ..kernels.decoder_pass import i2t_ln_then_t2i, reference_i2t_ln_then_t2i
+    from ..kernels.decoder_pass import i2t_ln_then_t2i, pass_route, reference_i2t_ln_then_t2i, split_columns
 
     Cq = C // 2 if shared else C
+    GT = 8 * tp
     pe = run.randn(1, S, C, dtype=dtype)
-    ops = _i2t_ops(run, B, Cq, C, dtype=dtype)
+    ops = _i2t_ops(run, B, Cq, C, tp=tp, T=T, dtype=dtype)
     qside = run.randn(1 if shared else B, S, Cq, dtype=dtype)
     base = run.randn(1, S, C, dtype=dtype) if shared else qside
-    qw = run.randn(B, C, 64, std=C**-0.5 * 2, dtype=torch.float32)
-    kind, smem = variant(PASS, dtype, S, Cq, C, 8, 8, 64, not shared, not shared)
+    qw = run.randn(B, C, GT, std=C**-0.5 * 2, dtype=torch.float32)
+    qw.reshape(B, C, 8, tp)[..., T:] = 0.0  # the padding lanes' columns
+    kind = pass_route(dtype, S, Cq, C, 8, tp, GT, shared)
+    smem = variant(PASS, dtype, S, Cq, C, 8, tp, GT, not shared, not shared)[1]
+    parts = GT // split_columns(C, GT)
+    want_counts = {"wgmma": (1, 1), "cuda-core": (1, 0), "split": (1 + parts, parts)}[kind]
 
     def call(fn):
-        return fn(qside, base, pe, **ops, qw_next=qw, heads=8, tp=8, shared_qside=shared)
+        return fn(qside, base, pe, **ops, qw_next=qw, heads=8, tp=tp, shared_qside=shared)
 
-    (keys, ctx), (keys0, ctx0) = call(i2t_ln_then_t2i), call(reference_i2t_ln_then_t2i)
+    before = (i2t_ln_then_t2i.launches, i2t_ln_then_t2i.tc_launches)
+    keys, ctx = call(i2t_ln_then_t2i)
+    counted = (i2t_ln_then_t2i.launches - before[0], i2t_ln_then_t2i.tc_launches - before[1])
+    keys0, ctx0 = call(reference_i2t_ln_then_t2i)
     torch.cuda.synchronize()
-    ok_v = run.verdict(f"i2t_ln_then_t2i {label} kernel", kind == want_kind, f"{kind}, {smem} bytes of shared memory")
+    ok_v = run.verdict(f"i2t_ln_then_t2i {label} kernel", kind == want_kind and counted == want_counts,
+                       f"{kind}, {smem} bytes of shared memory for one PASS block, launches {counted[0]} "
+                       f"({counted[1]} on the tensor cores)")
     ok_k, err_k = run.attention(f"i2t_ln_then_t2i {label} keys'", keys, keys0)
     ok_c, err_c = run.attention(f"i2t_ln_then_t2i {label} ctx", ctx, ctx0)
     del keys, ctx, keys0, ctx0
@@ -427,7 +464,7 @@ def _check_pass(run: _Run, label, B, S, shared, want_kind, C=256, dtype=torch.bf
     run.record("i2t_ln_then_t2i", ok_v and ok_k and ok_c, max(err_k, err_c), lambda: call(i2t_ln_then_t2i),
                lambda: call(reference_i2t_ln_then_t2i),
                f"{label} ({kind}) B = {B}, qside [{qside.shape[0]}, {S}, {Cq}] {name}",
-               dict(B=B, S=S, C=C, Cq=Cq, GT=64, shared=shared, esize=qside.element_size()))
+               dict(B=B, S=S, C=C, Cq=Cq, GT=GT, shared=shared, esize=qside.element_size()))
 
 
 def _check_upscale(run: _Run, label, B, m, want_kind, S=4096, C=256, dtype=torch.bfloat16):
@@ -460,8 +497,9 @@ def _check_upscale(run: _Run, label, B, m, want_kind, S=4096, C=256, dtype=torch
 def _decoder(run: _Run):
     """K3, K7, K8 and K4 at full width: C = 256, 8 heads, tp = 8 (GT = 64),
     S = 4096; B = 64 (a pass-1 chunk) and 128 for K3/K4, B = 128 (PhraseCut's
-    pass 2) for K7/K8. The JSON line keeps the first geometry of each
-    kernel: K3 pass B at B = 64, K4 at B = 64, m = 3."""
+    pass 2) for K7/K8, and B = 1 (SamPredictor: K3 at 7 and at 9 tokens, K4 at
+    m = 3 and 1). The JSON line keeps the first geometry of each kernel: K3
+    pass B at B = 64, K4 at B = 64, m = 3."""
     from ..kernels.decoder_attn import i2t_ln_update, reference_i2t_ln_update
     from ..kernels.decoder_attn_t2i import reference_t2i_ctx, t2i_ctx
 
@@ -475,6 +513,12 @@ def _decoder(run: _Run):
     _check_pass(run, "pass A, B = 128", 128, S, True, "wgmma")
     _check_pass(run, "pass B, ragged S", 64, S - 32, False, "cuda-core")
     _check_pass(run, "pass B, f32 at C = 128", 128, S, False, "cuda-core", C=128, dtype=f32)
+    # SamPredictor's shapes: one prompt; a point or a box alone gives 7 tokens
+    # (tp = 8), a box with two points 9 (tp = 16): the split route
+    _check_pass(run, "pass B, B = 1", 1, S, False, "wgmma")
+    _check_pass(run, "pass A, B = 1", 1, S, True, "wgmma")
+    _check_pass(run, "pass B, B = 1, 9 tokens", 1, S, False, "split", tp=16, T=9)
+    _check_pass(run, "pass A, B = 1, 9 tokens", 1, S, True, "split", tp=16, T=9)
     torch.cuda.empty_cache()
 
     # K7 and K8 at PhraseCut's pass 2: P = 128 survivors, per-prompt keys
@@ -510,6 +554,8 @@ def _decoder(run: _Run):
     _check_upscale(run, "B = 64, m = 3", 64, 3, "wgmma")
     _check_upscale(run, "B = 128, m = 3", 128, 3, "wgmma")
     _check_upscale(run, "B = 128, m = 1", 128, 1, "wgmma")
+    _check_upscale(run, "B = 1, m = 3", 1, 3, "wgmma")  # SamPredictor, multimask_output both ways
+    _check_upscale(run, "B = 1, m = 1", 1, 1, "wgmma")
     _check_upscale(run, "B = 64, m = 2", 64, 2, "cuda-core")
     _check_upscale(run, "B = 128, f32 at C = 128", 128, 3, "cuda-core", C=128, dtype=f32)
 

@@ -1,17 +1,19 @@
-"""Take-one-thing-out timings of the tensor-core kernels K3, K4 and K5.
+"""Take-one-thing-out timings of the tensor-core kernels K3, K4, K5 and K10.
 
 Each variant rebuilds the kernel library with one compile-time switch of
 ``csrc/decoder_attn_wgmma.cu``, ``csrc/upscale_hyper_wgmma.cu`` or
 ``csrc/pass1_stats_wgmma.cu`` set to 0 (the products, the GELU or the
 thresholds, the stores to device memory, the tile fetches) and times K3 pass
 B, K3 pass A and K4 at B = 64, and K5 at 192 candidates (the RefCOCO window
-at C = 640 and PhraseCut's layer-1 crop window at C = 1024), with
+at C = 640 and PhraseCut's layer-1 crop window at C = 1024), and K10 at the
+kernel check's two shapes (48 x [256, 256] to C = 1024 and 192 x [256, 256]
+to C = 640) with its column transform's products or its sweep skipped, with
 :func:`check_kernels.time_ms`. A variant's results are wrong by design; only
 its time is read, against the unchanged build's in the same run, to see what
 the kernels pay for. Each variant runs in a process of its own (the library
 is loaded once per process). Needs a CUDA card.
 
-    python -m hybridgl_tpu_torch.tools.take_one_out [K3] [K4] [K5]   (default: all)
+    python -m hybridgl_tpu_torch.tools.take_one_out [K3] [K4] [K5] [K10]   (default: all)
 """
 
 from __future__ import annotations
@@ -31,8 +33,10 @@ VARIANTS = (
     ("K5 products skipped", ["-DHGL_K5_MMA=0"]),
     ("K5 thresholds skipped", ["-DHGL_K5_THRESH=0"]),
     ("K5 Wy tiles fetched once", ["-DHGL_K5_FETCH=0"]),
+    ("K10 transform's products skipped", ["-DHGL_K10_TRANSFORM=0"]),
+    ("K10 sweep skipped", ["-DHGL_K10_SWEEP=0"]),
 )
-KERNEL_IDS = ("K3", "K4", "K5")
+KERNEL_IDS = ("K3", "K4", "K5", "K10")
 
 
 def _child(flags: list[str]) -> None:
@@ -40,7 +44,7 @@ def _child(flags: list[str]) -> None:
 
     from ..kernels import _build
     from ..kernels.decoder_pass import i2t_ln_then_t2i
-    from ..kernels.pass1_stats import half_transform, pass1_stats_half
+    from ..kernels.pass1_stats import half_transform, pass1_stats, pass1_stats_half
     from ..kernels.resize import _composed_axis_weights
     from ..kernels.upscale_hyper import upscale_hyper
     from .check_kernels import _i2t_ops, _Run, _smooth_logits, time_ms
@@ -50,7 +54,7 @@ def _child(flags: list[str]) -> None:
     f32, B, S, C = torch.float32, 64, 4096, 256
     pe = run.randn(1, S, C)
     times = {}
-    touched = [k for k in KERNEL_IDS if any(k in f for f in flags)] or list(KERNEL_IDS)
+    touched = [k for k in KERNEL_IDS if any(f"HGL_{k}_" in f for f in flags)] or list(KERNEL_IDS)
     # K5: check_kernels' RefCOCO window and PhraseCut layer-1 crop window
     low = _smooth_logits(run, 192, 256)
     for label, Cc, frame_h, win in (("K5 C = 640", 640, 768, (0, 0, 480, 640)),
@@ -62,6 +66,16 @@ def _child(flags: list[str]) -> None:
         Wx = _composed_axis_weights(Cc, 256, 1024, 1024, win[1], win[3], run.dev)
         tmp = half_transform(low, Wx.T)
         times[label] = time_ms(lambda: pass1_stats_half(tmp, Wy, win, 0.0, 1.0))
+    # K10: check_kernels' two shapes (48 candidates with soft weights, the RefCOCO window)
+    for label, B, Cc, frame_h, win in (("K10 B = 48, C = 1024", 48, 1024, 768, (17, 5, 451, 633)),
+                                       ("K10 B = 192, C = 640", 192, 640, 768, (0, 0, 480, 640))):
+        if "K10" not in touched:
+            times[label] = float("nan")
+            continue
+        Wy = _composed_axis_weights(Cc, 256, 1024, frame_h, win[0], win[2], run.dev).bfloat16()
+        WxT = _composed_axis_weights(Cc, 256, 1024, 1024, win[1], win[3], run.dev).T.contiguous().bfloat16()
+        low_b = low[:B].bfloat16()
+        times[label] = time_ms(lambda: pass1_stats(low_b, WxT, Wy, win, 0.0, 1.0))
     if "K3" not in touched and "K4" not in touched:
         print("TIMES " + ", ".join(f"{k} {v:.3f} ms" for k, v in times.items()), flush=True)
         return
@@ -98,7 +112,7 @@ def main(argv=None) -> int:
     print(f"card: {smi}", flush=True)
     wanted = [a for a in argv if a in KERNEL_IDS] or list(KERNEL_IDS)
     for name, flags in VARIANTS:
-        if flags and not any(k in name for k in wanted):
+        if flags and name.split()[0] not in wanted:
             continue
         done = subprocess.run([sys.executable, "-m", "hybridgl_tpu_torch.tools.take_one_out", "--child", *flags],
                               capture_output=True, text=True)

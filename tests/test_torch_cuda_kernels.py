@@ -675,3 +675,193 @@ def test_k5_k6_variant_functions_mirror_the_c_dispatch(dev):
         for hd in (16, 32, 64, 80):
             assert (k6.variant(BF16, L, hd) == "wgmma") == bool(lib.hgl_cls_tc_takes(L, hd))
             assert k6.variant(torch.float32, L, hd) == "cuda-core"
+
+
+# ---- K10 on its tensor-core kernel (bf16), beside the CUDA-core one ----
+
+
+K10_SHAPES = [
+    # B, n, n2, C, window (y0, x0, dh, dw)
+    (7, 256, 256, 640, (0, 0, 480, 640)),      # the check's RefCOCO shape: four tiles of low, five strips
+    (3, 256, 256, 1024, (17, 5, 451, 633)),    # the reference check's window; the last three strips leave at once
+    (1, 256, 256, 640, (0, 0, 480, 640)),      # B = 1
+    (5, 16, 16, 136, (3, 5, 61, 40)),          # one wgmma K step in both products; one tile of low, mostly padding
+    (5, 48, 32, 320, (63, 127, 2, 2)),         # n2 < n; a 2 x 2 window across a tile corner
+    (4, 240, 256, 264, (130, 250, 134, 14)),   # the last tile of low holds 48 rows; the last strip 8 live columns
+    (4, 64, 256, 200, (0, 0, 128, 128)),       # n2 > n: the staged operands outgrow the Wy buffers of n alone
+    (2, 128, 112, 8, (0, 0, 8, 8)),            # C = 8: one chunk of one strip; one tile per warpgroup
+    (3, 192, 16, 72, (10, 0, 50, 72)),         # three tiles of low: the warpgroups take two and one
+]
+
+
+def _k10_inputs(dev, B, n, n2, C, window, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    low = torch.randn((B, n, n2), generator=g, device=dev) * 2.0
+    Wy = _composed_axis_weights(C, n, 2 * C, 2 * C - 26, window[0], window[2], dev)
+    WxT = _composed_axis_weights(C, n2, 2 * C, 2 * C - 10, window[1], window[3], dev).T.contiguous()
+    return low, WxT, Wy
+
+
+@pytest.mark.parametrize("bf16", ["1", "0"])
+@pytest.mark.parametrize("B,n,n2,C,window", K10_SHAPES)
+def test_pass1_stats_full_both_kernels(dev, monkeypatch, bf16, B, n, n2, C, window):
+    """Short and ragged shapes: bf16 on the tensor-core kernel, f32 on the
+    CUDA-core kernel, each against half_transform + the plain stats: stability
+    |d| <= 1e-3 (bf16) or 1e-4 (f32), box edges within 1 px (bf16) or equal
+    (f32), and no flag outside the window at all."""
+    from hybridgl_tpu_torch.kernels import pass1_stats as mod
+    from hybridgl_tpu_torch.kernels.masks import box_from_profiles
+
+    monkeypatch.setenv("HYBRIDGL_STATS_BF16", bf16)
+    dt = torch.bfloat16 if bf16 == "1" else torch.float32
+    assert mod.variant_full(dt, n, n2, C) == ("wgmma" if bf16 == "1" else "cuda-core")
+    low, WxT, Wy = _k10_inputs(dev, B, n, n2, C, window, seed=n + n2 + C)
+    before = (pass1_stats.launches, pass1_stats.tc_launches)
+    s, r, c = pass1_stats(low, WxT, Wy, window, 0.0, 1.0)
+    torch.cuda.synchronize()
+    assert pass1_stats.launches == before[0] + 1
+    assert pass1_stats.tc_launches == before[1] + int(bf16 == "1")
+    s0, r0, c0 = reference_pass1_stats_half(half_transform(low, WxT), Wy.to(dt), window, 0.0, 1.0)
+    assert r0.any() and c0.any()
+    assert torch.isfinite(s).all()
+    assert float((s - s0).abs().max()) <= (1e-3 if bf16 == "1" else 1e-4)
+    db = float((box_from_profiles(r, c) - box_from_profiles(r0, c0)).abs().max())
+    assert db <= (1.0 if bf16 == "1" else 0.0)
+    y0, x0, dh, dw = window
+    idx = torch.arange(C, device=dev)
+    assert not r[:, (idx < y0) | (idx >= y0 + dh)].any()
+    assert not c[:, (idx < x0) | (idx >= x0 + dw)].any()
+
+
+@pytest.mark.parametrize("n,n2", [(32, 48), (256, 256), (240, 16)])
+def test_pass1_stats_full_tensor_core_equals_k5_on_its_own_tmp(dev, n, n2):
+    """With small integer operands every f32 sum is exact, so the strip the
+    kernel computes is the tmp that half_transform computes bit for bit, and
+    K10 must equal K5 on that tmp exactly: counts, row flags, column flags. A
+    wrong index in the fragment-to-strip store cannot pass."""
+    B, C, window = 4, 392, (9, 130, 300, 201)
+    g = torch.Generator(device=dev).manual_seed(n * n2)
+    low = torch.randint(-3, 4, (B, n, n2), generator=g, device=dev).float()
+    WxT = torch.randint(-2, 3, (n2, C), generator=g, device=dev).float()
+    WxT = WxT * (torch.rand((n2, C), generator=g, device=dev) < 0.1)  # sparse: |tmp| stays under 256, exact in bf16
+    Wy = torch.randint(-2, 3, (C, n), generator=g, device=dev).float()
+    tmp = half_transform(low, WxT)
+    assert torch.equal(tmp.float(), low @ WxT)  # nothing was rounded
+    before = pass1_stats.tc_launches
+    got = pass1_stats(low, WxT, Wy, window, 0.5, 3.0)
+    want = pass1_stats_half(tmp, Wy, window, 0.5, 3.0)
+    plain = reference_pass1_stats_half(tmp, Wy.bfloat16(), window, 0.5, 3.0)
+    torch.cuda.synchronize()
+    assert pass1_stats.tc_launches == before + 1
+    assert plain[1].any() and plain[2].any()
+    for a, b_, p in zip(got, want, plain):
+        assert torch.equal(a, b_) and torch.equal(a, p)
+
+
+@pytest.mark.parametrize("axis", ["rows", "columns", "hot column"])
+@pytest.mark.parametrize("sign", ["outside", "inside"])
+def test_pass1_stats_full_tensor_core_masks_the_window(dev, axis, sign):
+    """Logits that pass the threshold only outside the window (along one axis)
+    must raise nothing; with the signs swapped the flags are exactly the
+    window. "hot column": WxT is positive in one column only (inside the window,
+    or just outside it), so the column flags are that column or nothing."""
+    B, n, n2, C, window = 3, 32, 48, 200, (21, 70, 90, 61)
+    y0, x0, dh, dw = window
+    idx = torch.arange(C, device=dev)
+    in_rows, in_cols = (idx >= y0) & (idx < y0 + dh), (idx >= x0) & (idx < x0 + dw)
+    low = torch.ones((B, n, n2), device=dev)
+    Wy = torch.ones((C, n), device=dev)
+    WxT = torch.ones((n2, C), device=dev)
+    if axis == "hot column":
+        hot = x0 + 37 if sign == "inside" else x0 + dw  # the first column past the window
+        WxT = torch.where(idx == hot, 1.0, -1.0)[None, :].expand(n2, C).contiguous()
+        want_cols = in_cols & (idx == hot)
+        want_rows = in_rows if sign == "inside" else torch.zeros_like(in_rows)
+    else:
+        live = in_rows if axis == "rows" else in_cols
+        pattern = torch.where(live if sign == "inside" else ~live, 1.0, -1.0)
+        if axis == "rows":
+            Wy = Wy * pattern[:, None]
+        else:
+            WxT = WxT * pattern[None, :]
+        want_rows = in_rows if sign == "inside" else torch.zeros_like(in_rows)
+        want_cols = in_cols if sign == "inside" else torch.zeros_like(in_cols)
+    before = pass1_stats.tc_launches
+    s, r, c = pass1_stats(low, WxT, Wy, window, 0.0, 1.0)
+    torch.cuda.synchronize()
+    assert pass1_stats.tc_launches == before + 1
+    assert torch.equal(r, want_rows.expand(B, C)) and torch.equal(c, want_cols.expand(B, C))
+    # |logit| = n * n2 > offset everywhere: hi = lo wherever anything passes
+    assert torch.equal(s, torch.full_like(s, float(bool(want_rows.any()))))
+
+
+def test_pass1_stats_full_tensor_core_repeats_and_refuses(dev):
+    """Integer atomics: the same call gives the same result bit for bit, with
+    many blocks in flight; n = 200 and f32 stay off the tensor-core kernel."""
+    low, WxT, Wy = _k10_inputs(dev, 96, 256, 256, 640, (0, 0, 480, 640), seed=1)
+    first = pass1_stats(low, WxT, Wy, (0, 0, 480, 640), 0.0, 1.0)
+    for _ in range(3):
+        again = pass1_stats(low, WxT, Wy, (0, 0, 480, 640), 0.0, 1.0)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+    before = pass1_stats.tc_launches
+    low, WxT, Wy = _k10_inputs(dev, 2, 200, 256, 640, (0, 0, 480, 640), seed=2)
+    pass1_stats(low, WxT, Wy, (0, 0, 480, 640), 0.0, 1.0)
+    assert pass1_stats.tc_launches == before
+
+
+def test_k10_variant_function_mirrors_the_c_dispatch(dev):
+    from hybridgl_tpu_torch.kernels import pass1_stats as k10
+
+    lib = _build.library()
+    for n in (8, 16, 48, 200, 256, 272):
+        for n2 in (8, 16, 40, 240, 256, 288):
+            for C in (4, 8, 100, 640):
+                assert (k10.variant_full(BF16, n, n2, C) == "wgmma") == bool(lib.hgl_pass1_stats_full_tc_takes(n, n2, C))
+                assert k10.variant_full(torch.float32, n, n2, C) == "cuda-core"
+    assert lib.hgl_pass1_stats_full_tc_smem(256, 256) == 256 * 768 <= 227 * 1024
+    assert lib.hgl_pass1_stats_full_tc_smem(64, 256) == 64 * 256 + 512 * 256
+
+
+# ---- K3 with more than 8 tokens a head at SAM's width: the split route ----
+
+
+@pytest.mark.parametrize("shared", [True, False])
+@pytest.mark.parametrize("B,T", [(1, 9), (3, 12)])
+def test_i2t_ln_then_t2i_split_route_at_full_width(dev, shared, B, T):
+    """A box with two or more points gives T >= 9 tokens, 16 lanes a head: at
+    C = 256 one block of the CUDA-core kernel holds neither the operands nor the
+    128 x 256 context sums, so the pass runs as its I2T mode and then its T2I
+    mode over two groups of 64 context columns; keys' and ctx at the kernel
+    check's attention bar; three launches counted, the two T2I ones on the
+    tensor cores."""
+    from hybridgl_tpu_torch.kernels import decoder_pass
+
+    S, tp = 4096, 16
+    g = torch.Generator(device=dev).manual_seed(100 * B + T)
+
+    def r(*shape, std=0.5, dtype=BF16):
+        return (torch.randn(shape, generator=g, device=dev) * std).to(dtype)
+
+    f32, GT = torch.float32, TC_HEADS * tp
+    Cq = TC_C // 2 if shared else TC_C
+    assert decoder_pass.pass_route(BF16, S, Cq, TC_C, TC_HEADS, tp, GT, shared) == "split"
+    off = r(B, TC_HEADS, tp, dtype=f32)
+    off[:, :, T:] = -1e30
+    ops = dict(w=r(B, Cq, GT, std=2 * Cq**-0.5, dtype=f32), off=off.reshape(B, GT), vo=r(B, GT, TC_C),
+               const=r(TC_C, std=0.1, dtype=f32), ln_scale=1.0 + r(TC_C, std=0.1, dtype=f32),
+               ln_bias=r(TC_C, std=0.1, dtype=f32))
+    qside = r(1 if shared else B, S, Cq)
+    base = r(1, S, TC_C) if shared else qside
+    pe = r(1, S, TC_C)
+    qw = r(B, TC_C, GT, std=2 * TC_C**-0.5, dtype=f32)
+    qw.reshape(B, TC_C, TC_HEADS, tp)[..., T:] = 0.0
+    before = (i2t_ln_then_t2i.launches, i2t_ln_then_t2i.tc_launches)
+    keys, ctx = i2t_ln_then_t2i(qside, base, pe, **ops, qw_next=qw, heads=TC_HEADS, tp=tp, shared_qside=shared)
+    assert (i2t_ln_then_t2i.launches, i2t_ln_then_t2i.tc_launches) == (before[0] + 3, before[1] + 2)
+    keys0, ctx0 = reference_i2t_ln_then_t2i(qside, base, pe, **ops, qw_next=qw, heads=TC_HEADS, tp=tp,
+                                            shared_qside=shared)
+    assert keys.shape == (B, S, TC_C) and ctx.shape == (B, GT, TC_C)
+    close_tc(keys, keys0)
+    close_tc(ctx, ctx0)
+    live = (torch.arange(GT, device=dev) % tp) < T  # the padding lanes' columns are weightless, not compared
+    close_tc(ctx[:, live], ctx0[:, live])

@@ -35,6 +35,9 @@ import importlib, pkgutil
 import hybridgl_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(hybridgl_tpu_torch.__path__, "hybridgl_tpu_torch.")]
 assert len(names) > 40, names
+for new in ("models.sam.predictor", "models.clip.resnet", "models.clip.preprocess", "pipeline.visual_prompts",
+            "kernels.connected", "utils.flops", "utils.buckets"):
+    assert "hybridgl_tpu_torch." + new in names, new
 for name in names:
     importlib.import_module(name)
 '''

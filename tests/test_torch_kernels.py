@@ -22,7 +22,7 @@ from hybridgl_tpu.kernels import resize as jresize
 from hybridgl_tpu_torch.kernels import blur, masks, nms, resize
 from hybridgl_tpu_torch.kernels.clip_attention import clip_attention
 from hybridgl_tpu_torch.kernels.flash_attention import flash_attention_fused, flash_windowed_fused
-from hybridgl_tpu_torch.kernels.pass1_stats import pass1_stats_half
+from hybridgl_tpu_torch.kernels.pass1_stats import pass1_stats, pass1_stats_half
 
 TOL = 1e-4
 
@@ -172,6 +172,47 @@ def test_k5_pass1_stats_half_ragged_windows_match_jax(monkeypatch, bf16, B, n, C
     assert not c1[:, (idx < x0) | (idx >= x0 + dw)].any()
 
 
+# K10 at the shapes of its card tests: the plain version (half_transform, then
+# the plain stats) is the card's yardstick, so here it is held to the JAX
+# kernel's full mode in interpret mode
+RAGGED_K10 = [
+    # B, n, n2, C, window (y0, x0, dh, dw)
+    (5, 16, 16, 136, (3.0, 5.0, 61, 40)),
+    (5, 48, 32, 320, (63.0, 127.0, 20, 30)),
+    (4, 240, 256, 264, (130.0, 100.0, 134, 140)),
+    (4, 64, 256, 200, (0.0, 0.0, 128, 128)),
+    (3, 192, 16, 72, (10.0, 0.0, 50, 72)),
+]
+
+
+@pytest.mark.parametrize("bf16", ["0", "1"])
+@pytest.mark.parametrize("B,n,n2,C,window", RAGGED_K10)
+def test_k10_pass1_stats_ragged_shapes_match_jax(monkeypatch, bf16, B, n, n2, C, window):
+    """Smooth decoder-like logits through both packages. f32 stats: equal
+    boxes, stability |d| <= 1e-4. bf16 stats (operands and tmp rounded on
+    both sides): stability |d| <= 1e-3, box edges within 1 px. No flag outside
+    the window in either."""
+    monkeypatch.setenv("HYBRIDGL_STATS_BF16", bf16)
+    rng = np.random.default_rng(n + n2 + C)
+    y0, x0, dh, dw = window
+    coarse = torch.from_numpy(rng.standard_normal((B, 1, 5, 5)).astype(np.float32) * 6.0)
+    low = torch.nn.functional.interpolate(coarse, size=(n, n2), mode="bilinear")[:, 0].numpy()
+    low = low + rng.standard_normal((B, n, n2)).astype(np.float32) * 0.1
+    Wy = np.asarray(jresize._composed_axis_weights(C, n, 2 * C, 2 * C - 26, y0, dh))
+    WxT = np.ascontiguousarray(np.asarray(jresize._composed_axis_weights(C, n2, 2 * C, 2 * C - 10, x0, dw)).T)
+    s0, r0, c0 = (np.asarray(a) for a in jstats.pass1_stats(
+        jnp.asarray(low), jnp.asarray(WxT), jnp.asarray(Wy), window, 0.0, 1.0))
+    s1, r1, c1 = (a.numpy() for a in pass1_stats(t(low), t(WxT), t(Wy), window, 0.0, 1.0))
+    assert r0.any() and c0.any()
+    edges = np.abs(masks.box_from_profiles(t(r1), t(c1)).numpy()
+                   - masks.box_from_profiles(t(np.array(r0 > 0)), t(np.array(c0 > 0))).numpy()).max()
+    assert np.abs(s1 - s0).max() <= (1e-4 if bf16 == "0" else 1e-3)
+    assert edges <= (0.0 if bf16 == "0" else 1.0)
+    idx = np.arange(C)
+    assert not r1[:, (idx < y0) | (idx >= y0 + dh)].any()
+    assert not c1[:, (idx < x0) | (idx >= x0 + dw)].any()
+
+
 @pytest.mark.parametrize("with_bias", [True, False])
 @pytest.mark.parametrize("L,hd", [(50, 64), (197, 64), (65, 16)])
 def test_k6_clip_attention_lengths_match_jax(L, hd, with_bias):
@@ -290,6 +331,22 @@ def test_k5_variant(dtype, n, C, kind):
     assert mod.variant(dtype, n, C) == kind
 
 
+@pytest.mark.parametrize("dtype,n,n2,C,kind", [
+    (torch.bfloat16, 256, 256, 640, "wgmma"), (torch.bfloat16, 256, 256, 1024, "wgmma"),
+    (torch.bfloat16, 16, 16, 8, "wgmma"), (torch.bfloat16, 64, 256, 200, "wgmma"), (torch.bfloat16, 240, 48, 72, "wgmma"),
+    (torch.float32, 256, 256, 640, "cuda-core"),  # f32 stats are held to equal boxes: the f32 kernel stays
+    (torch.bfloat16, 200, 256, 640, "cuda-core"),  # K5's limits on n and C hold for the sweep
+    (torch.bfloat16, 256, 256, 100, "cuda-core"),
+    (torch.bfloat16, 256, 200, 640, "cuda-core"),  # the column transform's contraction: whole 16-deep steps
+    (torch.bfloat16, 256, 8, 640, "cuda-core"),
+    (torch.bfloat16, 64, 272, 640, "cuda-core"),  # the staged WxT strip and low tiles would not fit
+])
+def test_k10_variant(dtype, n, n2, C, kind):
+    from hybridgl_tpu_torch.kernels import pass1_stats as mod
+
+    assert mod.variant_full(dtype, n, n2, C) == kind
+
+
 @pytest.mark.parametrize("dtype,L,hd,kind", [
     (torch.bfloat16, 197, 64, "wgmma"), (torch.bfloat16, 50, 64, "wgmma"), (torch.bfloat16, 256, 80, "wgmma"),
     (torch.float32, 197, 64, "cuda-core"), (torch.bfloat16, 197, 32, "cuda-core"),
@@ -305,7 +362,8 @@ def test_tensor_core_launch_counts_reset_with_the_others():
     from hybridgl_tpu_torch.kernels import kernel_wrappers, launch_counts, reset_launch_counts, tc_launch_counts
 
     wrappers = kernel_wrappers()
-    assert set(tc_launch_counts()) == {"pass1_stats_half", "clip_attention"}
+    assert set(tc_launch_counts()) == {"pass1_stats_half", "pass1_stats", "clip_attention", "i2t_ln_then_t2i",
+                                       "i2t_ln_update", "t2i_ctx", "upscale_hyper_blocked"}
     wrappers["pass1_stats_half"].launches = wrappers["pass1_stats_half"].tc_launches = 3
     reset_launch_counts()
     assert not any(launch_counts().values()) and not any(tc_launch_counts().values())
