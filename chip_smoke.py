@@ -69,7 +69,28 @@ Phases (every phase asserts; any failure exits non-zero):
      then one RefCOCO image's own proposals, through the runner's host pass
      (the native library) and through kernels/connected.py on the card
      (plain PyTorch; the runner does not call it): equal masks, boxes and
-     validity, both times.
+     validity, both times;
+ 12. data parallel on the card: (a) the CLI with --data_parallel at world 1
+     over nccl at full width on phase 8's synthetic REFER tree gives the
+     sequential CLI's result log and parity records (equal indices, IoUs |d| <
+     1e-5); (b) two ranks on cuda:0 over gloo: build_full_eval_step(sticky) +
+     finalize_sticky on four full-width RefCOCO images against run_image over
+     the same four in order: equal k1/k2 and selections, accumulators to rtol
+     1e-5, each rank's K1-K6 launch counts, ms/img of both;
+ 13. tensor-parallel encoder on the card: mp = 2 on cuda:0 over gloo, ViT-H
+     in bf16, against encode_image in one process: cos > 0.999, K1 x 28 and K2
+     x 4 a rank (8 heads each), every launch on the tensor-core kernel;
+ 14. prepared decoder params: predict_masks on a 64-point chunk at full width
+     in bf16 from the prepared tree (what the pipeline and the predictor build
+     once: the weight-only products of models/sam/decoder.py) against the raw
+     tree: logits max|d| < 0.1, thresholded pixels > 99.5% equal, IoU
+     predictions |d| < 2e-2; ms per chunk both ways. Phases 5 and 6 run
+     prepared;
+ 15. bench: tools/bench.py at BENCH_ITERS=4 BENCH_REPS=3, its JSON line echoed;
+     and the multi-device dry run (tools/dryrun.py): four ranks on cuda:0 over
+     gloo at its tiny configuration.
+The ranks of phases 12, 13 and 15 run in processes of their own and report
+their launch counts, which the kernels line adds to this process's.
 The decoder runs its default route: the HYBRIDGL_FUSED_* switches are
 removed from the environment at start. The second-to-last line is a JSON
 object with one entry per kernel; the last line is the JSON contract line.
@@ -183,15 +204,6 @@ def _tokenizer():
     return default_tokenizer()
 
 
-class _TinyVocabTokenizer:
-    """Deterministic word ids inside the test-tiny CLIP's 101-token vocab."""
-
-    sot_token, eot_token = 99, 100
-
-    def encode(self, text):
-        return [sum(map(ord, w)) % 97 + 1 for w in text.split()][:40]
-
-
 def _sample(rng, sam_size, canonical, h, w, rh, rw, gt_box):
     import numpy as np
 
@@ -245,6 +257,7 @@ def phase_small_parity():
     from hybridgl_tpu_torch.core.params import init_clip, init_sam, tree_map
     from hybridgl_tpu_torch.kernels import launch_counts, reset_launch_counts
     from hybridgl_tpu_torch.pipeline.runner import HybridGLPipeline
+    from hybridgl_tpu_torch.tools.dryrun import TinyVocabTokenizer
 
     sam_cfg = SamConfig(
         img_size=512, encoder_width=64, encoder_depth=2, encoder_heads=2, encoder_global_idx=(1,),
@@ -274,7 +287,7 @@ def phase_small_parity():
         for dev in ("cpu", "cuda"):
             move = lambda _, t: t.to(dev)  # noqa: E731
             pipe = HybridGLPipeline(cfg, tree_map(move, sam_p), tree_map(move, clip_p),
-                                    HeuristicParser(), _TinyVocabTokenizer(), device=dev)
+                                    HeuristicParser(), TinyVocabTokenizer(), device=dev)
             reset_launch_counts()
             results = pipe.run_image(sample, pipe.init_state())
             props = pipe.last_proposals
@@ -626,13 +639,15 @@ def _write_refer_tree(root, n_images=3, h=480, w=640):
 
 def phase_dataset_path(pipe, samples, card):
     """run_dataset equals run_image on the measured RefCOCO images; then the
-    port's CLI at full width on a synthetic REFER tree."""
+    port's CLI at full width on a synthetic REFER tree, sequential and with
+    --data_parallel (one rank, nccl): the same result log and parity records."""
     import json
     import tempfile
 
     import torch
 
     from hybridgl_tpu_torch.cli.main import main as cli_main
+    from hybridgl_tpu_torch.kernels import launch_counts
 
     measured = samples[1:]
     state_a = pipe.init_state()
@@ -650,24 +665,40 @@ def phase_dataset_path(pipe, samples, card):
 
     with tempfile.TemporaryDirectory() as root:
         n_sentences = _write_refer_tree(root)
-        logs, parity = os.path.join(root, "logs"), os.path.join(root, "parity.json")
-        t0 = time.perf_counter()
-        cli_main(["--dataset", "refcoco", "--split", "val", "--refer_data_root", root, "--sam_model", "vit_h",
-                  "--clip_model", "ViT-B/16", "--random-weights", "--device", "cuda", "--log_dir", logs,
-                  "--parity_log", parity])
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        with open(os.path.join(logs, "result_log_refcoco_val.txt")) as f:
-            text = f.read()
-        with open(parity) as f:
-            records = json.load(f)["records"]
-    ok = "pure hybridgl:" in text and "hybridgl w/ spatial guidance:" in text and len(records) == n_sentences
-    log(f"{'PASS' if ok else 'FAIL'} CLI (python -m hybridgl_tpu_torch.cli.main, vit_h + ViT-B/16, random weights): "
-        f"{len(records)} parity records for {n_sentences} sentences, result log rows present "
-        f"{'pure hybridgl:' in text and 'hybridgl w/ spatial guidance:' in text}, {wall:.1f} s in all with "
-        f"weights and dataset set-up, on {card}")
+        runs = {}
+        # the sequential CLI, then --data_parallel: one rank for the one card, over nccl
+        for tag, extra in (("sequential", []), ("--data_parallel (world 1, nccl)", ["--data_parallel"])):
+            logs, parity = os.path.join(root, tag[:4], "logs"), os.path.join(root, tag[:4], "parity.json")
+            os.environ.pop("HYBRIDGL_WORLD_SIZE", None)
+            before = launch_counts()
+            t0 = time.perf_counter()
+            cli_main(["--dataset", "refcoco", "--split", "val", "--refer_data_root", root, "--sam_model", "vit_h",
+                      "--clip_model", "ViT-B/16", "--random-weights", "--device", "cuda", "--log_dir", logs,
+                      "--parity_log", parity, *extra])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            with open(os.path.join(logs, "result_log_refcoco_val.txt")) as f:
+                text = f.read()
+            with open(parity) as f:
+                records = json.load(f)["records"]
+            runs[tag] = (text, records)
+            k1 = launch_counts()["flash_windowed_fused"] - before["flash_windowed_fused"]
+            ok = "pure hybridgl:" in text and "hybridgl w/ spatial guidance:" in text and len(records) == n_sentences \
+                and k1 >= 3 * 28
+            log(f"{'PASS' if ok else 'FAIL'} CLI {tag} (python -m hybridgl_tpu_torch.cli.main, vit_h + ViT-B/16, random "
+                f"weights): {len(records)} parity records for {n_sentences} sentences, result log rows present "
+                f"{'pure hybridgl:' in text and 'hybridgl w/ spatial guidance:' in text}, K1 x {k1}, {wall:.1f} s in all "
+                f"with weights and dataset set-up, on {card}")
+            if not ok:
+                fail(f"the CLI's result or parity log is wrong ({tag})")
+    (seq_text, seq_rec), (dp_text, dp_rec) = runs.values()
+    key = lambda r: (r["ref_id"], r["sentence"], r["pure_index"], r["final_index"])  # noqa: E731
+    d_iou = max(max(abs(a["pure_iou"] - b["pure_iou"]), abs(a["final_iou"] - b["final_iou"])) for a, b in zip(dp_rec, seq_rec))
+    ok = dp_text == seq_text and [key(r) for r in dp_rec] == [key(r) for r in seq_rec] and d_iou < 1e-5
+    log(f"{'PASS' if ok else 'FAIL'} CLI --data_parallel == sequential CLI: same result log {dp_text == seq_text}, same "
+        f"records {[key(r) for r in dp_rec] == [key(r) for r in seq_rec]}, IoU max|d| {d_iou:.2e}")
     if not ok:
-        fail("the CLI's result or parity log is wrong")
+        fail("the data-parallel CLI differs from the sequential CLI")
 
 
 PROMPTS = (
@@ -944,6 +975,168 @@ def phase_device_cleanup(refcoco, phrasecut):
         torch.cuda.empty_cache()
 
 
+def phase_prepared(pipe, samples, weights):
+    """predict_masks on one 64-point chunk at full width in bf16: the prepared
+    tree (built once by the pipeline) against the raw tree, on the decoder's
+    bar, and the time of a chunk both ways (raw, prepared, prepared, raw)."""
+    import numpy as np
+    import torch
+
+    from hybridgl_tpu_torch.kernels import launch_counts
+    from hybridgl_tpu_torch.models.sam.amg import build_point_grid
+    from hybridgl_tpu_torch.models.sam.prompt_encoder import dense_pe, no_mask_dense
+    from hybridgl_tpu_torch.models.sam.sam import encode, predict_points, preprocess_padded
+    from hybridgl_tpu_torch.tools.check_kernels import time_ms
+
+    cfg, raw, prepared = pipe.cfg, weights[0], pipe.sam_params
+    if "prepared_final_t2i" in raw["decoder"]["transformer"] or "prepared_final_t2i" not in prepared["decoder"]["transformer"]:
+        fail("prepared params: the pipeline did not prepare its own copy of the decoder params")
+    sample = samples[1]
+    with torch.inference_mode():
+        x = preprocess_padded(torch.from_numpy(sample.image_1024).cuda(), (sample.rh, sample.rw), cfg.sam)
+        emb = encode(prepared, x, cfg.sam)
+        pe, dense = dense_pe(raw["prompt"], cfg.sam), no_mask_dense(raw["prompt"], cfg.sam, 1)[0]
+        pts = torch.from_numpy(build_point_grid(8) * np.float32([sample.rw, sample.rh])).cuda()[:, None, :]
+        labels = torch.ones((64, 1), device="cuda")
+        call = lambda p: predict_points(p, emb, pts, labels, cfg.sam, True, pe=pe, dense=dense)  # noqa: E731
+        before = launch_counts()
+        (m_raw, iou_raw), (m_prep, iou_prep) = call(raw), call(prepared)
+        delta = {k: v - before[k] for k, v in launch_counts().items()}
+        wall, queued = {"raw": [], "prepared": []}, {"raw": [], "prepared": []}
+        for name in ("raw", "prepared", "prepared", "raw"):
+            p = raw if name == "raw" else prepared
+            wall[name].append(statistics.median(_wall_ms(lambda: call(p))[0] for _ in range(10)))
+            queued[name].append(time_ms(lambda: call(p), reps=5))
+    d_logit = float((m_raw - m_prep).abs().max())
+    agree = float(((m_raw > 0) == (m_prep > 0)).float().mean())
+    d_iou = float((iou_raw - iou_prep).abs().max())
+    ok = d_logit < 0.1 and agree > 0.995 and d_iou < 2e-2 and bool(torch.isfinite(m_prep).all()) \
+        and delta["i2t_ln_then_t2i"] == 4 and delta["upscale_hyper_blocked"] == 2
+    log(f"  decoder chunk of 64 points, wall of one call (median of 10): raw {[round(t, 2) for t in wall['raw']]} ms, "
+        f"prepared {[round(t, 2) for t in wall['prepared']]} ms; back to back on the card's queue: raw "
+        f"{[round(t, 2) for t in queued['raw']]} ms, prepared {[round(t, 2) for t in queued['prepared']]} ms")
+    log(f"{'PASS' if ok else 'FAIL'} prepared decoder params == raw (full width, bf16): logits max|d| {d_logit:.4f}, "
+        f"thresholded-pixel agreement {agree:.6f}, IoU-pred max|d| {d_iou:.2e}, K3 x {delta['i2t_ln_then_t2i']}, "
+        f"K4 x {delta['upscale_hyper_blocked']} over the two calls")
+    if not ok:
+        fail("the prepared decoder params disagree with the raw tree")
+
+
+def phase_data_parallel(pipe, card):
+    """Two ranks on cuda:0 over gloo run the sticky data-parallel step +
+    finalize_sticky (parallel/full_eval.py:run_chunks) on four full-width
+    RefCOCO images; the parent runs run_image over the same four in order on
+    the same weights (seed 0). Random weights leave one NMS survivor an image,
+    so both sides replace every image's bundle with the same stamped survivors
+    (21, 5, 33 and 2 live blobs, seeded by the image): the selections range
+    over the slots and the sticky clamp shrinks from image to image, (3, 6) ->
+    (3, 5) -> (2, 2). Equal clamp and selections, accumulators to rtol 1e-5;
+    each rank launched the RefCOCO path's kernels for its two images."""
+    import numpy as np
+    import torch
+
+    from hybridgl_tpu_torch.parallel import launch, workers
+
+    rng = np.random.default_rng(11)
+    samples = [_sample(rng, 1024, 640, 480, 640, 768, 1024, (100, 150, 300, 400)) for _ in range(4)]
+    survival, hw = [21, 5, 33, 2], (480, 640)
+    state = pipe.init_state()
+    pipe.run_image(samples[0], pipe.init_state())  # warm-up
+    pipe.survival_hook = workers.survival_stamp(pipe.cfg, survival, hw, pipe.device)
+    t_seq, seq = _wall_ms(lambda: [pipe.run_image(smp, state) for smp in samples])
+    pipe.survival_hook = None
+    spec = dict(cfg=pipe.cfg, samples=samples, seed=0, dtype="bfloat16", repeats=2, survival=survival, survival_hw=hw)
+    t0 = time.perf_counter()
+    out = launch.spawn_workers(workers.eval_worker, 2, (spec,), "cuda", timeout=600.0)
+    spawn_s = time.perf_counter() - t0
+    par = out[0]
+    want = [(b, si, r.pure_index, r.final_index) for b, rs in enumerate(seq) for si, r in enumerate(rs)]
+    same_sel = [rec[:4] for rec in par["records"]] == want
+    d_iou = max(max(abs(rec[4] - r.pure_iou), abs(rec[5] - r.final_iou))
+                for rec, r in zip(par["records"], [r for rs in seq for r in rs]))
+    acc_seq = np.float64([float(v) for v in (*state.pure, *state.final)])
+    acc_par = np.float64(par["pure"] + par["final"])
+    same_acc = bool(np.allclose(acc_par, acc_seq, rtol=1e-5))
+    short = {o["rank"]: {k: o["launches"][k] for k, n in MIN_LAUNCHES_PER_IMAGE.items() if o["launches"][k] < 2 * n}
+             for o in out}
+    off_tc = {o["rank"]: {k: (n, o["launches"][k]) for k, n in o["tc_launches"].items() if n != o["launches"][k]}
+              for o in out}
+    picked = sorted({i for rec in par["records"] for i in rec[2:4]})
+    ok = same_sel and d_iou < 1e-5 and same_acc and (par["k1"], par["k2"]) == (state.k1, state.k2) == (2, 2) \
+        and len(picked) >= 3 and not any(short.values()) and not any(off_tc.values()) and par["images"] == 4
+    for o in out:
+        log(f"  rank {o['rank']}: {o['seconds'] * 1e3 / 2:.1f} ms a chunk of 2 images, launches "
+            f"{ {k: o['launches'][k] for k in MIN_LAUNCHES_PER_IMAGE} }")
+    log(f"  data parallel, 2 ranks on one card over gloo: {par['seconds'] * 1e3 / 4:.1f} ms/img; sequential run_image "
+        f"{t_seq / 4:.1f} ms/img; on {card} (the ranks' start, weights and warm-up took {spawn_s:.1f} s)")
+    log(f"{'PASS' if ok else 'FAIL'} data-parallel step + finalize_sticky == run_image in order (4 RefCOCO images, full "
+        f"width, {survival} stamped survivors): same selections {same_sel} over proposals {picked}, IoU max|d| "
+        f"{d_iou:.2e}, accumulators to rtol 1e-5 {same_acc}, k1/k2 {(par['k1'], par['k2'])} vs {(state.k1, state.k2)}, "
+        f"kernels short {short}, off the tensor cores {off_tc}")
+    if not ok:
+        fail("the data-parallel step differs from the sequential runner")
+    return out
+
+
+def phase_encoder_tp(card):
+    """The tensor-parallel encoder, mp = 2, both ranks on cuda:0 over gloo,
+    ViT-H in bf16: each rank's replicated output against encode_image on the
+    same rank (cos > 0.999, the encoder's bar); 8 heads a rank through K1 (28
+    launches) and K2 (4), every launch on the tensor-core kernel."""
+    import numpy as np
+
+    from hybridgl_tpu_torch.core.config import PipelineConfig
+    from hybridgl_tpu_torch.parallel import launch, workers
+
+    image = np.random.default_rng(3).standard_normal((1, 1024, 1024, 3)).astype(np.float32)
+    spec = dict(cfg=PipelineConfig(sam_model="vit_h"), seed=0, dtype="bfloat16", mp=2, image=image, repeats=2, compare=True)
+    out = launch.spawn_workers(workers.encoder_tp_worker, 2, (spec,), "cuda", timeout=600.0)
+    for o in out:
+        k1, k2 = o["launches"]["flash_windowed_fused"], o["launches"]["flash_attention_fused"]
+        t1, t2 = o["tc_launches"]["flash_windowed_fused"], o["tc_launches"]["flash_attention_fused"]
+        ok = o["cos"] > 0.999 and o["finite"] and (k1, k2) == (28, 4) and (t1, t2) == (28, 4)
+        log(f"{'PASS' if ok else 'FAIL'} tensor-parallel encoder, mp = 2, rank {o['rank']} (ViT-H, bf16, gloo on one "
+            f"card): cos {o['cos']:.6f}, max|d| {o['max_abs_diff']:.4f} against encode_image, K1 x {k1} ({t1} on the "
+            f"tensor cores), K2 x {k2} ({t2}), {o['seconds'] * 1e3:.1f} ms a frame, on {card}")
+        if not ok:
+            fail("the tensor-parallel encoder differs from the single-process encoder")
+    return out
+
+
+def phase_dryrun():
+    from hybridgl_tpu_torch.tools.dryrun import dryrun_multichip
+
+    t0 = time.perf_counter()
+    r = dryrun_multichip(4, "cuda", timeout=600.0)
+    ok = r["mesh"] == {"dp": 2, "mp": 2} and r["sentences"] == 4 and r["ragged_sentences"] == 6 \
+        and r["multicrop_sentences"] == 4 and r["tp_max_abs_diff"] < 2e-4 and r["device"].startswith("cuda")
+    log(f"{'PASS' if ok else 'FAIL'} dryrun_multichip(4) on the card (4 ranks on {r['device']}, gloo): {r}, "
+        f"{time.perf_counter() - t0:.1f} s")
+    if not ok:
+        fail("the multi-device dry run failed on the card")
+
+
+def phase_bench():
+    """tools/bench.py as a user runs it, at BENCH_ITERS=4 BENCH_REPS=3; its JSON line is echoed."""
+    env = dict(os.environ, BENCH_ITERS="4", BENCH_REPS="3", BENCH_MC_ITERS="2", PYTHONPATH=REPO)
+    t0 = time.perf_counter()
+    done = subprocess.run([sys.executable, "-m", "hybridgl_tpu_torch.tools.bench"], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=900)
+    for line in done.stderr.strip().splitlines()[-8:]:
+        log(f"  bench: {line}")
+    if done.returncode != 0:
+        fail(f"tools/bench.py exited with {done.returncode}: {done.stderr[-2000:]}")
+    record = json.loads(done.stdout.strip().splitlines()[-1])
+    need = ("metric", "value", "unit", "device", "power_limit_w", "realistic_survival_img_per_s", "device_ms_per_img",
+            "stage_device_ms", "flops_per_img_t", "est_mfu_e2e", "est_mfu_device", "multicrop")
+    missing = [k for k in need if k not in record]
+    ok = not missing and record["value"] > 0 and record["multicrop"]["value"] > 0
+    log(f"{'PASS' if ok else 'FAIL'} bench ({time.perf_counter() - t0:.1f} s): {json.dumps(record)}")
+    if not ok:
+        fail(f"tools/bench.py's record is incomplete: missing {missing}")
+    return record
+
+
 def main(argv):
     card = phase_environment()
     phase_build()
@@ -981,6 +1174,16 @@ def main(argv):
     phase_batched_sentences(*paths["RefCOCO"])
     phase_device_cleanup(paths["RefCOCO"], paths["PhraseCut"])
     counts["runner switches"] = launch_counts()
+    reset_launch_counts()
+    phase_prepared(*paths["RefCOCO"], weights)
+    counts["prepared params"] = launch_counts()
+    # the parallel paths run in ranks of their own: each rank counts its launches and reports them
+    for o in phase_data_parallel(paths["RefCOCO"][0], card):
+        counts[f"data parallel, rank {o['rank']}"] = o["launches"]
+    for o in phase_encoder_tp(card):
+        counts[f"tensor-parallel encoder, rank {o['rank']}"] = o["launches"]
+    phase_dryrun()
+    phase_bench()
     if "--profile" in argv:  # opt-in: CUPTI tracing is not part of the contract run
         phase_profile(*paths["RefCOCO"])
         phase_routes(*paths["RefCOCO"])

@@ -15,8 +15,22 @@ than falling back. Parameters are cast to ``PipelineConfig.compute_dtype``
 published torch ``.pth``/``.pt`` files (converted on the fly by
 ``core/convert.py``); an orbax directory is refused. ``--profile`` prints the
 per-stage wall times of ``utils/profiling.py:StageTimer``, then the top
-operators of torch.profiler. Not ported yet (raises, see ROADMAP.md):
-``--data_parallel``.
+operators of torch.profiler.
+
+``--data_parallel`` shards the images over one process per device
+(``parallel/full_eval.py`` over ``torch.distributed``) and gives the
+sequential run's result log and parity log: with the sticky k1/k2 clamp (the
+default) rank 0 replays the selection in dataset order. How the ranks start:
+  * alone, on ``--device cuda``: one rank per visible card, started here
+    (``parallel/launch.py``), ``nccl``;
+  * ``HYBRIDGL_WORLD_SIZE=n`` sets the number of ranks on either device: on
+    ``--device cpu`` (default 1 there) they run over ``gloo``; on
+    ``--device cuda`` more ranks than cards share the cards over ``gloo``;
+  * under ``torchrun`` (``RANK`` and ``WORLD_SIZE`` set) this process is one
+    rank of the group that ``torchrun`` describes.
+Rank 0 alone prints and writes. ``--profile`` and ``--show_results`` have no
+effect under ``--data_parallel`` (as in the reference); a rank that fails or
+hangs ends the run with an error.
 """
 
 from __future__ import annotations
@@ -73,7 +87,7 @@ def default_argument_parser(epilog=None) -> argparse.ArgumentParser:
     p.add_argument("--profile", action="store_true", help="print wall time per pipeline stage (device synchronised after each), then the top operators")
     p.add_argument("--trace_dir", default="", help="write a torch.profiler chrome trace here")
     p.add_argument("--data_parallel", action="store_true",
-                   help="shard the eval over all local devices (not ported yet: raises)")
+                   help="shard the eval over all local devices (one process each; see the module docstring)")
     # the port's addition
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu (the kernels' plain versions)")
     return p
@@ -155,19 +169,35 @@ def build_dataset(args, cfg: PipelineConfig):
     return dataset, dataset.ref_ids
 
 
+def _setup(args, device):
+    """(cfg, pipeline, dataset, ref ids, number of images) of a run on ``device``."""
+    cfg = build_config(args)
+    sam_params, clip_params = load_params(args, cfg, device)
+    pipe = HybridGLPipeline(cfg, sam_params, clip_params, device=device)
+    dataset, ref_ids = build_dataset(args, cfg)
+    n = len(dataset)
+    if args.max_images:
+        n = min(n, args.max_images)
+    return cfg, pipe, dataset, ref_ids, n
+
+
+def _finish(args, state, parity, images_done, dt, device):
+    write_result_log(args.log_dir, args.dataset, args.split, args.splitBy, args.fusion_mode, state.pure, state.final)
+    if args.parity_log:
+        parity.save(args.parity_log)
+    name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
+    print(f"done: {images_done} images in {dt:.1f}s ({images_done / max(dt, 1e-9):.2f} img/s, "
+          f"{1e3 * dt / max(images_done, 1):.1f} ms/img on {name})")
+
+
 def main(argv=None) -> None:
     args = default_argument_parser().parse_args(argv)
     if not args.eval_only:
         raise SystemExit("Only eval_only available!")
-    if args.data_parallel:
-        raise NotImplementedError(
-            "--data_parallel: multi-GPU evaluation is not ported yet (ROADMAP.md, Queue 1 item 13); "
-            "run without it on one card"
-        )
     device = resolve_device(args.device)
-    cfg = build_config(args)
-    sam_params, clip_params = load_params(args, cfg, device)
-    pipe = HybridGLPipeline(cfg, sam_params, clip_params, device=device)
+    if args.data_parallel:
+        return _main_data_parallel(args, list(sys.argv[1:] if argv is None else argv), device)
+    cfg, pipe, dataset, ref_ids, n = _setup(args, device)
     # name the active expression parser: a silent heuristic fallback would
     # change selections against the reference
     print(f"expression parser: {type(pipe.parser).__name__}", flush=True)
@@ -176,10 +206,6 @@ def main(argv=None) -> None:
 
         pipe.timer = StageTimer(block=True, device=device)
 
-    dataset, ref_ids = build_dataset(args, cfg)
-    n = len(dataset)
-    if args.max_images:
-        n = min(n, args.max_images)
     state = pipe.init_state()
     progress = ProgressCheckpoint(args.progress_file or None)
     start = progress.load(state) if args.resume else 0
@@ -226,12 +252,88 @@ def main(argv=None) -> None:
         print(pipe.timer.summary())
         key = "self_cuda_time_total" if device.type == "cuda" else "self_cpu_time_total"
         print(prof.key_averages().table(sort_by=key, row_limit=20))
-    write_result_log(args.log_dir, args.dataset, args.split, args.splitBy, args.fusion_mode, state.pure, state.final)
-    if args.parity_log:
-        parity.save(args.parity_log)
-    name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
-    print(f"done: {images_done} images in {dt:.1f}s ({images_done / max(dt, 1e-9):.2f} img/s, "
-          f"{1e3 * dt / max(images_done, 1):.1f} ms/img on {name})")
+    _finish(args, state, parity, images_done, dt, device)
+
+
+def data_parallel_world(device: torch.device) -> int:
+    """Ranks of a ``--data_parallel`` run that this process starts:
+    ``HYBRIDGL_WORLD_SIZE`` where set, else one per visible card, else 1."""
+    env = os.environ.get("HYBRIDGL_WORLD_SIZE", "")
+    if env:
+        return max(int(env), 1)
+    return torch.cuda.device_count() if device.type == "cuda" else 1
+
+
+DATA_PARALLEL_LIMIT = 7 * 24 * 3600.0  # seconds a whole --data_parallel run may take before its ranks are killed
+
+
+def _main_data_parallel(args, argv, device) -> None:
+    from ..parallel import launch
+
+    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:  # one rank of torchrun's group
+        launch.init_from_env(device.type)
+        try:
+            _data_parallel_rank(argv)
+        finally:
+            launch.shutdown()
+        return
+    world = data_parallel_world(device)
+    if world == 1:
+        launch.run_in_process(_data_parallel_rank, (argv,), device.type)
+    else:
+        launch.spawn_workers(_data_parallel_rank, world, (argv,), device.type, timeout=DATA_PARALLEL_LIMIT)
+
+
+def _data_parallel_rank(argv) -> None:
+    """One rank of a ``--data_parallel`` run, inside an initialised process group."""
+    from ..parallel import launch
+    from ..parallel.mesh import make_mesh
+
+    args = default_argument_parser().parse_args(argv)
+    device = launch.worker_device()
+    mesh = make_mesh()
+    cfg, pipe, dataset, ref_ids, n = _setup(args, device)
+    chief = mesh.rank == 0
+    if chief:
+        print(f"expression parser: {type(pipe.parser).__name__}", flush=True)
+    state = pipe.init_state()
+    progress = ProgressCheckpoint(args.progress_file or None)
+    start = progress.load(state) if args.resume else 0  # every rank reads the same file
+    parity = ParityLog(meta=dict(dataset=args.dataset, split=args.split, fusion=args.fusion_mode))
+
+    from ..data.prefetch import IndexedPrefetcher
+
+    t0 = time.time()
+    _run_data_parallel(cfg, pipe, mesh, iter(IndexedPrefetcher(_Sliced(dataset, start, n))), ref_ids, start, n, state,
+                       parity, t0)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    if chief:
+        _finish(args, state, parity, n - start, time.time() - t0, device)
+
+
+def _run_data_parallel(cfg, pipe, mesh, sample_iter, ref_ids, start, n, state, parity, t0):
+    """Sharded eval over the mesh's ``dp`` ranks (``parallel/full_eval.py:
+    run_chunks``, counterpart of the reference's cli/main.py:268): rank 0
+    alone keeps the state (the sticky clamp and the accumulators) and the
+    parity records, and prints."""
+    from ..eval.metrics import IoUAccum
+    from ..parallel.full_eval import run_chunks
+
+    idx = start
+    for chunk, result in run_chunks(cfg, pipe.sam_params, pipe.clip_params, pipe.parser, pipe.tokenizer, mesh,
+                                    sample_iter, state.k1, state.k2):
+        if result is not None:
+            pa, fa, pidx, fidx, pious, fious, state.k1, state.k2 = result
+            state.pure = IoUAccum(*(a + float(b) for a, b in zip(state.pure, pa)))
+            state.final = IoUAccum(*(a + float(b) for a, b in zip(state.final, fa)))
+            for b, sample in enumerate(chunk):
+                for si, sentence in enumerate(list(sample.sentences)[: pidx.shape[1]]):
+                    parity.add(SelectionRecord(int(ref_ids[idx + b]), sentence, int(pidx[b, si]), int(fidx[b, si]),
+                                               float(pious[b, si]), float(fious[b, si])))
+            rate = (idx + len(chunk) - start) / max(time.time() - t0, 1e-9)
+            print(f"[dp {mesh.dp}x] {idx + len(chunk)}/{n} {rate:.2f} img/s", flush=True)
+        idx += len(chunk)
 
 
 def _save_result_overlays(log_dir, index, sample, results, props):

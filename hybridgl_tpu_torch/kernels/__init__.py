@@ -8,7 +8,7 @@ modules are the plain tensor primitives the reference wrote as XLA.
 Each kernel wrapper counts its launches in a plain integer attribute
 (``wrapper.launches``), incremented only where it launches its kernel, once
 a kernel launch (K3's split route makes several a call). The wrappers with a
-tensor-core and a CUDA-core kernel behind them (K3-K8, K10) also count the
+tensor-core and a CUDA-core kernel behind them (all ten) also count the
 launches that took the tensor-core one (``wrapper.tc_launches``).
 """
 

@@ -48,6 +48,7 @@ _SIGNATURES = {
     "hgl_pass1_stats_full_tc_takes": [_i, _i, _i],
     "hgl_pass1_stats_full_tc_smem": [_i, _i],
     "hgl_cls_tc_takes": [_i, _i],
+    "hgl_rel_pos_tc_takes": [_i, _i, _i],
     "hgl_decoder_attn": [_i] + [_vp] * 15 + [_i] * 14 + [_vp],
     "hgl_upscale_hyper": [_vp] * 9 + [_i] * 10 + [_vp],
     "hgl_decoder_attn_tc_takes": [_i] * 10,

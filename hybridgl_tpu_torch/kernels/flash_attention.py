@@ -88,6 +88,7 @@ def _rel_pos_call(wrapper, q, k, v, rel_h, rel_w, grid_side, scale):
     BH, S, hd = q.shape
     out = torch.empty_like(q)
     lib = _build.library()
+    tc = q.dtype == torch.bfloat16 and bool(lib.hgl_rel_pos_tc_takes(S, hd, grid_side))  # the C dispatch's own test
     code = lib.hgl_rel_pos_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), rel_h.data_ptr(), rel_w.data_ptr(),
         out.data_ptr(), BH, S, hd, grid_side, float(scale),
@@ -95,6 +96,7 @@ def _rel_pos_call(wrapper, q, k, v, rel_h, rel_w, grid_side, scale):
     )
     _build.check(code, wrapper.__name__)
     wrapper.launches += 1
+    wrapper.tc_launches += int(tc)
     return out
 
 
@@ -132,6 +134,6 @@ def flash_attention_rel_pos(q, k, v, rel_h, rel_w, grid_side: int, block_q: int 
     return _rel_pos_call(flash_attention_rel_pos, q, k, v, rel_h, rel_w, grid_side, 1.0)
 
 
-flash_windowed_fused.launches = 0
-flash_attention_fused.launches = 0
-flash_attention_rel_pos.launches = 0
+for _wrapper in (flash_windowed_fused, flash_attention_fused, flash_attention_rel_pos):
+    _wrapper.launches = 0
+    _wrapper.tc_launches = 0  # of those, the launches of csrc/attention_wgmma.cu

@@ -204,17 +204,12 @@ def _crop_boxes_layer1(h, w, overlap_ratio: float):
     return boxes
 
 
-def generate_proposals_multicrop(p_sam, image_1024, rh, rw, image_canonical, h, w, sam_cfg: SamConfig,
-                                 amg_cfg: AmgConfig, canonical: int = 1024) -> Proposals:
-    """AMG with one crop layer: the full image and 4 overlapping crops
-    (reference amg.py:383; upstream automatic_mask_generator.py:197-264).
-
-    image_1024: the full image's padded SAM frame, image_canonical [C, C, 3]
-    the canonical frame the crops are cut from, both on the target device.
-    Per-crop survivors are capped at ``max_candidates_per_crop``."""
-    assert amg_cfg.crop_n_layers == 1, "only crop_n_layers in (0, 1) supported"
-    dev = image_1024.device
-    K, P, S = amg_cfg.max_candidates_per_crop, amg_cfg.max_proposals, sam_cfg.img_size
+def multicrop_frames(image_1024, rh, rw, image_canonical, h, w, sam_cfg: SamConfig, amg_cfg: AmgConfig):
+    """The five crops of one image (the full image, then the four layer-1
+    crops): each a dict with its point ``grid``, its window in the canonical
+    frame (``origin``, ``extent``), its valid extent in SAM's frame (``rhw``)
+    and its preprocessed S x S ``frame``."""
+    S = sam_cfg.img_size
     grid_crop = build_point_grid(max(int(amg_cfg.points_per_side / amg_cfg.crop_n_points_downscale_factor), 1))
     crops = [dict(grid=build_point_grid(amg_cfg.points_per_side), origin=(0.0, 0.0), extent=(float(h), float(w)),
                   rhw=(rh, rw), frame=preprocess_padded(image_1024, (rh, rw), sam_cfg))]
@@ -227,6 +222,21 @@ def generate_proposals_multicrop(p_sam, image_1024, rh, rw, image_canonical, h, 
         frame = place_region(image_c, (ch, cw), (S, S), (0, 0), (crh, crw), src_origin=(cy0, cx0))
         crops.append(dict(grid=grid_crop, origin=(cy0, cx0), extent=(ch, cw), rhw=(crh, crw),
                           frame=preprocess_padded(frame, (crh, crw), sam_cfg)))
+    return crops
+
+
+def generate_proposals_multicrop(p_sam, image_1024, rh, rw, image_canonical, h, w, sam_cfg: SamConfig,
+                                 amg_cfg: AmgConfig, canonical: int = 1024) -> Proposals:
+    """AMG with one crop layer: the full image and 4 overlapping crops
+    (reference amg.py:383; upstream automatic_mask_generator.py:197-264).
+
+    image_1024: the full image's padded SAM frame, image_canonical [C, C, 3]
+    the canonical frame the crops are cut from, both on the target device.
+    Per-crop survivors are capped at ``max_candidates_per_crop``."""
+    assert amg_cfg.crop_n_layers == 1, "only crop_n_layers in (0, 1) supported"
+    dev = image_1024.device
+    K, P, S = amg_cfg.max_candidates_per_crop, amg_cfg.max_proposals, sam_cfg.img_size
+    crops = multicrop_frames(image_1024, rh, rw, image_canonical, h, w, sam_cfg, amg_cfg)
     for crop in crops:  # five batch-1 encoder passes, as the reference
         crop["embedding"] = encode(p_sam, crop.pop("frame"), sam_cfg)
 

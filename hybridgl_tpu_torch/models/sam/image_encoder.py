@@ -52,10 +52,13 @@ def get_rel_pos_table(size: int, rel_pos: torch.Tensor) -> torch.Tensor:
 
 def _attention(p_attn, x: torch.Tensor, num_heads: int, size: int) -> torch.Tensor:
     """Windowed/global attention over [B, size, size, D] tiles with rel-pos."""
-    B, D = x.shape[0], x.shape[-1]
+    B = x.shape[0]
     S = size * size
     dt = x.dtype
-    qkv = x.reshape(B, S, D) @ p_attn["qkv_w"].to(dt) + p_attn["qkv_b"].to(dt)
+    qkv = x.reshape(B, S, x.shape[-1]) @ p_attn["qkv_w"].to(dt) + p_attn["qkv_b"].to(dt)
+    # the attention width is the projection's: num_heads heads of the block's
+    # own, or the local heads of a tensor-parallel shard (parallel/encoder_tp.py)
+    D = qkv.shape[-1] // 3
     hd = D // num_heads
 
     def heads(t):  # [B, S, D] -> [B*H, S, hd]
@@ -64,8 +67,11 @@ def _attention(p_attn, x: torch.Tensor, num_heads: int, size: int) -> torch.Tens
     q, k, v = (heads(t) for t in qkv.split(D, dim=-1))
     # the two rank-G bias terms from the unscaled q, kept in f32:
     # rel_h[b, (qh, qw), kh] = q[b, qh, qw] . Rh[qh, kh], likewise rel_w
-    Rh = get_rel_pos_table(size, p_attn["rel_pos_h"].float())
-    Rw = get_rel_pos_table(size, p_attn["rel_pos_w"].float())
+    if "rel_tab_h" in p_attn:  # built once by prepare_sam_params
+        Rh, Rw = p_attn["rel_tab_h"], p_attn["rel_tab_w"]
+    else:
+        Rh = get_rel_pos_table(size, p_attn["rel_pos_h"].float())
+        Rw = get_rel_pos_table(size, p_attn["rel_pos_w"].float())
     q6 = q.float().reshape(B * num_heads, size, size, hd)
     rel_h = torch.einsum("bhwc,hkc->bhwk", q6, Rh).reshape(B * num_heads, S, size)
     rel_w = torch.einsum("bhwc,wkc->bhwk", q6, Rw).reshape(B * num_heads, S, size)
@@ -79,7 +85,34 @@ def _attention(p_attn, x: torch.Tensor, num_heads: int, size: int) -> torch.Tens
     out = attend(q, k, v, rel_h.contiguous(), rel_w.contiguous(), size, scale)
     out = out.reshape(B, num_heads, S, hd).transpose(1, 2).reshape(B, S, D)
     out = out @ p_attn["proj_w"].to(dt) + p_attn["proj_b"].to(dt)
-    return out.reshape(B, size, size, D)
+    return out.reshape(B, size, size, out.shape[-1])
+
+
+def prepare_sam_params(sam_params, cfg: SamConfig):
+    """A copy of the SAM params with what depends on the weights alone built
+    once (the serving half of the reference's ``stack_encoder_runs``,
+    image_encoder.py:304, without its stacking, a scan artefact): each encoder
+    block's [size, size, head_dim] rel-pos tables in f32, and the decoder's
+    prepared products (``decoder.py:prepare_decoder_params``). Idempotent; the
+    raw tree keeps working."""
+    out = dict(sam_params)
+    if "encoder" in out:
+        enc = dict(out["encoder"])
+        blocks = []
+        for i, bp in enumerate(enc["blocks"]):
+            size = cfg.embed_grid if i in cfg.encoder_global_idx else cfg.window_size
+            attn = dict(bp["attn"])
+            if "rel_tab_h" not in attn:
+                attn["rel_tab_h"] = get_rel_pos_table(size, attn["rel_pos_h"].float())
+                attn["rel_tab_w"] = get_rel_pos_table(size, attn["rel_pos_w"].float())
+            blocks.append(dict(bp, attn=attn))
+        enc["blocks"] = blocks
+        out["encoder"] = enc
+    if "decoder" in out:
+        from .decoder import prepare_decoder_params
+
+        out["decoder"] = prepare_decoder_params(out["decoder"], cfg)
+    return out
 
 
 def window_partition(x: torch.Tensor, window: int):

@@ -18,7 +18,7 @@ import torch
 from ...core.config import SamConfig
 from ...kernels.resize import place_valid_region
 from .decoder import predict_masks
-from .image_encoder import encode_image
+from .image_encoder import encode_image, prepare_sam_params
 from .prompt_encoder import dense_pe, embed_boxes, embed_points, no_mask_dense
 from .sam import get_preprocess_shape, preprocess_padded, upscale_logits_to_input_frame
 
@@ -26,8 +26,9 @@ from .sam import get_preprocess_shape, preprocess_padded, upscale_logits_to_inpu
 class SamPredictor:
     def __init__(self, params, cfg: SamConfig, device=None):
         """``device`` defaults to where ``params`` live; the prompts and the
-        frame are moved there."""
-        self.params = params
+        frame are moved there. What depends on the weights alone (rel-pos
+        tables, the decoder's prepared products) is built once here."""
+        self.params = prepare_sam_params(params, cfg)
         self.cfg = cfg
         self.device = torch.device(device) if device is not None else params["prompt"]["pe_gaussian"].device
         self._features: Optional[torch.Tensor] = None

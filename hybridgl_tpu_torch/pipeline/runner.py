@@ -45,13 +45,14 @@ import torch
 from ..core.config import PipelineConfig
 from ..lang import ExpressionParser, ParsedExpression, get_parser
 
-from ..eval.metrics import IoUAccum, accumulate, mask_iou
+from ..eval.metrics import IoUAccum, accumulate
 from ..kernels.masks import box_xyxy_to_xywh
 from ..kernels.resize import place_valid_region_antialias, resize_bilinear, valid_mask
 from ..models.clip.fusion import calculate_score, hybrid_forward
 from ..models.clip.text import encode_text
 from ..models.gem.gem import gem_image_features, gem_preprocess
 from ..models.sam.amg import Proposals, generate_proposals, generate_proposals_multicrop
+from ..models.sam.image_encoder import prepare_sam_params
 from ..utils.buckets import next_pow2
 from .guidance import dir_flag_id, gem_mask_scores, normalize_heatmap, rela_flag_id, select_candidates
 from .postprocess import postprocess_small_regions
@@ -89,13 +90,159 @@ class PipelineState:
     final: IoUAccum
 
 
+class Ingredients(NamedTuple):
+    """What the selection of one image's sentences needs (the reference's
+    ``parallel/full_eval.py:Ingredients``): score tables over S sentences and P
+    proposal slots, and each proposal's (I, U, IoU) against the ground truth.
+    The sequential runner selects from them at once; the data-parallel step
+    ships them, stacked over a batch of images as numpy arrays (a leading axis
+    B on every field), to the rank that replays the sticky clamp."""
+
+    num: int  # live proposals (after the cleanup)
+    score: torch.Tensor  # [S, P] f32 CLIP scores
+    score_neg: torch.Tensor  # [S, P]
+    gem_scores: torch.Tensor  # [S, P]
+    boxes_xywh: torch.Tensor  # [P, 4]
+    prop_valid: torch.Tensor  # [P] bool
+    iu: torch.Tensor  # [P, 3] f32: (I, U, IoU) of each proposal against the ground truth
+
+
+def launch_proposals(cfg: PipelineConfig, sam_params, sample, device) -> Proposals:
+    """The proposal stage on the device (SAM encoder + AMG); ``sample`` has
+    ImageSample's image fields."""
+    image_1024 = torch.from_numpy(np.asarray(sample.image_1024)).to(device)
+    rh, rw, h, w = int(sample.rh), int(sample.rw), int(sample.h), int(sample.w)
+    if cfg.amg.crop_n_layers >= 1:
+        image_c = torch.from_numpy(np.asarray(sample.image_canonical)).to(device)
+        return generate_proposals_multicrop(
+            sam_params, image_1024, rh, rw, image_c, h, w, cfg.sam, cfg.amg, cfg.canonical_size,
+        )
+    return generate_proposals(sam_params, image_1024, rh, rw, h, w, cfg.sam, cfg.amg, cfg.canonical_size)
+
+
+def cleanup_host(cfg: PipelineConfig, props: Proposals, hw, device) -> Proposals:
+    """The small-region cleanup: the native host pass on the downloaded bundle."""
+    host = Proposals(*(t.cpu().numpy() if isinstance(t, torch.Tensor) else t for t in props))
+    amg = cfg.amg
+    out, changed = postprocess_small_regions(
+        host, amg.min_mask_region_area, max(amg.box_nms_thresh, amg.crop_nms_thresh), hw=hw
+    )
+    if not changed:
+        return props
+    return Proposals(
+        *(torch.from_numpy(np.ascontiguousarray(f)).to(device) for f in out[:7]),
+        num=out.num,
+        overflow=out.overflow,
+    )
+
+
+def bucket_size(valid: torch.Tensor, num: int) -> int:
+    """The smallest power-of-two bucket (min 8, at most all slots) covering
+    the highest live index: the cleanup invalidates suppressed duplicates in
+    place, so validity is not always a prefix."""
+    live = torch.nonzero(valid).flatten()
+    extent = int(live.max()) + 1 if live.numel() else num
+    return min(next_pow2(extent, base=8), int(valid.shape[0]))
+
+
+def fusion_features(cfg: PipelineConfig, clip_params, masks: torch.Tensor, image_c: torch.Tensor, h: int, w: int, mp=None):
+    """Crops -> hybrid fusion features [P, E]. With ``mp``
+    (``parallel/mesh.py:ProcessMesh.mp_shard``: ``index``, ``size``,
+    ``all_gather``) each member of a model-parallel group runs the fusion on
+    its P / size proposals and the group gathers the features."""
+    if mp is not None:
+        if masks.shape[0] % mp.size:
+            raise ValueError(f"{masks.shape[0]} proposal slots do not split over {mp.size} model-parallel ranks")
+        shard = masks.shape[0] // mp.size
+        masks = masks[mp.index * shard : (mp.index + 1) * shard]
+    glob, local = build_crops(image_c, masks, (h, w), cfg.crop_size, cfg.blur_ksize)
+    feats = hybrid_forward(
+        clip_params["visual"], local, glob, masks.float(), cfg.clip,
+        fusion_mode=cfg.fusion_mode, masking_block=cfg.guidance.masking_block,
+        compat=cfg.compat, masks_hw=(h, w),
+    )
+    return feats if mp is None else mp.all_gather(feats)
+
+
+def feature_stage(cfg: PipelineConfig, clip_params, props: Proposals, image_c: torch.Tensor, h: int, w: int, mp=None):
+    """Fusion features [P, E] (:func:`fusion_features`) and the normalised
+    GEM patch features of one image."""
+    feats = fusion_features(cfg, clip_params, props.masks, image_c, h, w, mp)
+    # squash-resize the valid region to the GEM input (uint8 rounding as
+    # the reference's PIL intermediate), then normalize
+    gem_u8 = torch.round(
+        resize_bilinear(image_c, (cfg.gem.img_size, cfg.gem.img_size), src_hw=(h, w))
+    ).to(torch.uint8)
+    gem_img = gem_preprocess(gem_u8, cfg.gem.img_size)
+    # GEM patch features are text-independent: once per image
+    gem_pf, _, _ = gem_image_features(clip_params["visual"], gem_img[None], cfg.clip, cfg.gem)
+    gem_pf = gem_pf[0] / torch.clamp(torch.linalg.norm(gem_pf[0], dim=-1, keepdim=True), min=1e-6)
+    return feats, gem_pf
+
+
+def sentence_ingredients(cfg: PipelineConfig, clip_params, props: Proposals, feats, gem_pf, rows, hw, gt) -> Ingredients:
+    """All sentences of an image through one sentence stage with a leading
+    sentence dimension (the reference's ``_sentences_batched``, without its
+    power-of-two sentence buckets: eager PyTorch compiles nothing per shape):
+    the text encoder, both scores, the heatmap's resize, placement and
+    normalisation and the per-mask GEM scores are batched. ``rows`` are
+    ``HybridGLPipeline._row`` tuples. A sentence's scores do not depend on the
+    sentences beside it. The one body of the sequential runner and of the
+    data-parallel step (``parallel/full_eval.py``)."""
+    C = cfg.canonical_size
+    h, w = hw
+    dev = feats.device
+    S = len(rows)
+    toks = torch.from_numpy(np.stack([r[0] for r in rows])).to(dev)  # [S, 2 + K, L]
+    tf = encode_text(clip_params["text"], toks.reshape(-1, toks.shape[-1]), cfg.clip)
+    tf = tf.reshape(S, toks.shape[1], -1)
+    sent_f, np_f, other_f = tf[:, 0], tf[:, 1], tf[:, 2:]
+    r = cfg.guidance.r
+    ls = clip_params["logit_scale"]
+    score = calculate_score(feats, r * sent_f + (1 - r) * np_f, ls).T  # [S, P]
+    n_others = torch.tensor([r_[1] for r_ in rows], device=dev)
+    k_mask = torch.arange(other_f.shape[1], device=dev)[None, :] < n_others[:, None]
+    neg_sum = torch.where(k_mask[..., None], other_f, 0.0).sum(1)
+    neg_mean = torch.where((n_others > 0)[:, None], neg_sum / torch.clamp(n_others, min=1)[:, None], 0.0)
+    neg_norm = torch.clamp(torch.linalg.norm(neg_mean, dim=-1, keepdim=True), min=1e-6)
+    score_neg = (torch.exp(ls) * (feats / torch.linalg.norm(feats, dim=-1, keepdim=True)) @ (neg_mean / neg_norm).T).T
+
+    g = cfg.gem.img_size // cfg.clip.patch_size
+    npf_n = np_f / torch.clamp(torch.linalg.norm(np_f, dim=-1, keepdim=True), min=1e-6)
+    rel = (gem_pf @ npf_n.T).reshape(g, g, S)  # the sentence axis rides as the channel axis
+    heat448 = resize_bilinear(rel, (cfg.gem.img_size, cfg.gem.img_size))
+    heat = place_valid_region_antialias(heat448, (C, C), (h, w)).movedim(-1, 0)  # [S, C, C]
+    vm = valid_mask((C, C), (h, w), dev)
+    heat = normalize_heatmap(heat, vm, [r_[2] for r_ in rows])
+    black = torch.tensor([r_[4] for r_ in rows], dtype=torch.float32, device=dev)
+    gem_scores = gem_mask_scores(heat, props.masks, vm, black)  # [S, P]
+    # every proposal's (I, U, IoU) against the ground truth (mask_iou, for all P at once)
+    i = (props.masks & gt).sum(dim=(-2, -1)).float()
+    u = (props.masks | gt).sum(dim=(-2, -1)).float()
+    iou = torch.where(u == 0, 0.0, i / torch.clamp(u, min=1.0))
+    return Ingredients(int(props.num), score, score_neg, gem_scores, box_xyxy_to_xywh(props.boxes_xyxy), props.valid,
+                       torch.stack([i, u, iou], dim=-1))
+
+
+def select_sentences(cfg: PipelineConfig, ing: Ingredients, rows, k1: int, k2: int):
+    """``select_candidates`` per sentence (it branches on each sentence's
+    flags in Python) -> [(pure_index, final_index)]."""
+    sels = [
+        select_candidates(ing.score[i], ing.score_neg[i], ing.boxes_xywh, ing.gem_scores[i], ing.prop_valid,
+                          rows[i][3], rows[i][5], k1, k2, alpha=cfg.guidance.alpha)
+        for i in range(len(rows))
+    ]
+    return [(sel.pure_index, sel.final_index) for sel in sels]
+
+
 class HybridGLPipeline:
     def __init__(self, cfg: PipelineConfig, sam_params, clip_params, parser: Optional[ExpressionParser] = None, tokenizer=None, device=None):
         if cfg.amg.crop_n_layers > 1:
             raise NotImplementedError("AMG with more than one crop layer is not supported (nor by the reference)")
         self.cfg = cfg
         self.device = torch.device(device) if device is not None else sam_params["prompt"]["pe_gaussian"].device
-        self.sam_params = sam_params
+        # what depends on the weights alone is built once (the reference's runner.py:118-133)
+        self.sam_params = prepare_sam_params(sam_params, cfg.sam)
         self.clip_params = clip_params
         self.parser = parser or get_parser(rela_right_bug=cfg.compat.rela_right_bug)
         if tokenizer is None:
@@ -129,20 +276,7 @@ class HybridGLPipeline:
 
     def _launch_proposals(self, sample: ImageSample) -> Proposals:
         """The proposal stage on the device (SAM encoder + AMG)."""
-        cfg = self.cfg
-        image_1024 = torch.from_numpy(np.asarray(sample.image_1024)).to(self.device)
-        if cfg.amg.crop_n_layers >= 1:
-            image_c = torch.from_numpy(np.asarray(sample.image_canonical)).to(self.device)
-            props = generate_proposals_multicrop(
-                self.sam_params, image_1024, sample.rh, sample.rw, image_c, sample.h, sample.w,
-                cfg.sam, cfg.amg, cfg.canonical_size,
-            )
-        else:
-            props = generate_proposals(
-                self.sam_params, image_1024, sample.rh, sample.rw, sample.h, sample.w,
-                cfg.sam, cfg.amg, cfg.canonical_size,
-            )
-        return props
+        return launch_proposals(self.cfg, self.sam_params, sample, self.device)
 
     def _finish_proposals(self, props: Proposals, hw) -> Proposals:
         """The host side of the proposal stage: the overflow warning, the
@@ -168,29 +302,13 @@ class HybridGLPipeline:
         return props
 
     def _cleanup_host(self, props: Proposals, hw) -> Proposals:
-        host = Proposals(*(t.cpu().numpy() if isinstance(t, torch.Tensor) else t for t in props))
-        amg = self.cfg.amg
-        out, changed = postprocess_small_regions(
-            host, amg.min_mask_region_area, max(amg.box_nms_thresh, amg.crop_nms_thresh), hw=hw
-        )
-        if not changed:
-            return props
-        dev = self.device
-        return Proposals(
-            *(torch.from_numpy(np.ascontiguousarray(f)).to(dev) for f in out[:7]),
-            num=out.num,
-            overflow=out.overflow,
-        )
+        return cleanup_host(self.cfg, props, hw, self.device)
 
     @staticmethod
     def _bucket_props(props: Proposals) -> Proposals:
         """Slice to the smallest power-of-two bucket (min 8) covering the
-        highest live index: the cleanup invalidates suppressed duplicates in
-        place, so validity is not always a prefix. Indices are unchanged."""
-        P = int(props.masks.shape[0])
-        live = torch.nonzero(props.valid).flatten()
-        extent = int(live.max()) + 1 if live.numel() else props.num
-        return HybridGLPipeline._slice_props(props, min(next_pow2(extent, base=8), P))
+        highest live index. Indices are unchanged."""
+        return HybridGLPipeline._slice_props(props, bucket_size(props.valid, props.num))
 
     @staticmethod
     def _slice_props(props: Proposals, bucket: int) -> Proposals:
@@ -201,74 +319,22 @@ class HybridGLPipeline:
 
     # ------------------------------------------------------------- stages
     def _feature_stage(self, props: Proposals, image_c: torch.Tensor, h: int, w: int):
-        cfg = self.cfg
-        glob, local = build_crops(image_c, props.masks, (h, w), cfg.crop_size, cfg.blur_ksize)
-        feats = hybrid_forward(
-            self.clip_params["visual"], local, glob, props.masks.float(), cfg.clip,
-            fusion_mode=cfg.fusion_mode, masking_block=cfg.guidance.masking_block,
-            compat=cfg.compat, masks_hw=(h, w),
-        )
-        # squash-resize the valid region to the GEM input (uint8 rounding as
-        # the reference's PIL intermediate), then normalize
-        gem_u8 = torch.round(
-            resize_bilinear(image_c, (cfg.gem.img_size, cfg.gem.img_size), src_hw=(h, w))
-        ).to(torch.uint8)
-        gem_img = gem_preprocess(gem_u8, cfg.gem.img_size)
-        # GEM patch features are text-independent: once per image
-        gem_pf, _, _ = gem_image_features(self.clip_params["visual"], gem_img[None], cfg.clip, cfg.gem)
-        gem_pf = gem_pf[0] / torch.clamp(torch.linalg.norm(gem_pf[0], dim=-1, keepdim=True), min=1e-6)
-        return feats, gem_pf
+        return feature_stage(self.cfg, self.clip_params, props, image_c, h, w)
 
     def _sentence_stage(self, sample, props, feats, gem_pf, rows, k1, k2, gt, state):
-        """All sentences of an image through one sentence stage with a
-        leading sentence dimension (the reference's ``_sentences_batched``,
-        without its power-of-two sentence buckets: eager PyTorch compiles
-        nothing per shape): the text encoder, both scores, the heatmap's
-        resize, placement and normalisation and the per-mask GEM scores are
-        batched; ``select_candidates`` branches on each sentence's flags in
-        Python and is looped. A sentence's selections and IoUs do not depend
-        on the sentences beside it."""
-        cfg, C = self.cfg, self.cfg.canonical_size
-        h, w = sample.h, sample.w
-        S = len(rows)
+        """All sentences of an image: their ingredients in one batched call
+        (:func:`sentence_ingredients`), then the selections and the IoU
+        accumulation, sentence by sentence."""
         with self._span("sentence_stage"):
-            toks = torch.from_numpy(np.stack([r[0] for r in rows])).to(self.device)  # [S, 2 + K, L]
-            tf = encode_text(self.clip_params["text"], toks.reshape(-1, toks.shape[-1]), cfg.clip)
-            tf = tf.reshape(S, toks.shape[1], -1)
-            sent_f, np_f, other_f = tf[:, 0], tf[:, 1], tf[:, 2:]
-            r = cfg.guidance.r
-            ls = self.clip_params["logit_scale"]
-            score = calculate_score(feats, r * sent_f + (1 - r) * np_f, ls).T  # [S, P]
-            n_others = torch.tensor([r_[1] for r_ in rows], device=self.device)
-            k_mask = torch.arange(other_f.shape[1], device=self.device)[None, :] < n_others[:, None]
-            neg_sum = torch.where(k_mask[..., None], other_f, 0.0).sum(1)
-            neg_mean = torch.where((n_others > 0)[:, None], neg_sum / torch.clamp(n_others, min=1)[:, None], 0.0)
-            neg_norm = torch.clamp(torch.linalg.norm(neg_mean, dim=-1, keepdim=True), min=1e-6)
-            score_neg = (torch.exp(ls) * (feats / torch.linalg.norm(feats, dim=-1, keepdim=True)) @ (neg_mean / neg_norm).T).T
-
-            g = cfg.gem.img_size // cfg.clip.patch_size
-            npf_n = np_f / torch.clamp(torch.linalg.norm(np_f, dim=-1, keepdim=True), min=1e-6)
-            rel = (gem_pf @ npf_n.T).reshape(g, g, S)  # the sentence axis rides as the channel axis
-            heat448 = resize_bilinear(rel, (cfg.gem.img_size, cfg.gem.img_size))
-            heat = place_valid_region_antialias(heat448, (C, C), (h, w)).movedim(-1, 0)  # [S, C, C]
-            vm = valid_mask((C, C), (h, w), self.device)
-            heat = normalize_heatmap(heat, vm, [r_[2] for r_ in rows])
-            black = torch.tensor([r_[4] for r_ in rows], dtype=torch.float32, device=self.device)
-            gem_scores = gem_mask_scores(heat, props.masks, vm, black)  # [S, P]
-            boxes = box_xyxy_to_xywh(props.boxes_xyxy)
-            sels = [
-                select_candidates(score[i], score_neg[i], boxes, gem_scores[i], props.valid, rows[i][3], rows[i][5],
-                                  k1, k2, alpha=cfg.guidance.alpha)
-                for i in range(S)
-            ]
+            ing = sentence_ingredients(self.cfg, self.clip_params, props, feats, gem_pf, rows, (sample.h, sample.w), gt)
+            picks = select_sentences(self.cfg, ing, rows, k1, k2)
+        iou = ing.iu[:, 2].tolist()  # one download for every sentence's two IoUs
         results = []
-        for sentence, sel in zip(sample.sentences, sels):
-            pure = mask_iou(props.masks[sel.pure_index], gt)
-            final = mask_iou(props.masks[sel.final_index], gt)
+        for sentence, (pure_index, final_index) in zip(sample.sentences, picks):
             if sample.gt_mask is not None:
-                state.pure = accumulate(state.pure, pure)
-                state.final = accumulate(state.final, final)
-            results.append(SentenceResult(sentence, sel.pure_index, sel.final_index, float(pure[2]), float(final[2])))
+                state.pure = accumulate(state.pure, ing.iu[pure_index])
+                state.final = accumulate(state.final, ing.iu[final_index])
+            results.append(SentenceResult(sentence, pure_index, final_index, iou[pure_index], iou[final_index]))
         return results
 
     # --------------------------------------------------------------- host

@@ -135,8 +135,11 @@ def sam_decode_flops(sam: SamConfig, n_points: int) -> float:
     )
 
 
-def sam_decode_flops_executed(sam: SamConfig, n_points: int) -> float:
+def sam_decode_flops_executed(sam: SamConfig, n_points: int, token_lanes: int | None = None) -> float:
     """FLOPs our decoder IMPLEMENTATION executes for ``n_points`` prompts.
+    ``token_lanes``: the token lanes per head that the side-switched products
+    run over (the kernels and their plain versions pad the 7 tokens to 8;
+    default: the tokens themselves, the reference's count).
 
     Models models/sam/decoder.py's shared-image path (the CUDA kernels
     compute the same contractions as its plain form): the image side is
@@ -155,6 +158,7 @@ def sam_decode_flops_executed(sam: SamConfig, n_points: int) -> float:
     Ti = G * G
     T = sam.num_mask_tokens + 1 + 2  # mask+iou tokens + point + pad ~7
     L = sam.decoder_depth
+    Tl = token_lanes or T  # lanes of the products over the image stream
 
     self_attn = 4 * _mm(T, Da, D) + 2 * (2 * T * T * Da)
     mlp = 2 * _mm(T, sam.decoder_mlp_dim, D)
@@ -162,11 +166,11 @@ def sam_decode_flops_executed(sam: SamConfig, n_points: int) -> float:
     t2i_l0 = 2 * _mm(T, Da, D) + 2 * (2 * T * Ti * Da)
     # layer 0 i2t (_attn_shared_q): token k/v proj, scores over hd, readout
     # contraction over (heads*T) into D
-    i2t_l0 = 2 * _mm(T, Da, D) + 2 * T * Ti * Da + _mm(T, D, Da) + 2 * Ti * (h * T) * D
+    i2t_l0 = 2 * _mm(T, Da, D) + 2 * Tl * Ti * Da + _mm(T, D, Da) + 2 * Ti * (h * Tl) * D
     # later-layer t2i (_t2i_attn): q proj + qw fold + scores/ctx over C
-    t2i = 2 * _mm(T, Da, D) + 2 * (2 * (h * T) * Ti * D) + 2 * T * D * (h * D)
+    t2i = 2 * _mm(T, Da, D) + 2 * (2 * (h * Tl) * Ti * D) + 2 * T * D * (h * D)
     # later-layer i2t (_i2t_attn): token k/v proj + wk/vo folds + scores/ctx
-    i2t = 4 * _mm(T, Da, D) + 2 * (2 * (h * T) * Ti * D)
+    i2t = 4 * _mm(T, Da, D) + 2 * (2 * (h * Tl) * Ti * D)
     per_point = (
         L * (self_attn + mlp)
         + (t2i_l0 + i2t_l0)

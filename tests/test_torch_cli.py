@@ -171,16 +171,19 @@ def test_cli_end_to_end(refer_root, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("extra,error,match", [
-    (("--data_parallel",), NotImplementedError, "Queue 1 item 13"),
+    (("--data_parallel",), SystemExit, "--sam_checkpoint and --clip_checkpoint are required"),
     (("--sam_checkpoint", "ckpts/sam_orbax", "--clip_checkpoint", "ckpts/clip_orbax"), SystemExit,
      "does not read orbax directories"),
 ])
 def test_cli_unported_options_raise(refer_root, tmp_path, extra, error, match):
-    """What the port does not take stops the run with its reason: multi-GPU
-    evaluation, and the reference's orbax checkpoint directories."""
+    """What the port does not take stops the run with its reason: the
+    reference's orbax checkpoint directories; and ``--data_parallel``, which
+    is ported (tests/test_torch_full_eval.py), stops like the sequential run
+    where no weights are named, leaving no process group behind."""
     args = [a for a in tiny_cli_args(refer_root, tmp_path) if a != "--random-weights"]
     with pytest.raises(error, match=match):
         cli_main(args + list(extra))
+    assert not torch.distributed.is_initialized()
 
 
 def test_cli_loads_torch_checkpoints(refer_root, tmp_path, monkeypatch, capsys):

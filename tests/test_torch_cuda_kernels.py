@@ -15,6 +15,10 @@ heads x tp 8, c4 = 64, c8 = 32) are held to the kernel check's bars at S =
 64, 4096 and a ragged S, with a B that leaves the last row split short,
 scores x40, broadcast and per-prompt pe, and bit-equality of two runs; the
 Python ``variant`` functions are held to the C dispatch they mirror.
+
+K1 and K2 are also held at the head counts a rank of the tensor-parallel
+encoder gives them (8 and 4 heads at head dim 80, short and ragged S), and K3
+and K4 fed from the prepared decoder operands against the raw ones.
 """
 
 import pytest
@@ -865,3 +869,136 @@ def test_i2t_ln_then_t2i_split_route_at_full_width(dev, shared, B, T):
     close_tc(ctx, ctx0)
     live = (torch.arange(GT, device=dev) % tp) < T  # the padding lanes' columns are weightless, not compared
     close_tc(ctx[:, live], ctx0[:, live])
+
+
+# ---------------------------------------------------------------------------
+# The tensor-parallel encoder's shapes and the prepared decoder operands
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("fn,windows,heads,G", [
+    (flash_windowed_fused, 25, 8, 14),  # ViT-H under mp = 2: 25 windows x 8 heads a rank
+    (flash_windowed_fused, 25, 4, 14),  # mp = 4
+    (flash_attention_fused, 1, 8, 64),  # the global blocks: 8 x [4096, 80]
+    (flash_attention_fused, 1, 4, 64),
+    (flash_windowed_fused, 9, 4, 5),    # short: S = 25, keys padded to 32
+    (flash_windowed_fused, 3, 4, 13),   # ragged: S = 169, three key tiles, the last partial
+    (flash_windowed_fused, 1, 1, 14),   # a single window-head
+])
+def test_rel_pos_attention_at_tensor_parallel_head_counts(dev, fn, windows, heads, G):
+    """K1 and K2 at the heads a rank of the tensor-parallel encoder holds
+    (head dim 80 unchanged): the tensor-core kernel takes every launch, the
+    output meets the attention bar, and the rank's heads give the same bits
+    as the same heads inside the full 16-head call."""
+    hd, S = 80, G * G
+    g = torch.Generator(device=dev).manual_seed(windows * heads + G)
+    full = 16
+    q, k, v = (torch.randn((windows, full, S, hd), generator=g, device=dev).bfloat16() for _ in range(3))
+    rh, rw = (torch.randn((windows, full, S, G), generator=g, device=dev) * 0.5 for _ in range(2))
+
+    def call(lo, hi):
+        flat = lambda t: t[:, lo:hi].reshape(-1, *t.shape[2:]).contiguous()  # noqa: E731
+        return fn(flat(q), flat(k), flat(v), flat(rh), flat(rw), G, hd**-0.5).reshape(windows, hi - lo, S, hd)
+
+    before, before_tc = fn.launches, fn.tc_launches
+    local = call(heads, 2 * heads)  # the second shard's head group
+    assert (fn.launches, fn.tc_launches) == (before + 1, before_tc + 1)
+    whole = call(0, full)
+    torch.cuda.synchronize()
+    assert torch.equal(local, whole[:, heads : 2 * heads])
+    sl = lambda t: t[:, heads : 2 * heads].reshape(-1, *t.shape[2:]).float()  # noqa: E731
+    want = reference_attention_rel_pos(sl(q), sl(k), sl(v), sl(rh), sl(rw), G, hd**-0.5).flatten()
+    got = local.float().flatten()
+    assert torch.isfinite(got).all()
+    assert float(got @ want / (got.norm() * want.norm())) >= 0.999
+    assert float((got - want).abs().mean() / want.abs().mean()) < 0.02
+
+
+def _decoder_inputs(dev, dtype, B, seed):
+    """SAM ViT-H decoder params (random, ``dtype``) with a [64, 64, 256] embedding and B point prompts."""
+    from hybridgl_tpu_torch.core.config import sam_preset
+    from hybridgl_tpu_torch.core.params import cast_tree, init_sam
+    from hybridgl_tpu_torch.models.sam.prompt_encoder import dense_pe, embed_points, no_mask_dense
+
+    cfg = sam_preset("vit_h")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    p = cast_tree({k: v for k, v in init_sam(g, cfg).items() if k != "encoder"}, dtype)
+    emb = (torch.randn((64, 64, 256), generator=g, device=dev) * 0.5).to(dtype)
+    coords = torch.rand((B, 1, 2), generator=g, device=dev) * 1000
+    sparse = embed_points(p["prompt"], coords, torch.ones((B, 1), device=dev), cfg, pad=True)
+    return cfg, p, emb, dense_pe(p["prompt"], cfg), sparse, no_mask_dense(p["prompt"], cfg, 1)[0]
+
+
+@pytest.mark.parametrize("B", [1, 64])
+@pytest.mark.parametrize("multimask", [True, False])
+def test_k4_from_prepared_operands_gives_the_same_bits(dev, B, multimask):
+    """K4 fed the prepared deconv matrices and f32 vectors (built once)
+    against the same kernel fed the views it built on every call: only the
+    place of the computation moved, so the masks are equal bit for bit."""
+    from hybridgl_tpu_torch.models.sam.decoder import _prep_upscale
+
+    cfg, p, emb, _, _, _ = _decoder_inputs(dev, torch.bfloat16, B, 3)
+    g = torch.Generator(device=dev).manual_seed(B)
+    u = p["decoder"]["upscale"]
+    src = (torch.randn((B, 4096, 256), generator=g, device=dev) * 0.5).bfloat16()
+    hyper = torch.randn((B, 3 if multimask else 1, 32), generator=g, device=dev).bfloat16()
+    u1, u2, ln = u["deconv1"], u["deconv2"], u["ln"]
+    w1 = u1["w"].permute(2, 0, 1, 3).reshape(256, 256).to(torch.bfloat16)
+    w2 = u2["w"].permute(2, 0, 1, 3).reshape(64, 128).to(torch.bfloat16)
+    before = upscale_hyper.tc_launches
+    raw = upscale_hyper(src, w1, u1["b"], ln["scale"], ln["bias"], w2, u2["b"], hyper)
+    pu = _prep_upscale(u, 256)
+    prepared = upscale_hyper(src, pu["w1"], pu["b1"], pu["ln_s"], pu["ln_b"], pu["w2"], pu["b2"], hyper)
+    torch.cuda.synchronize()
+    assert upscale_hyper.tc_launches == before + 2
+    assert torch.equal(raw, prepared) and torch.isfinite(raw).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B", [1, 64])
+def test_predict_masks_prepared_against_raw_on_the_card(dev, dtype, B):
+    """The whole decoder at SAM's widths from the prepared tree against the
+    raw tree, K3 fed from the prepared folds: on the decoder's bar in bf16
+    (logits max|d| < 0.1, > 99.5% of thresholded pixels, IoU |d| < 2e-2; the
+    folded products round once more) and to 2e-3 in f32; the same K3 and K4
+    launches both ways, and K3's norm4 vectors and bias reach it in f32
+    without a cast. At f32 the decoder runs at half width (the CUDA-core
+    kernels' operands do not fit shared memory at C = 256)."""
+    import dataclasses
+
+    from hybridgl_tpu_torch.core.params import cast_tree, init_sam
+    from hybridgl_tpu_torch.models.sam.decoder import predict_masks, prepare_decoder_params
+    from hybridgl_tpu_torch.models.sam.prompt_encoder import dense_pe, embed_points, no_mask_dense
+
+    if dtype == torch.bfloat16:
+        cfg, p, emb, pe, sparse, dense = _decoder_inputs(dev, dtype, B, 5)
+    else:
+        from hybridgl_tpu_torch.core.config import sam_preset
+
+        cfg = dataclasses.replace(sam_preset("vit_h"), prompt_dim=128, decoder_mlp_dim=1024)
+        g = torch.Generator(device=dev).manual_seed(7)
+        p = {k: v for k, v in init_sam(g, cfg).items() if k != "encoder"}
+        emb = torch.randn((64, 64, 128), generator=g, device=dev) * 0.5
+        coords = torch.rand((B, 1, 2), generator=g, device=dev) * 1000
+        sparse = embed_points(p["prompt"], coords, torch.ones((B, 1), device=dev), cfg, pad=True)
+        pe, dense = dense_pe(p["prompt"], cfg), no_mask_dense(p["prompt"], cfg, 1)[0]
+    prep = prepare_decoder_params(p["decoder"], cfg)
+    assert prep["transformer"]["layers"][1]["prepared_i2t"]["ln_scale"].dtype == torch.float32
+    counts = []
+    outs = []
+    with torch.inference_mode():
+        for tree in (p["decoder"], prep):
+            before = (i2t_ln_then_t2i.launches, upscale_hyper.launches, i2t_ln_then_t2i.tc_launches)
+            outs.append(predict_masks(tree, emb, pe, sparse, cfg, dense_prompts=dense))
+            counts.append((i2t_ln_then_t2i.launches - before[0], upscale_hyper.launches - before[1],
+                           i2t_ln_then_t2i.tc_launches - before[2]))
+    torch.cuda.synchronize()
+    (m_raw, iou_raw), (m_prep, iou_prep) = outs
+    assert counts[0] == counts[1] == (2, 1, 2 if dtype == torch.bfloat16 else 0)
+    assert torch.isfinite(m_prep).all()
+    d = float((m_raw - m_prep).abs().max())
+    if dtype == torch.bfloat16:
+        assert d < 0.1 and float((iou_raw - iou_prep).abs().max()) < 2e-2
+        assert float(((m_raw > 0) == (m_prep > 0)).float().mean()) > 0.995
+    else:
+        assert d < 2e-3 and float((iou_raw - iou_prep).abs().max()) < 2e-4

@@ -31,13 +31,21 @@ sys.meta_path.insert(0, Refuse())
 '''
 
 _WALK = '''
-import importlib, pkgutil
+import importlib, pkgutil, sys
+import torch
+TORCH_ALONE = set(sys.modules)  # what "import torch" brings by itself
 import hybridgl_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(hybridgl_tpu_torch.__path__, "hybridgl_tpu_torch.")]
 assert len(names) > 40, names
 for new in ("models.sam.predictor", "models.clip.resnet", "models.clip.preprocess", "pipeline.visual_prompts",
-            "kernels.connected", "utils.flops", "utils.buckets"):
+            "kernels.connected", "utils.flops", "utils.buckets", "parallel.mesh", "parallel.full_eval",
+            "parallel.encoder_tp", "parallel.launch", "parallel.workers", "tools.dryrun", "tools.bench",
+            "tools.profile_proposals", "tools.profile_multicrop", "tools.profile_trace", "tools.compare_parity",
+            "tools.dump_reference_parity", "tools.flops_audit", "tools.probe_dp_cleanup"):
     assert "hybridgl_tpu_torch." + new in names, new
+import sys
+import hybridgl_tpu_torch.pipeline.runner, hybridgl_tpu_torch.cli.main
+assert "torch.distributed" not in sys.modules or "torch.distributed" in TORCH_ALONE, "the serving modules import torch.distributed"
 for name in names:
     importlib.import_module(name)
 '''
@@ -56,7 +64,7 @@ def test_imports_with_jax_and_reference_refused(target):
 _IMPORT = re.compile(r"^\s*(?:from|import)\s+(?:jax|jaxlib|hybridgl_tpu)(?:[\s.]|$)", re.M)
 _DYNAMIC = re.compile(r"import_module\(\s*[\"'](?:jax|jaxlib|hybridgl_tpu)[\"'.]|__import__\(\s*[\"'](?:jax|jaxlib|hybridgl_tpu)[\"'.]")
 # one case per subpackage; "" is the package's top level
-_SUBPACKAGES = ("", "cli", "core", "data", "eval", "kernels", "lang", "models", "pipeline", "tools", "utils")
+_SUBPACKAGES = ("", "cli", "core", "data", "eval", "kernels", "lang", "models", "parallel", "pipeline", "tools", "utils")
 
 
 def _sources(sub):
