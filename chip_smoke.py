@@ -68,8 +68,11 @@ Phases (every phase asserts; any failure exits non-zero):
      min_mask_region_area, and noisy blobs, 16 at 640^2 and 128 at 1024^2,
      then one RefCOCO image's own proposals, through the runner's host pass
      (the native library) and through kernels/connected.py on the card
-     (plain PyTorch; the runner does not call it): equal masks, boxes and
-     validity, both times;
+     (plain PyTorch, what HYBRIDGL_CLEANUP=device selects): equal masks,
+     boxes and validity, both times; then one RefCOCO image through run_image
+     under HYBRIDGL_CLEANUP=device against the host pass, on its own
+     proposals and on 16 rectangles with holes and islands in their place:
+     equal selections and IoUs, both times;
  12. data parallel on the card: (a) the CLI with --data_parallel at world 1
      over nccl at full width on phase 8's synthetic REFER tree gives the
      sequential CLI's result log and parity records (equal indices, IoUs |d| <
@@ -88,7 +91,15 @@ Phases (every phase asserts; any failure exits non-zero):
      prepared;
  15. bench: tools/bench.py at BENCH_ITERS=4 BENCH_REPS=3, its JSON line echoed;
      and the multi-device dry run (tools/dryrun.py): four ranks on cuda:0 over
-     gloo at its tiny configuration.
+     gloo at its tiny configuration;
+ 16. the kernels as operators: the host cost of a launch through
+     torch.ops.hybridgl against the direct call (tools/dispatch_cost.py), then
+     the serving export (tools/export_serving.py) at full width: the ViT-H
+     encoder and the ViT-B/16 G2L fusion at P = 64 exported with torch.export,
+     saved, loaded here and in a fresh process that imports only the port;
+     28 + 4 and 15 kernel nodes; each loaded program once on the card against
+     eager (cos > 0.999), K1 +28, K2 +4 and K6 +15 launches, all on the
+     tensor cores; the .pt2 sizes and both times.
 The ranks of phases 12, 13 and 15 run in processes of their own and report
 their launch counts, which the kernels line adds to this process's.
 The decoder runs its default route: the HYBRIDGL_FUSED_* switches are
@@ -927,11 +938,11 @@ def _noisy_survivors(pipe, n_live, h=480, w=640):
 def phase_device_cleanup(refcoco, phrasecut):
     """The two cleanup passes, the runner's native one on the host (with the
     masks' download and upload) and kernels/connected.py on the card (plain
-    PyTorch, which the runner does not call), on synthetic survivors with
+    PyTorch, the runner's under HYBRIDGL_CLEANUP=device), on synthetic survivors with
     holes and islands around min_mask_region_area and on noisy blobs, 16 at
     RefCOCO's 640^2 frame and 128 at PhraseCut's 1024^2, then on one RefCOCO
     image's own proposals: equal masks, boxes and validity, both times
-    printed."""
+    printed; then the runner's switch (:func:`_runner_cleanup_switch`)."""
     import torch
 
     from hybridgl_tpu_torch.kernels.connected import cleanup_proposals_jit
@@ -973,6 +984,51 @@ def phase_device_cleanup(refcoco, phrasecut):
                 fail(f"the cleanup on the card differs from the host cleanup ({tag}, {kind})")
         del bundles, bundle, host, dev, out
         torch.cuda.empty_cache()
+    _runner_cleanup_switch(*refcoco)
+
+
+def _runner_cleanup_switch(pipe, samples):
+    """One RefCOCO image through run_image with HYBRIDGL_CLEANUP=device (a
+    pipeline built under it) and with the default host pass: on the image's
+    own proposals (random weights leave one), and on 16 rectangles with holes
+    and islands put in their place before the cleanup (13 survive it). Equal
+    selections and IoUs; both times after a warm-up."""
+    from hybridgl_tpu_torch.pipeline.runner import HybridGLPipeline
+
+    saved = os.environ.get("HYBRIDGL_CLEANUP")
+    os.environ["HYBRIDGL_CLEANUP"] = "device"
+    try:
+        on_card = HybridGLPipeline(pipe.cfg, pipe.sam_params, pipe.clip_params, pipe.parser, pipe.tokenizer,
+                                   device=pipe.device)
+    finally:
+        if saved is None:
+            os.environ.pop("HYBRIDGL_CLEANUP")
+        else:
+            os.environ["HYBRIDGL_CLEANUP"] = saved
+    if not on_card._device_cleanup or pipe._device_cleanup:
+        fail("HYBRIDGL_CLEANUP=device did not select the cleanup on the card (or the default pipeline took it)")
+    sample = samples[1]
+    for label in ("its own proposals", "16 rectangles with holes and islands in place of its proposals"):
+        out = {}
+        for name, p in (("host pass", pipe), ("HYBRIDGL_CLEANUP=device", on_card)):
+            if label.startswith("16"):
+                p._launch_proposals = lambda _, p=p: _survivors_with_holes_and_islands(p, 16)
+            try:
+                p.run_image(sample, p.init_state())  # warm-up
+                state = p.init_state()
+                ms, results = _wall_ms(lambda: p.run_image(sample, state))
+            finally:
+                p.__dict__.pop("_launch_proposals", None)
+            out[name] = (ms, [(r.pure_index, r.final_index) for r in results],
+                         [(r.pure_iou, r.final_iou) for r in results], p.last_proposals.num)
+        (ms_h, sel_h, iou_h, n_h), (ms_d, sel_d, iou_d, n_d) = out.values()
+        d_iou = max(abs(a - b) for x, y in zip(iou_h, iou_d) for a, b in zip(x, y))
+        ok = sel_h == sel_d and d_iou <= 1e-6 and n_h == n_d
+        log(f"  run_image, one RefCOCO image, {label}: host pass {ms_h:.1f} ms, HYBRIDGL_CLEANUP=device {ms_d:.1f} ms")
+        log(f"{'PASS' if ok else 'FAIL'} run_image under HYBRIDGL_CLEANUP=device == the host pass, {label}: "
+            f"selections {sel_d}, live proposals {n_d}, IoU max|d| {d_iou:.2e}")
+        if not ok:
+            fail(f"run_image under HYBRIDGL_CLEANUP=device differs from the host pass ({label})")
 
 
 def phase_prepared(pipe, samples, weights):
@@ -1020,6 +1076,126 @@ def phase_prepared(pipe, samples, weights):
         f"K4 x {delta['upscale_hyper_blocked']} over the two calls")
     if not ok:
         fail("the prepared decoder params disagree with the raw tree")
+
+
+def phase_dispatch_cost():
+    """The host cost of a launch through the registered operators
+    (tools/dispatch_cost.py: direct call, operator, custom_op, wrapper, on
+    K1, K6, K5 and K3 at small shapes). Not a counted path."""
+    from hybridgl_tpu_torch.tools.dispatch_cost import measure
+
+    return measure(calls=1000, rounds=5, log=log)
+
+
+_FRESH_LOAD = """
+import json, sys, torch
+from hybridgl_tpu_torch.kernels import launch_counts, reset_launch_counts, tc_launch_counts
+from hybridgl_tpu_torch.tools.export_serving import load_exported
+tmp = sys.argv[1]
+assert not {"jax", "jaxlib", "hybridgl_tpu"} & set(sys.modules)
+args = torch.load(tmp + "/args.pt")
+out, counts = {}, {}
+with torch.no_grad():
+    for name in ("sam_encoder", "hybrid_fusion"):
+        program = load_exported(tmp + "/" + name + ".pt2").module()
+        reset_launch_counts()
+        out[name] = program(*args[name])
+        counts[name] = [{k: v for k, v in launch_counts().items() if v},
+                        {k: v for k, v in tc_launch_counts().items() if v}]
+torch.save(out, tmp + "/fresh.pt")
+print(json.dumps(counts))
+"""
+
+
+def phase_export(weights, card):
+    """tools/export_serving.py at full width on the card: the SAM ViT-H
+    encoder (the main path's bf16 weights, prepared) and the ViT-B/16 G2L
+    fusion at P = 64, exported with torch.export on the card, saved, loaded in this process and in a fresh one that imports only the
+    port; the graphs hold 28 + 4 torch.ops.hybridgl attention nodes and the
+    G2L's 15 K6 nodes; one run of each loaded program against eager: cos >
+    0.999 (the encoder bar; equal expected: the same kernels on the same
+    inputs), K1 +28, K2 +4 for the frame and K6 +15, every launch on the
+    tensor cores. Prints the .pt2 sizes and both times."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from hybridgl_tpu_torch.core.config import PipelineConfig
+    from hybridgl_tpu_torch.kernels import launch_counts, tc_launch_counts
+    from hybridgl_tpu_torch.models.sam.image_encoder import prepare_sam_params
+    from hybridgl_tpu_torch.tools import export_serving as es
+
+    cfg, P = PipelineConfig(sam_model="vit_h", clip_model="ViT-B/16", fusion_mode="G2L"), 64
+    enc = prepare_sam_params({"encoder": weights[0]["encoder"]}, cfg.sam)["encoder"]
+    visual = weights[1]["visual"]
+    dev = visual["conv1"].device
+    rng = np.random.default_rng(5)
+    S, img = cfg.clip.image_size, cfg.sam.img_size
+    grid = rng.random((P, 1, 14, 14)) > 0.5  # blocky masks: about half the patches in each proposal
+    masks = torch.nn.functional.interpolate(torch.from_numpy(grid.astype(np.float32)), size=(S, S))[:, 0]
+    image = torch.from_numpy(rng.standard_normal((1, img, img, 3)).astype(np.float32)).to(dev)
+    local, glob = (torch.from_numpy(rng.standard_normal((P, S, S, 3)).astype(np.float32)).to(dev) for _ in range(2))
+    args = {"sam_encoder": (enc, image), "hybrid_fusion": (visual, local, glob, masks.to(dev))}
+    mb = es.fusion_masking_block(cfg)
+    eager = {"sam_encoder": es.SamEncoder(cfg.sam), "hybrid_fusion": es.HybridFusion(cfg.clip, cfg.fusion_mode, mb)}
+    want_nodes = {"sam_encoder": {"flash_windowed_fused": 28, "flash_attention_fused": 4},
+                  "hybrid_fusion": {"clip_attention": K6_LAUNCHES_PER_MODE["G2L"]}}
+    with tempfile.TemporaryDirectory() as tmp:
+        outs = {}
+        for name in args:
+            t0 = time.perf_counter()
+            program = (es.export_encoder(cfg, enc, dev) if name == "sam_encoder"
+                       else es.export_fusion(cfg, visual, P, dev))
+            export_s = time.perf_counter() - t0
+            path = os.path.join(tmp, f"{name}.pt2")
+            torch.export.save(program, path)
+            nodes = es.kernel_nodes(program)
+            log(f"  export {name}: {export_s:.1f} s, {name}.pt2 {os.path.getsize(path)} bytes "
+                f"({os.path.getsize(path) / 1e6:.2f} MB), kernel nodes {nodes}")
+            if nodes != want_nodes[name]:
+                fail(f"exported {name}: kernel nodes {nodes}, expected {want_nodes[name]}")
+            loaded = es.load_exported(path).module()
+            with torch.no_grad():
+                want = eager[name](*args[name])
+                before, tc_before = launch_counts(), tc_launch_counts()
+                first_ms, got = _wall_ms(lambda: loaded(*args[name]))
+                delta = {k: v - before[k] for k, v in launch_counts().items() if v != before[k]}
+                tc_delta = {k: v - tc_before[k] for k, v in tc_launch_counts().items() if v != tc_before[k]}
+                loaded_ms = statistics.median(_wall_ms(lambda: loaded(*args[name]))[0] for _ in range(3))
+                eager_ms = statistics.median(_wall_ms(lambda: eager[name](*args[name]))[0] for _ in range(3))
+            g, w = got.float().flatten(), want.float().flatten()
+            cos = float(g @ w / (g.norm() * w.norm()))
+            d = float((g - w).abs().max())
+            ok = cos > 0.999 and bool(torch.isfinite(g).all()) and delta == want_nodes[name] == tc_delta
+            log(f"  {name}: loaded program {first_ms:.1f} ms (first call), {loaded_ms:.1f} ms (median of 3); "
+                f"eager {eager_ms:.1f} ms; on {card}")
+            log(f"{'PASS' if ok else 'FAIL'} exported {name} (loaded, on the card) == eager: cos {cos:.6f}, max|d| "
+                f"{d:.3e}, equal {torch.equal(got, want)}, launches {delta}, on the tensor cores {tc_delta}")
+            if not ok:
+                fail(f"the exported {name} differs from the eager port or missed its kernels")
+            outs[name] = want
+        torch.save(args, os.path.join(tmp, "args.pt"))
+        t0 = time.perf_counter()
+        env = dict(os.environ, PYTHONPATH=REPO)
+        done = subprocess.run([sys.executable, "-c", _FRESH_LOAD, tmp], cwd=REPO, env=env, capture_output=True,
+                              text=True, timeout=600)
+        if done.returncode != 0:
+            fail(f"loading the exported programs in a fresh process failed: {done.stderr[-3000:]}")
+        counts = json.loads(done.stdout.strip().splitlines()[-1])
+        fresh = torch.load(os.path.join(tmp, "fresh.pt"))
+        for name, want in outs.items():
+            g, w = fresh[name].float().flatten(), want.float().flatten()
+            cos = float(g @ w / (g.norm() * w.norm()))
+            launched, on_tc = counts[name]
+            ok = cos > 0.999 and launched == on_tc == want_nodes[name]
+            log(f"{'PASS' if ok else 'FAIL'} exported {name} loaded in a fresh process (the port alone): cos "
+                f"{cos:.6f}, max|d| {float((g - w).abs().max()):.3e} against eager here, launches {launched}, "
+                f"on the tensor cores {on_tc} ({time.perf_counter() - t0:.1f} s for the process)")
+            if not ok:
+                fail(f"the exported {name} loaded in a fresh process differs or missed its kernels")
+    del outs, fresh, args
+    torch.cuda.empty_cache()
 
 
 def phase_data_parallel(pipe, card):
@@ -1177,6 +1353,10 @@ def main(argv):
     reset_launch_counts()
     phase_prepared(*paths["RefCOCO"], weights)
     counts["prepared params"] = launch_counts()
+    phase_dispatch_cost()
+    reset_launch_counts()
+    phase_export(weights, card)
+    counts["serving export"] = launch_counts()
     # the parallel paths run in ranks of their own: each rank counts its launches and reports them
     for o in phase_data_parallel(paths["RefCOCO"][0], card):
         counts[f"data parallel, rank {o['rank']}"] = o["launches"]

@@ -26,14 +26,20 @@ with its vocabulary, expression parsers, the native region-cleanup binding,
 env helpers, the REFER API, RLE codec, prefetcher, parity log and overlays)
 it keeps its own copy under the same relative path. A kernel wrapper runs its
 plain version for a CPU tensor and launches its CUDA kernel (or raises) for
-a CUDA tensor.
+a CUDA tensor. Importing the package registers the ten kernels as PyTorch
+operators, ``torch.ops.hybridgl.*`` (``kernels/_ops.py``), which a program
+exported by ``tools/export_serving.py`` needs before ``torch.export.load``.
 """
+
+from .kernels import kernel_wrappers as _kernel_wrappers
 
 __version__ = "0.1.0"
 
+_kernel_wrappers()  # registers torch.ops.hybridgl.*
+
 
 def __getattr__(name):
-    """Lazy top-level convenience exports (keeps ``import hybridgl_tpu_torch`` light)."""
+    """Lazy top-level convenience exports."""
     if name == "PipelineConfig":
         from .core.config import PipelineConfig
 

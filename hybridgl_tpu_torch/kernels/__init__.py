@@ -2,8 +2,11 @@
 
 ``flash_attention``, ``clip_attention``, ``pass1_stats``, ``decoder_attn``,
 ``decoder_attn_t2i``, ``decoder_pass`` and ``upscale_hyper`` wrap the
-hand-written CUDA kernels in ``csrc/`` (built by ``_build``); the other
-modules are the plain tensor primitives the reference wrote as XLA.
+hand-written CUDA kernels in ``csrc/`` (built by ``_build``): each wrapper
+calls its registered operator, ``torch.ops.hybridgl.<TPU kernel's name>``
+(``_ops``), whose CUDA implementation launches the kernel and whose CPU one
+runs the plain version. The other modules are the plain tensor primitives
+the reference wrote as XLA.
 
 Each kernel wrapper counts its launches in a plain integer attribute
 (``wrapper.launches``), incremented only where it launches its kernel, once
@@ -16,7 +19,8 @@ from __future__ import annotations
 
 
 def kernel_wrappers():
-    """{name: wrapper} for every CUDA kernel of the port."""
+    """{name: wrapper} for every CUDA kernel of the port, by the name of its
+    operator; importing them registers the ten operators."""
     from .clip_attention import clip_attention
     from .decoder_attn import i2t_ln_update
     from .decoder_attn_t2i import t2i_ctx

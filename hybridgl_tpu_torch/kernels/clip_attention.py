@@ -23,16 +23,17 @@ cast to bf16 would turn into -inf. Row 0 always attends to itself (bias 0),
 so its running max stays finite.
 
 Inputs are q, k, v [N*H, L, hd] (bf16 or f32, unscaled q) and cls_bias
-[N, L] f32 or None; the output is [N*H, L, hd]. On a CPU tensor the wrapper
-runs :func:`reference_clip_attention`; on a CUDA tensor it launches the
-kernel or raises.
+[N, L] f32 or None; the output is [N*H, L, hd]. The wrapper calls its
+operator, ``torch.ops.hybridgl.clip_attention`` (``_ops.py``): on a CPU
+tensor it runs :func:`reference_clip_attention`; on a CUDA tensor it launches
+the kernel or raises.
 """
 
 from __future__ import annotations
 
 import torch
 
-from . import _build
+from . import _build, _ops
 
 # single-tile row limit of the reference's routing (models/clip/layers.py):
 # longer sequences (GEM's 785 tokens) take the plain path
@@ -60,12 +61,8 @@ def reference_clip_attention(q, k, v, cls_bias, num_heads: int, scale: float):
     return torch.matmul(p, v.float()).to(q.dtype)
 
 
-def clip_attention(q, k, v, cls_bias, num_heads: int, scale: float):
-    """K6: whole-row softmax attention with the compact CLS-row bias."""
-    if q.device.type == "cpu":
-        return reference_clip_attention(q, k, v, cls_bias, num_heads, scale)
-    if q.device.type != "cuda":
-        raise RuntimeError(f"clip_attention: unsupported device {q.device}")
+def _launch(q, k, v, cls_bias, num_heads: int, scale: float):
+    """The CUDA implementation of K6: check, launch, count."""
     NH, L, hd = q.shape
     if k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"clip_attention: q/k/v shapes differ {q.shape} {k.shape} {v.shape}")
@@ -102,6 +99,17 @@ def clip_attention(q, k, v, cls_bias, num_heads: int, scale: float):
     clip_attention.launches += 1
     clip_attention.tc_launches += variant(q.dtype, L, hd) == "wgmma"
     return out
+
+
+_k6 = _ops.define(
+    "clip_attention(Tensor q, Tensor k, Tensor v, Tensor? cls_bias, int num_heads, float scale) -> Tensor",
+    reference_clip_attention, _launch, lambda q, *_: torch.empty_like(q))
+
+
+def clip_attention(q, k, v, cls_bias, num_heads: int, scale: float):
+    """K6: whole-row softmax attention with the compact CLS-row bias
+    (``torch.ops.hybridgl.clip_attention``)."""
+    return _k6(q, k, v, cls_bias, int(num_heads), float(scale))
 
 
 clip_attention.launches = 0

@@ -17,10 +17,11 @@ function takes one mask [H, W] or a batch [P, H, W]; a batch is labelled in
 one go, each mask with its own flat indices, and the loop reads one flag per
 sweep from the device. This is plain PyTorch, no hand-written kernel; the
 function names keep the reference's ``_jit`` suffix so that a reader finds
-the counterpart. The runner does not call it (it runs the native host pass):
-the sweep count follows the masks, and on speckled masks the loop is ten
-times slower than the host pass on an H100 (``PERF.md``); ``chip_smoke.py``
-and the tests hold it equal to the host pass.
+the counterpart. The runner and the data-parallel step call it under
+``HYBRIDGL_CLEANUP=device`` and run the native host pass by default: the
+sweep count follows the masks, and on speckled masks the loop is ten times
+slower than the host pass on an H100 (``PERF.md``); ``chip_smoke.py`` and the
+tests hold it equal to the host pass.
 """
 
 from __future__ import annotations

@@ -20,8 +20,9 @@ Two kernels stand behind it (:func:`variant` says which a call takes):
 (C = 256, 8 heads x tp 8, GT2 = 64, S a multiple of 64; what bounds it is
 the element-wise work between its four products, not the products or the
 0.5 GB of image stream), and the CUDA-core ``csrc/decoder_attn.cu`` for f32
-and every other shape (ragged S included). On a CPU tensor each wrapper runs
-its plain PyTorch version; on a CUDA tensor it launches a kernel or raises.
+and every other shape (ragged S included). Each wrapper calls its operator,
+``torch.ops.hybridgl.<name>`` (``_ops.py``): on a CPU tensor it runs its plain
+PyTorch version; on a CUDA tensor it launches a kernel or raises.
 The plain versions round to the stream dtype where the kernels do: w before
 the score product, attn before the vo product, keys' before the next t2i,
 kpe = keys + pe, qw, and p before p^T keys.
@@ -31,7 +32,7 @@ from __future__ import annotations
 
 import torch
 
-from . import _build
+from . import _build, _ops
 
 LN_EPS = 1e-5  # decoder norms are default torch LayerNorm
 TILE_ROWS = 32  # image rows per tile of the CUDA-core kernel (csrc/decoder_attn.cu TR)
@@ -184,14 +185,8 @@ def _launch(name, mode, B, S, C, *, qside, base=None, pe=None, w=None, off=None,
     return keys, ctx, tc
 
 
-def i2t_ln_update(qside, base, w, off, vo, const, ln_scale, ln_bias, heads: int, tp: int, pe=None):
-    """K7: qside [1 or B, S, Cq], base [1 or B, S, Co], w [B, Cq, GT] f32,
-    off [B, GT] f32, vo [B, GT, Co], const/ln_scale/ln_bias [Co] f32, pe
-    [1 or B, S, Cq] or None -> keys' [B, S, Co] in base's dtype."""
-    if qside.device.type == "cpu":
-        return reference_i2t_ln_update(qside, base, w, off, vo, const, ln_scale, ln_bias, heads, tp, pe)
-    if qside.device.type != "cuda":
-        raise RuntimeError(f"i2t_ln_update: unsupported device {qside.device}")
+def _launch_i2t(qside, base, w, off, vo, const, ln_scale, ln_bias, heads: int, tp: int, pe=None):
+    """The CUDA implementation of K7: check, launch, count."""
     dt = base.dtype
     B, S, Co = w.shape[0], qside.shape[1], base.shape[-1]
     keys, _, tc = _launch(
@@ -202,6 +197,21 @@ def i2t_ln_update(qside, base, w, off, vo, const, ln_scale, ln_bias, heads: int,
     i2t_ln_update.launches += 1
     i2t_ln_update.tc_launches += int(tc)
     return keys
+
+
+_k7 = _ops.define(
+    "i2t_ln_update(Tensor qside, Tensor base, Tensor w, Tensor off, Tensor vo, Tensor const, Tensor ln_scale, "
+    "Tensor ln_bias, int heads, int tp, Tensor? pe) -> Tensor",
+    reference_i2t_ln_update, _launch_i2t,
+    lambda qside, base, w, *_: base.new_empty((w.shape[0], qside.shape[1], base.shape[-1])))
+
+
+def i2t_ln_update(qside, base, w, off, vo, const, ln_scale, ln_bias, heads: int, tp: int, pe=None):
+    """K7: qside [1 or B, S, Cq], base [1 or B, S, Co], w [B, Cq, GT] f32,
+    off [B, GT] f32, vo [B, GT, Co], const/ln_scale/ln_bias [Co] f32, pe
+    [1 or B, S, Cq] or None -> keys' [B, S, Co] in base's dtype
+    (``torch.ops.hybridgl.i2t_ln_update``)."""
+    return _k7(qside, base, w, off, vo, const, ln_scale, ln_bias, int(heads), int(tp), pe)
 
 
 i2t_ln_update.launches = 0

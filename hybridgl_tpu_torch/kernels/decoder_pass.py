@@ -14,7 +14,8 @@ written once and never read back by this pass. Two modes:
   * ``shared_qside=False`` (pass B): qside == base == the per-prompt keys,
     with pe added on the score side.
 
-On a CPU tensor the wrapper runs :func:`reference_i2t_ln_then_t2i`; on a
+The wrapper calls its operator, ``torch.ops.hybridgl.i2t_ln_then_t2i``
+(``_ops.py``): on a CPU tensor it runs :func:`reference_i2t_ln_then_t2i`; on a
 CUDA tensor it launches the PASS mode of one of two kernels or raises
 (``decoder_attn.variant`` says which): bf16 at SAM's widths (C = 256, 8
 heads x tp 8, GT2 = 64, S a multiple of 64) runs
@@ -35,6 +36,7 @@ from __future__ import annotations
 
 import torch
 
+from . import _ops
 from .decoder_attn import I2T, MAX_CTX, PASS, SMEM_LIMIT, T2I, _f32, _launch, reference_i2t_ln_update, variant
 from .decoder_attn_t2i import reference_t2i_ctx
 
@@ -66,17 +68,10 @@ def split_columns(C: int, GT2: int) -> int:
     return max(4, min(GT2, MAX_CTX // C // 4 * 4))
 
 
-def i2t_ln_then_t2i(qside, base, pe, w, off, vo, const, ln_scale, ln_bias, qw_next, heads: int, tp: int,
-                    shared_qside: bool):
-    """K3: qside [1 or B, S, Cq], base [1 or B, S, C] (used when shared),
-    pe [1 or B, S, C], w [B, Cq, GT] f32, off [B, GT] f32, vo [B, GT, C],
-    const/ln [C] f32, qw_next [B, C, GT2] f32 -> (keys' [B, S, C], ctx
-    [B, GT2, C] f32)."""
-    if qside.device.type == "cpu":
-        return reference_i2t_ln_then_t2i(qside, base, pe, w, off, vo, const, ln_scale, ln_bias, qw_next, heads, tp,
-                                         shared_qside)
-    if qside.device.type != "cuda":
-        raise RuntimeError(f"i2t_ln_then_t2i: unsupported device {qside.device}")
+def _launch_pass(qside, base, pe, w, off, vo, const, ln_scale, ln_bias, qw_next, heads: int, tp: int,
+                 shared_qside: bool):
+    """The CUDA implementation of K3: check, launch (once, or on the split
+    route once for the I2T half and once a column group), count."""
     dt = base.dtype if shared_qside else qside.dtype
     B, S, C = w.shape[0], qside.shape[1], (base.shape[-1] if shared_qside else qside.shape[-1])
     i2t = dict(qside=qside.to(dt), base=base if shared_qside else qside, pe=pe.to(dt), w=_f32(w), off=_f32(off),
@@ -100,6 +95,28 @@ def i2t_ln_then_t2i(qside, base, pe, w, off, vo, const, ln_scale, ln_bias, qw_ne
     i2t_ln_then_t2i.launches += len(on_tc)  # one a kernel launch: the split route makes 1 + GT2 / step
     i2t_ln_then_t2i.tc_launches += sum(on_tc)
     return keys, ctx
+
+
+def _fake_pass(qside, base, pe, w, off, vo, const, ln_scale, ln_bias, qw_next, heads, tp, shared_qside):
+    dt, C = (base.dtype, base.shape[-1]) if shared_qside else (qside.dtype, qside.shape[-1])
+    B, S, GT2 = w.shape[0], qside.shape[1], qw_next.shape[-1]
+    return qside.new_empty((B, S, C), dtype=dt), qside.new_empty((B, GT2, C), dtype=torch.float32)
+
+
+_k3 = _ops.define(
+    "i2t_ln_then_t2i(Tensor qside, Tensor base, Tensor pe, Tensor w, Tensor off, Tensor vo, Tensor const, "
+    "Tensor ln_scale, Tensor ln_bias, Tensor qw_next, int heads, int tp, bool shared_qside) -> (Tensor, Tensor)",
+    reference_i2t_ln_then_t2i, _launch_pass, _fake_pass)
+
+
+def i2t_ln_then_t2i(qside, base, pe, w, off, vo, const, ln_scale, ln_bias, qw_next, heads: int, tp: int,
+                    shared_qside: bool):
+    """K3: qside [1 or B, S, Cq], base [1 or B, S, C] (used when shared),
+    pe [1 or B, S, C], w [B, Cq, GT] f32, off [B, GT] f32, vo [B, GT, C],
+    const/ln [C] f32, qw_next [B, C, GT2] f32 -> (keys' [B, S, C], ctx
+    [B, GT2, C] f32) (``torch.ops.hybridgl.i2t_ln_then_t2i``)."""
+    return _k3(qside, base, pe, w, off, vo, const, ln_scale, ln_bias, qw_next, int(heads), int(tp),
+               bool(shared_qside))
 
 
 i2t_ln_then_t2i.launches = 0

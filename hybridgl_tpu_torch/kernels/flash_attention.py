@@ -26,9 +26,10 @@ Math (reference: segment_anything image_encoder.py:325-361):
 
 Inputs are q, k, v [BH, S, hd] (bf16 or f32, unscaled q) and the two rank-G
 terms rel_h, rel_w [BH, S, G] in f32; the output is [BH, S, hd] in q's dtype.
-On a CPU tensor the wrappers run :func:`reference_attention_rel_pos`, the
-plain PyTorch version of the same function; on a CUDA tensor they launch the
-kernel or raise. What bounds the kernels on the card, and their design, are
+Each wrapper calls its operator, ``torch.ops.hybridgl.<name>`` (``_ops.py``):
+on a CPU tensor it runs :func:`reference_attention_rel_pos`, the plain
+PyTorch version of the same function; on a CUDA tensor it launches the
+kernel or raises. What bounds the kernels on the card, and their design, are
 described in the CUDA sources. The tensor-core kernels round the scaled q and
 the probabilities to bf16 (the latter is where the Pallas kernels round them
 too); the bias and all sums stay in f32.
@@ -38,7 +39,7 @@ from __future__ import annotations
 
 import torch
 
-from . import _build
+from . import _build, _ops
 
 SUPPORTED_HEAD_DIMS = (8, 16, 32, 64, 80)
 MAX_GRID_SIDE = 64
@@ -79,11 +80,8 @@ def _check(name, q, k, v, rel_h, rel_w, grid_side):
             raise ValueError(f"{name}: inputs must be 16-byte aligned (the kernels load 16 bytes a thread)")
 
 
-def _rel_pos_call(wrapper, q, k, v, rel_h, rel_w, grid_side, scale):
-    if q.device.type == "cpu":
-        return reference_attention_rel_pos(q, k, v, rel_h, rel_w, grid_side, scale)
-    if q.device.type != "cuda":
-        raise RuntimeError(f"{wrapper.__name__}: unsupported device {q.device}")
+def _rel_pos_launch(wrapper, q, k, v, rel_h, rel_w, grid_side, scale):
+    """The CUDA implementation of K1, K2 and K9: check, launch, count on ``wrapper``."""
     _check(wrapper.__name__, q, k, v, rel_h, rel_w, grid_side)
     BH, S, hd = q.shape
     out = torch.empty_like(q)
@@ -100,14 +98,31 @@ def _rel_pos_call(wrapper, q, k, v, rel_h, rel_w, grid_side, scale):
     return out
 
 
+def _like_q(q, *_):
+    return torch.empty_like(q)
+
+
+_SCHEMA = "(Tensor q, Tensor k, Tensor v, Tensor rel_h, Tensor rel_w, int grid_side, float scale) -> Tensor"
+_k1 = _ops.define("flash_windowed_fused" + _SCHEMA, reference_attention_rel_pos,
+                  lambda *a: _rel_pos_launch(flash_windowed_fused, *a), _like_q)
+_k2 = _ops.define("flash_attention_fused" + _SCHEMA, reference_attention_rel_pos,
+                  lambda *a: _rel_pos_launch(flash_attention_fused, *a), _like_q)
+_k9 = _ops.define(
+    "flash_attention_rel_pos(Tensor q, Tensor k, Tensor v, Tensor rel_h, Tensor rel_w, int grid_side) -> Tensor",
+    lambda q, k, v, rel_h, rel_w, grid_side: reference_attention_rel_pos(q, k, v, rel_h, rel_w, grid_side, 1.0),
+    lambda *a: _rel_pos_launch(flash_attention_rel_pos, *a, 1.0), _like_q)
+
+
 def flash_windowed_fused(q, k, v, rel_h, rel_w, grid_side: int, scale: float):
-    """K1: whole-window rel-pos attention for the windowed encoder blocks."""
-    return _rel_pos_call(flash_windowed_fused, q, k, v, rel_h, rel_w, grid_side, scale)
+    """K1: whole-window rel-pos attention for the windowed encoder blocks
+    (``torch.ops.hybridgl.flash_windowed_fused``)."""
+    return _k1(q, k, v, rel_h, rel_w, int(grid_side), float(scale))
 
 
 def flash_attention_fused(q, k, v, rel_h, rel_w, grid_side: int, scale: float):
-    """K2: tiled online-softmax rel-pos attention for the global encoder blocks."""
-    return _rel_pos_call(flash_attention_fused, q, k, v, rel_h, rel_w, grid_side, scale)
+    """K2: tiled online-softmax rel-pos attention for the global encoder blocks
+    (``torch.ops.hybridgl.flash_attention_fused``)."""
+    return _k2(q, k, v, rel_h, rel_w, int(grid_side), float(scale))
 
 
 def flash_attention_rel_pos(q, k, v, rel_h, rel_w, grid_side: int, block_q: int = 256, block_k: int = 512):
@@ -130,8 +145,7 @@ def flash_attention_rel_pos(q, k, v, rel_h, rel_w, grid_side: int, block_q: int 
         raise ValueError(f"flash_attention_rel_pos: S={S} must be a multiple of block_q={block_q} and block_k={block_k}")
     if block_k % G:
         raise ValueError(f"flash_attention_rel_pos: block_k={block_k} must cover whole grid rows (G={G})")
-    rel_h, rel_w = rel_h.float().contiguous(), rel_w.float().contiguous()
-    return _rel_pos_call(flash_attention_rel_pos, q, k, v, rel_h, rel_w, grid_side, 1.0)
+    return _k9(q, k, v, rel_h.float().contiguous(), rel_w.float().contiguous(), int(grid_side))
 
 
 for _wrapper in (flash_windowed_fused, flash_attention_fused, flash_attention_rel_pos):

@@ -28,9 +28,12 @@ Dtype policy (reference ``use_bf16_stats``, pass1_stats.py:39-55): the
 half-transform and the row matmul take bf16 operands with f32 sums by
 default, even with f32 params; ``$HYBRIDGL_STATS_BF16=0`` selects f32.
 
-On a CPU tensor each wrapper runs its plain version
-(:func:`reference_pass1_stats_half`, and for K10 :func:`half_transform`
-first); on a CUDA tensor it launches its kernel or raises.
+Each wrapper rounds its operands to the stats dtype and calls its operator,
+``torch.ops.hybridgl.pass1_stats_half`` or ``.pass1_stats`` (``_ops.py``,
+which return the two flag rows as one [2, B, C] tensor): on a CPU tensor it
+runs its plain version (:func:`reference_pass1_stats_half`, and for K10
+:func:`half_transform` first); on a CUDA tensor it launches its kernel or
+raises.
 """
 
 from __future__ import annotations
@@ -39,7 +42,7 @@ import torch
 
 from ..utils.env import env_flag
 
-from . import _build
+from . import _build, _ops
 
 
 def use_bf16_stats() -> bool:
@@ -98,26 +101,26 @@ def variant_full(dtype, n: int, n2: int, C: int) -> str:
 
 
 def _zeroed_outputs(B: int, C: int, device):
-    """(counts [B, 2] int32, row_any [B, C] bool, col_any [B, C] bool) as views
+    """(counts [B, 2] int32, flags [2, B, C] bool: row_any, col_any) as views
     of one zeroed buffer: the kernels that meet only in their outputs add to
     the counts and store 1 into the flags."""
     buf = torch.zeros(B * (8 + 2 * C), dtype=torch.uint8, device=device)
     counts = buf[: B * 8].view(torch.int32).view(B, 2)
-    flags = buf[B * 8 :].view(torch.bool).view(2, B, C)
-    return counts, flags[0], flags[1]
+    return counts, buf[B * 8 :].view(torch.bool).view(2, B, C)
 
 
-def pass1_stats_half(tmp, Wy, window, thresh: float, offset: float):
-    """tmp [B, n, C] (pre-applied column half-transform), Wy [C, n] composed
-    row weights, window (y0, x0, dh, dw) -> (stab [B] f32, row_any [B, C]
-    bool, col_any [B, C] bool), stab = hi / max(lo, 1)."""
-    dt = stats_dtype()
-    tmp = tmp.to(dt)
-    Wy = Wy.to(dt)
-    if tmp.device.type == "cpu":
-        return reference_pass1_stats_half(tmp, Wy, window, thresh, offset)
-    if tmp.device.type != "cuda":
-        raise RuntimeError(f"pass1_stats_half: unsupported device {tmp.device}")
+def _stacked(stab, row_any, col_any):
+    """The operators' outputs: (stab [B] f32, flags [2, B, C] bool), two
+    tensors that do not alias each other (an operator's outputs may not)."""
+    return stab, torch.stack([row_any, col_any])
+
+
+def _fake_stats(B: int, C: int, like):
+    return like.new_empty((B,), dtype=torch.float32), like.new_empty((2, B, C), dtype=torch.bool)
+
+
+def _launch_half(tmp, Wy, window, thresh: float, offset: float):
+    """The CUDA implementation of K5: check, launch, count."""
     if tmp.ndim != 3:
         raise ValueError(f"pass1_stats_half: tmp must be [B, n, C], got {tuple(tmp.shape)}")
     B, n, C = tmp.shape
@@ -125,6 +128,9 @@ def pass1_stats_half(tmp, Wy, window, thresh: float, offset: float):
         raise ValueError(f"pass1_stats_half: Wy must be [{C}, {n}], got {tuple(Wy.shape)}")
     if Wy.device != tmp.device:
         raise ValueError("pass1_stats_half: tmp and Wy on different devices")
+    dt = tmp.dtype
+    if dt not in (torch.bfloat16, torch.float32) or Wy.dtype != dt:
+        raise TypeError(f"pass1_stats_half: tmp and Wy must share dtype bf16 or f32, got {dt} {Wy.dtype}")
     if not (tmp.is_contiguous() and Wy.is_contiguous()):
         raise ValueError("pass1_stats_half: inputs must be contiguous")
     tc = variant(dt, n, C) == "wgmma"
@@ -136,23 +142,39 @@ def pass1_stats_half(tmp, Wy, window, thresh: float, offset: float):
                          window, thresh, offset, tail, f32_counts=not tc)
 
 
+_k5 = _ops.define(
+    "pass1_stats_half(Tensor tmp, Tensor Wy, float[] window, float thresh, float offset) -> (Tensor, Tensor)",
+    lambda tmp, Wy, *a: _stacked(*reference_pass1_stats_half(tmp, Wy, *a)), _launch_half,
+    lambda tmp, Wy, *_: _fake_stats(tmp.shape[0], tmp.shape[2], tmp))
+
+
+def pass1_stats_half(tmp, Wy, window, thresh: float, offset: float):
+    """tmp [B, n, C] (pre-applied column half-transform), Wy [C, n] composed
+    row weights, window (y0, x0, dh, dw) -> (stab [B] f32, row_any [B, C]
+    bool, col_any [B, C] bool), stab = hi / max(lo, 1). Both operands are
+    rounded to the stats dtype first (``torch.ops.hybridgl.pass1_stats_half``)."""
+    dt = stats_dtype()
+    stab, flags = _k5(tmp.to(dt), Wy.to(dt), _window(window), float(thresh), float(offset))
+    return stab, flags[0], flags[1]
+
+
 def _launch_stats(wrapper, tc: bool, B: int, C: int, device, entry, operands, window, thresh, offset, tail,
                   f32_counts: bool = False):
     """Launch one pass-1 entry point of the library on zeroed outputs, count
     the launch on ``wrapper`` and turn the two counts into the stability
-    score: (stab [B] f32, row_any [B, C] bool, col_any [B, C] bool). K5's
+    score: (stab [B] f32, flags [2, B, C] bool: row_any, col_any). K5's
     CUDA-core kernel stores its counts as f32, the others add integers."""
     y0, x0, dh, dw = _window(window)
-    counts, row_any, col_any = _zeroed_outputs(B, C, device)
+    counts, flags = _zeroed_outputs(B, C, device)
     if f32_counts:
         counts = counts.view(torch.float32)
-    code = entry(*operands, y0, x0, dh, dw, float(thresh), float(offset), counts.data_ptr(), row_any.data_ptr(),
-                 col_any.data_ptr(), *tail, _build.stream_handle(device))
+    code = entry(*operands, y0, x0, dh, dw, float(thresh), float(offset), counts.data_ptr(), flags[0].data_ptr(),
+                 flags[1].data_ptr(), *tail, _build.stream_handle(device))
     _build.check(code, wrapper.__name__)
     wrapper.launches += 1
     wrapper.tc_launches += int(tc)
     counts = counts.float()
-    return counts[:, 0] / counts[:, 1].clamp(min=1.0), row_any, col_any
+    return counts[:, 0] / counts[:, 1].clamp(min=1.0), flags
 
 
 # The CUDA-core K10's shared memory: two staging tiles, the [n, 64] column block of tmp
@@ -160,29 +182,14 @@ def _launch_stats(wrapper, tc: bool, B: int, C: int, device, entry, operands, wi
 _MAX_SMEM_BYTES = 232448
 
 
-def pass1_stats(low, WxT, Wy, window, thresh: float, offset: float, tile: int = 256):
-    """K10: pass-1 stats from the raw logits low [B, n, n2], the column
-    weights WxT [n2, C] and the row weights Wy [C, n] -> (stab [B] f32,
-    row_any [B, C] bool, col_any [B, C] bool), as :func:`pass1_stats_half`
-    of ``half_transform(low, WxT)``: the operands are rounded to the stats
-    dtype, tmp = low @ WxT is summed in f32 and rounded to the stats dtype
-    (the reference's pass1_stats.py:90-94), then the row product and the
-    thresholds. ``tile`` is the TPU kernel's row tile; it does not change
-    the result and the CUDA kernel tiles by 64."""
-    dt = stats_dtype()
-    if low.ndim != 3:
-        raise ValueError(f"pass1_stats: low must be [B, n, n2], got {tuple(low.shape)}")
+def _launch_full(low, WxT, Wy, window, thresh: float, offset: float):
+    """The CUDA implementation of K10: check, launch, count."""
     B, n, n2 = low.shape
     C = WxT.shape[-1]
-    if WxT.shape != (n2, C):
-        raise ValueError(f"pass1_stats: WxT must be [{n2}, C], got {tuple(WxT.shape)}")
-    if Wy.shape != (C, n):
-        raise ValueError(f"pass1_stats: Wy must be [{C}, {n}], got {tuple(Wy.shape)}")
-    if low.device.type == "cpu":
-        return reference_pass1_stats_half(half_transform(low, WxT), Wy.to(dt), window, thresh, offset)
-    if low.device.type != "cuda":
-        raise RuntimeError(f"pass1_stats: unsupported device {low.device}")
-    low, WxT, Wy = low.to(dt).contiguous(), WxT.to(dt).contiguous(), Wy.to(dt).contiguous()
+    dt = low.dtype
+    if dt not in (torch.bfloat16, torch.float32) or WxT.dtype != dt or Wy.dtype != dt:
+        raise TypeError(f"pass1_stats: low, WxT and Wy must share dtype bf16 or f32, got {dt} {WxT.dtype} {Wy.dtype}")
+    low, WxT, Wy = low.contiguous(), WxT.contiguous(), Wy.contiguous()
     if WxT.device != low.device or Wy.device != low.device:
         raise ValueError("pass1_stats: low, WxT and Wy on different devices")
     tc = variant_full(dt, n, n2, C) == "wgmma"
@@ -197,6 +204,35 @@ def pass1_stats(low, WxT, Wy, window, thresh: float, offset: float, tile: int = 
     entry, tail = (lib.hgl_pass1_stats_full_tc, ()) if tc else (lib.hgl_pass1_stats_full, (int(dt == torch.bfloat16),))
     return _launch_stats(pass1_stats, tc, B, C, low.device, entry,
                          (low.data_ptr(), WxT.data_ptr(), Wy.data_ptr(), B, n, n2, C), window, thresh, offset, tail)
+
+
+_k10 = _ops.define(
+    "pass1_stats(Tensor low, Tensor WxT, Tensor Wy, float[] window, float thresh, float offset) -> (Tensor, Tensor)",
+    lambda low, WxT, Wy, *a: _stacked(*reference_pass1_stats_half(half_transform(low, WxT), Wy, *a)), _launch_full,
+    lambda low, WxT, *_: _fake_stats(low.shape[0], WxT.shape[-1], low))
+
+
+def pass1_stats(low, WxT, Wy, window, thresh: float, offset: float, tile: int = 256):
+    """K10: pass-1 stats from the raw logits low [B, n, n2], the column
+    weights WxT [n2, C] and the row weights Wy [C, n] -> (stab [B] f32,
+    row_any [B, C] bool, col_any [B, C] bool), as :func:`pass1_stats_half`
+    of ``half_transform(low, WxT)``: the operands are rounded to the stats
+    dtype, tmp = low @ WxT is summed in f32 and rounded to the stats dtype
+    (the reference's pass1_stats.py:90-94), then the row product and the
+    thresholds (``torch.ops.hybridgl.pass1_stats``). ``tile`` is the TPU
+    kernel's row tile; it does not change the result and the CUDA kernel
+    tiles by 64."""
+    dt = stats_dtype()
+    if low.ndim != 3:
+        raise ValueError(f"pass1_stats: low must be [B, n, n2], got {tuple(low.shape)}")
+    B, n, n2 = low.shape
+    C = WxT.shape[-1]
+    if WxT.shape != (n2, C):
+        raise ValueError(f"pass1_stats: WxT must be [{n2}, C], got {tuple(WxT.shape)}")
+    if Wy.shape != (C, n):
+        raise ValueError(f"pass1_stats: Wy must be [{C}, {n}], got {tuple(Wy.shape)}")
+    stab, flags = _k10(low.to(dt), WxT.to(dt), Wy.to(dt), _window(window), float(thresh), float(offset))
+    return stab, flags[0], flags[1]
 
 
 pass1_stats_half.launches = 0

@@ -22,9 +22,10 @@ CUDA-core ``csrc/upscale_hyper.cu`` for f32 and every other width.
 
 Dtype policy (the reference kernel's): operands in src's dtype, f32 sums,
 LN in f32 computed directly, exact GELU, both GELU outputs rounded to the
-dtype, hyper rows in the dtype. On a CPU tensor :func:`upscale_hyper` runs
-:func:`reference_upscale_hyper`; on a CUDA tensor it launches the kernel or
-raises.
+dtype, hyper rows in the dtype. :func:`upscale_hyper` calls its operator,
+``torch.ops.hybridgl.upscale_hyper_blocked`` (``_ops.py``, named after the TPU
+kernel): on a CPU tensor it runs :func:`reference_upscale_hyper`; on a CUDA
+tensor it launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -34,7 +35,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from . import _build
+from . import _build, _ops
 
 LN_EPS = 1e-6  # mask_decoder's LayerNorm2d
 SMEM_LIMIT = 232448  # bytes of shared memory a block may use on sm_90
@@ -79,14 +80,8 @@ def variant(dtype, C: int, c4: int, c8: int, m: int) -> tuple[str, int]:
     return "cuda-core", smem + tsize * (C * 4 * c4 + c4 * 4 * c8)  # csrc/upscale_hyper.cu Layout
 
 
-def upscale_hyper(src, w1, b1, ln_s, ln_b, w2, b2, hyper):
-    """K4: src [B, g*g, C], w1 [C, 4*c4] (columns (i, j, c4)), b1/ln_s/ln_b
-    [c4], w2 [c4, 4*c8] (columns (e, f, c8)), b2 [c8], hyper [B, m, c8]
-    -> masks [B, m, 4g, 4g] f32."""
-    if src.device.type == "cpu":
-        return reference_upscale_hyper(src, w1, b1, ln_s, ln_b, w2, b2, hyper)
-    if src.device.type != "cuda":
-        raise RuntimeError(f"upscale_hyper: unsupported device {src.device}")
+def _launch(src, w1, b1, ln_s, ln_b, w2, b2, hyper):
+    """The CUDA implementation of K4: check, launch, count."""
     if src.ndim != 3 or src.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"upscale_hyper: src must be [B, g*g, C] bf16 or f32, got {tuple(src.shape)} {src.dtype}")
     if not src.is_contiguous():
@@ -128,6 +123,23 @@ def upscale_hyper(src, w1, b1, ln_s, ln_b, w2, b2, hyper):
     upscale_hyper.launches += 1
     upscale_hyper.tc_launches += int(tc)
     return out
+
+
+def _fake(src, w1, b1, ln_s, ln_b, w2, b2, hyper):
+    g = math.isqrt(src.shape[1])
+    return src.new_empty((src.shape[0], hyper.shape[1], 4 * g, 4 * g), dtype=torch.float32)
+
+
+_k4 = _ops.define(
+    "upscale_hyper_blocked(Tensor src, Tensor w1, Tensor b1, Tensor ln_s, Tensor ln_b, Tensor w2, Tensor b2, "
+    "Tensor hyper) -> Tensor", reference_upscale_hyper, _launch, _fake)
+
+
+def upscale_hyper(src, w1, b1, ln_s, ln_b, w2, b2, hyper):
+    """K4: src [B, g*g, C], w1 [C, 4*c4] (columns (i, j, c4)), b1/ln_s/ln_b
+    [c4], w2 [c4, 4*c8] (columns (e, f, c8)), b2 [c8], hyper [B, m, c8]
+    -> masks [B, m, 4g, 4g] f32 (``torch.ops.hybridgl.upscale_hyper_blocked``)."""
+    return _k4(src, w1, b1, ln_s, ln_b, w2, b2, hyper)
 
 
 upscale_hyper.launches = 0

@@ -28,7 +28,7 @@ import torch
 from ...core.config import ClipConfig, CompatConfig
 
 from ...kernels.resize import resize_bilinear
-from .layers import allowed_mask_to_bias
+from .layers import allowed_mask_to_bias, cls_bias_to_attn_bias
 from .vit import vit_block, vit_head, vit_stem
 
 
@@ -41,6 +41,14 @@ def resize_masks_to_grid(pred_masks: torch.Tensor, grid: int, masks_hw=None) -> 
     """[P, H, W] -> [P, grid, grid] f32 bilinear (backbone.py:160); only the
     valid ``masks_hw`` corner of a padded frame is resized."""
     return resize_bilinear(pred_masks.float(), (grid, grid), src_hw=masks_hw, axis=1)
+
+
+def make_attn_bias(masks_grid: torch.Tensor) -> torch.Tensor:
+    """The full per-proposal bias [P, 1, L, L] (broadcast over heads) of
+    ``make_attn_mask`` (backbone.py:108-115): the CLS row may attend to itself
+    and to patches with a nonzero (fractional) mask value, patch rows are
+    unrestricted. The fusion blocks take its compact row, :func:`make_cls_bias`."""
+    return cls_bias_to_attn_bias(make_cls_bias(masks_grid))
 
 
 def make_cls_bias(masks_grid: torch.Tensor) -> torch.Tensor:

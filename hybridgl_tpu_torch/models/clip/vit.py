@@ -33,9 +33,24 @@ def vit_block(p_block, x, cfg: ClipConfig, attn_bias=None, cls_bias=None):
     return residual_attention_block(p_block, x, cfg.vision_heads, attn_bias, cls_bias)
 
 
+def vit_blocks(p, x, cfg: ClipConfig, start: int = 0, stop=None):
+    """Blocks [start, stop) (all by default) without an attention bias."""
+    stop = cfg.vision_layers if stop is None else stop
+    for i in range(start, stop):
+        x = vit_block(p["blocks"][i], x, cfg)
+    return x
+
+
 def vit_head(p, x, cfg: ClipConfig, cls_only: bool = True) -> torch.Tensor:
     """ln_post + proj; [N, embed_dim] f32 CLS features with cls_only."""
     if cls_only:
         x = x[:, 0, :]
     x = layer_norm(p["ln_post"], x)
     return (x @ p["proj"].to(x.dtype)).float()
+
+
+def encode_image(p, images: torch.Tensor, cfg: ClipConfig, cls_only: bool = True) -> torch.Tensor:
+    """The plain CLIP image encoder, the 'crop' fusion mode's path
+    (model/backbone.py:126-128 -> clip/model.py:289-307): [N, H, W, 3] ->
+    [N, embed_dim] f32 (every token's features without ``cls_only``)."""
+    return vit_head(p, vit_blocks(p, vit_stem(p, images, cfg), cfg), cfg, cls_only=cls_only)

@@ -112,6 +112,17 @@ def gem_image_features(p_visual, images: torch.Tensor, clip_cfg: ClipConfig, gem
     return gem_feats[:, 1:].float(), cls_feats.float(), G
 
 
+def gem_heatmap(p_clip, image: torch.Tensor, text_features: torch.Tensor, clip_cfg: ClipConfig,
+                gem_cfg: GemConfig) -> torch.Tensor:
+    """Per-phrase relevance heatmaps [T, S, S] of a normalized [S, S, 3]
+    image and [T, embed] text features, bilinearly upsampled from the patch
+    grid (gem-torch's output frame)."""
+    patch_feats, _, G = gem_image_features(p_clip["visual"], image[None], clip_cfg, gem_cfg)
+    rel = (_l2norm(patch_feats[0]) @ _l2norm(text_features).T).T.reshape(-1, G, G)  # [T, G, G]
+    S = image.shape[0]
+    return resize_bilinear(rel, (S, S), axis=1)
+
+
 def gem_preprocess(image_u8: torch.Tensor, size: int) -> torch.Tensor:
     """uint8 [H, W, 3] -> normalized [size, size, 3] (squash resize + OpenAI
     CLIP normalization, gem.get_gem_img_transform)."""

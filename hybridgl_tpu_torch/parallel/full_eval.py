@@ -8,15 +8,16 @@ optionally, the fusion stage's proposal axis over ``mp``.
 Parity with the sequential runner (``pipeline/runner.py``) is exact:
 
   * a rank runs the runner's own stage functions (``launch_proposals``,
-    ``cleanup_host``, ``feature_stage``, ``sentence_ingredients``): one body,
-    so what holds the runner holds this step;
-  * the small-region cleanup inside the step is the runner's native host
-    pass, a plain call in eager PyTorch (the reference reaches the same pass
-    from inside its compiled step through a host callback, with bit-packed
-    masks). The pass on tensors (``kernels/connected.py``, the reference's
-    ``HYBRIDGL_CLEANUP=device``) is not wired in here either, for the reason
-    the runner's docstring gives: its time follows the masks, and nothing
-    seen beforehand tells when it wins;
+    ``cleanup_host`` or ``cleanup_device``, ``feature_stage``,
+    ``sentence_ingredients``): one body, so what holds the runner holds this
+    step;
+  * the small-region cleanup inside the step is the runner's: by default its
+    native host pass, a plain call in eager PyTorch (the reference reaches the
+    same pass from inside its compiled step through a host callback, with
+    bit-packed masks); with ``HYBRIDGL_CLEANUP=device`` (read at each step, as
+    the reference's full_eval.py:287-300 reads it where it traces) the pass on
+    tensors, ``kernels/connected.py``, on the rank's device. Both give the
+    same results; the device pass's time follows the masks (``PERF.md``);
   * the reference's *sticky* k1/k2 clamp (Hybridgl_main.py:178-181) is a
     sequential mutation over the whole dataset, so with ``sticky=True`` the
     step returns each image's scoring INGREDIENTS (:class:`Ingredients`: a few
@@ -50,7 +51,9 @@ from ..pipeline.runner import (
     Ingredients,
     Proposals,
     bucket_size,
+    cleanup_device,
     cleanup_host,
+    cleanup_on_device,
     feature_stage,
     launch_proposals,
     select_sentences,
@@ -169,7 +172,7 @@ def _image_ingredients(sam_params, clip_params, rec: FullEvalBatch, cfg: Pipelin
     # multicrop dispatch on crop_n_layers as the sequential runner's (launch_proposals)
     props = launch_proposals(cfg, sam_params, rec, dev)
     if cfg.amg.min_mask_region_area > 0 and props.num > 0:
-        props = cleanup_host(cfg, props, (h, w), dev)
+        props = (cleanup_device if cleanup_on_device() else cleanup_host)(cfg, props, (h, w), dev)
     if survival_hook is not None:  # the runner's testing knob, at the runner's place
         props = survival_hook(props)
     out = dict(num=int(props.num), score=torch.zeros((S, P)), score_neg=torch.zeros((S, P)), gem_scores=torch.zeros((S, P)),

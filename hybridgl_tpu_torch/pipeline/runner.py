@@ -22,12 +22,14 @@ cleanup.
 
 All of an image's sentences go through one sentence stage with a leading
 sentence dimension (the reference's ``HYBRIDGL_BATCH_SENTENCES=1`` path). The
-small-region cleanup is the native host pass on every device: the pass on
-tensors (kernels/connected.py, the reference's ``HYBRIDGL_CLEANUP=device``)
-takes as many sweeps as the masks' components are wound: on an H100 from a
-fifth of the host pass's time (clean rectangles) to ten times it (speckled
-blobs; ``PERF.md``), and nothing the runner can see beforehand tells the two
-apart, so it is not wired in.
+small-region cleanup is the native host pass by default, on the downloaded
+bundle. ``HYBRIDGL_CLEANUP=device`` (the reference's switch, read when the
+pipeline is built; default ``host``) runs the pass on tensors instead
+(kernels/connected.py:cleanup_proposals_jit) where the masks are, with the
+same results. Its time follows the masks: it takes as many sweeps as their
+components are wound, on an H100 from a fifth of the host pass's time (clean
+rectangles) to ten times it (speckled blobs; ``PERF.md``), so the host pass
+stays the default.
 ``survival_hook``, where set, replaces the proposal bundle after the proposal
 stage.
 """
@@ -35,6 +37,7 @@ stage.
 from __future__ import annotations
 
 import contextlib
+import os
 import warnings
 from dataclasses import dataclass
 from typing import Iterable, List, NamedTuple, Optional, Sequence
@@ -134,6 +137,24 @@ def cleanup_host(cfg: PipelineConfig, props: Proposals, hw, device) -> Proposals
         num=out.num,
         overflow=out.overflow,
     )
+
+
+def cleanup_on_device() -> bool:
+    """``HYBRIDGL_CLEANUP=device``: the small-region cleanup runs on tensors
+    where the masks are (the reference's switch; any other value, or none,
+    selects the host pass)."""
+    return os.environ.get("HYBRIDGL_CLEANUP", "host") == "device"
+
+
+def cleanup_device(cfg: PipelineConfig, props: Proposals, hw, device) -> Proposals:
+    """The small-region cleanup on tensors (kernels/connected.py) over the
+    frame's valid ``hw`` corner, as the reference's runner.py:179-186: the
+    host pass's masks, boxes and validity (a dead slot loses its pixels)."""
+    from ..kernels.connected import cleanup_proposals_jit
+
+    amg, C = cfg.amg, cfg.canonical_size
+    return cleanup_proposals_jit(props, valid_mask((C, C), hw, device), amg.min_mask_region_area,
+                                 max(amg.box_nms_thresh, amg.crop_nms_thresh))
 
 
 def bucket_size(valid: torch.Tensor, num: int) -> int:
@@ -255,6 +276,7 @@ class HybridGLPipeline:
         self._warned_overflow = False
         self.timer = None  # optional utils.profiling.StageTimer: per-stage wall times
         self.survival_hook = None  # optional Proposals -> Proposals override after the proposal stage
+        self._device_cleanup = cleanup_on_device()  # HYBRIDGL_CLEANUP=device, read once as the reference does
 
     def _span(self, name: str):
         if self.timer is None:
@@ -294,7 +316,8 @@ class HybridGLPipeline:
         if cfg.amg.min_mask_region_area > 0:
             with self._span("small_region_cleanup"):
                 if props.num > 0:
-                    props = self._cleanup_host(props, hw)
+                    props = (cleanup_device(cfg, props, hw, self.device) if self._device_cleanup
+                             else self._cleanup_host(props, hw))
         if self.survival_hook is not None:
             # benchmarking and testing knob: random weights leave degenerate
             # NMS survival, a hook sets a representative bucket occupancy

@@ -49,9 +49,32 @@ def small_config() -> PipelineConfig:
                           guidance=GuidanceConfig(masking_block=3))
 
 
+def _count_kernel_operators() -> None:
+    """The counter sees each kernel as one operator (``torch.ops.hybridgl.*``)
+    and counts nothing inside it: give each a formula that, on CPU tensors,
+    counts the products of its plain version (what ran), and on CUDA tensors
+    counts nothing (a launch is outside PyTorch's counter)."""
+    from torch.utils.flop_counter import flop_registry, register_flop_formula
+
+    from ..kernels import _ops
+
+    for name, op in _ops.REGISTERED.items():
+        target = getattr(torch.ops.hybridgl, name)
+        if target in flop_registry:
+            continue
+
+        def formula(*args, out_val=None, _plain=op.cpu, **kwargs):
+            if any(isinstance(a, torch.Tensor) and a.is_cuda for a in args):
+                return 0
+            return counted_flops(_plain, *args)
+
+        register_flop_formula(target, get_raw=True)(formula)
+
+
 def counted_flops(fn, *args) -> float:
     from torch.utils.flop_counter import FlopCounterMode
 
+    _count_kernel_operators()
     with FlopCounterMode(display=False) as counter, torch.no_grad():
         fn(*args)
     return float(counter.get_total_flops())

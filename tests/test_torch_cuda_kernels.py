@@ -19,6 +19,11 @@ Python ``variant`` functions are held to the C dispatch they mirror.
 K1 and K2 are also held at the head counts a rank of the tensor-parallel
 encoder gives them (8 and 4 heads at head dim 80, short and ragged S), and K3
 and K4 fed from the prepared decoder operands against the raw ones.
+
+The ten registered operators (``torch.ops.hybridgl.*``): each on CUDA tensors
+equal bit for bit to the ctypes launch it dispatches to, at production shapes;
+``opcheck`` on the card for K1, K2 and K6; an encoder exported on the card
+equal to the eager port there, every launch of its run on the tensor cores.
 """
 
 import pytest
@@ -1002,3 +1007,119 @@ def test_predict_masks_prepared_against_raw_on_the_card(dev, dtype, B):
         assert float(((m_raw > 0) == (m_prep > 0)).float().mean()) > 0.995
     else:
         assert d < 2e-3 and float((iou_raw - iou_prep).abs().max()) < 2e-4
+
+
+# ---- the kernels as registered operators (torch.ops.hybridgl.*) ----
+
+OPERATORS = ("flash_windowed_fused", "flash_attention_fused", "flash_attention_rel_pos", "clip_attention",
+             "pass1_stats_half", "pass1_stats", "i2t_ln_then_t2i", "i2t_ln_update", "t2i_ctx", "upscale_hyper_blocked")
+
+
+def _production_args(name, dev, seed=0):
+    """The operator's arguments at the production shapes of tools/check_kernels.py, bf16 streams."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    f32 = torch.float32
+
+    def r(*shape, dtype=BF16, std=0.5):
+        return (torch.randn(shape, generator=g, device=dev) * std).to(dtype)
+
+    if name in ("flash_windowed_fused", "flash_attention_fused", "flash_attention_rel_pos"):
+        BH, G = (400, 14) if name == "flash_windowed_fused" else (16, 64)
+        attn = (r(BH, G * G, 80), r(BH, G * G, 80), r(BH, G * G, 80), r(BH, G * G, G, dtype=f32),
+                r(BH, G * G, G, dtype=f32), G)
+        return attn if name == "flash_attention_rel_pos" else (*attn, 80**-0.5)
+    if name == "clip_attention":
+        bias = torch.where(torch.rand((128, 197), generator=g, device=dev) > 0.5, 0.0, torch.finfo(f32).min)
+        bias[:, 0] = 0.0
+        return r(1536, 197, 64), r(1536, 197, 64), r(1536, 197, 64), bias.contiguous(), 12, 0.125
+    if name == "pass1_stats_half":
+        Wy = _composed_axis_weights(640, 256, 1024, 768, 0, 480, dev).to(BF16)
+        return r(192, 256, 640, std=2.0), Wy, [0.0, 0.0, 480.0, 640.0], 0.0, 1.0
+    if name == "pass1_stats":
+        Wy = _composed_axis_weights(640, 256, 1024, 768, 0, 480, dev).to(BF16)
+        WxT = _composed_axis_weights(640, 256, 1024, 1024, 0, 640, dev).T.contiguous().to(BF16)
+        return r(192, 256, 256, std=4.0), WxT, Wy, [0.0, 0.0, 480.0, 640.0], 0.0, 1.0
+    off = r(128, 8, 8, dtype=f32)
+    off[:, :, 7:] = -1e30
+    B = 64 if name == "i2t_ln_then_t2i" else 128
+    ops = (r(B, 256, 64, dtype=f32, std=0.125), off[:B].reshape(B, 64), r(B, 64, 256), r(256, dtype=f32, std=0.1),
+           1.0 + r(256, dtype=f32, std=0.1), r(256, dtype=f32, std=0.1))
+    keys, pe, qw = r(B, 4096, 256), r(1, 4096, 256), r(B, 256, 64, dtype=f32, std=0.125)
+    if name == "i2t_ln_then_t2i":
+        return (keys, keys, pe, *ops, qw, 8, 8, False)
+    if name == "i2t_ln_update":
+        return (keys, keys, *ops, 8, 8, pe)
+    if name == "t2i_ctx":
+        return keys, pe, qw
+    return (r(64, 4096, 256), r(256, 256, std=0.0625), r(64, dtype=f32, std=0.1), 1.0 + r(64, dtype=f32, std=0.1),
+            r(64, dtype=f32, std=0.1), r(64, 128, std=0.125), r(32, dtype=f32, std=0.1), r(64, 3, 32))
+
+
+@pytest.mark.parametrize("name", OPERATORS)
+def test_operator_equals_the_direct_launch(dev, name):
+    """torch.ops.hybridgl.<name> on CUDA tensors is the ctypes launch it
+    dispatches to, bit for bit, at production shapes, and counts one call
+    of it on the wrapper (every launch on the tensor-core kernel)."""
+    from hybridgl_tpu_torch.kernels import _ops, kernel_wrappers
+
+    args = _production_args(dev=dev, name=name)
+    wrapper = kernel_wrappers()[name]
+    before = (wrapper.launches, wrapper.tc_launches)
+    got = getattr(torch.ops.hybridgl, name).default(*args)
+    counted = (wrapper.launches - before[0], wrapper.tc_launches - before[1])
+    want = _ops.REGISTERED[name].cuda(*args)
+    torch.cuda.synchronize()
+    got, want = (list(x) if isinstance(x, tuple) else [x] for x in (got, want))
+    assert len(got) == len(want) and all(torch.equal(a, b) for a, b in zip(got, want))
+    assert all(a.is_cuda for a in got) and counted == (1, 1)
+
+
+@pytest.mark.parametrize("name", ["flash_windowed_fused", "flash_attention_fused", "clip_attention"])
+def test_opcheck_on_the_card(dev, name):
+    """opcheck on CUDA tensors for K1, K2 and K6: schema, fake tensors,
+    autograd registration, and AOTAutograd with symbolic shapes."""
+    utils = ("test_schema", "test_faketensor", "test_autograd_registration", "test_aot_dispatch_dynamic")
+    if name == "flash_windowed_fused":  # a production share of the windows: opcheck runs the operator often
+        g = torch.Generator(device=dev).manual_seed(1)
+        args = tuple(torch.randn((32, 196, 80), generator=g, device=dev).to(BF16) for _ in range(3)) + tuple(
+            torch.randn((32, 196, 14), generator=g, device=dev) * 0.5 for _ in range(2)) + (14, 80**-0.5)
+    else:
+        args = _production_args(name, dev)
+    result = torch.library.opcheck(getattr(torch.ops.hybridgl, name).default, args, test_utils=utils)
+    assert result == dict.fromkeys(utils, "SUCCESS")
+
+
+def test_exported_encoder_on_the_card_equals_eager(dev, tmp_path):
+    """A two-block bf16 encoder at ViT-H's attention geometry (hd 80, windows
+    of 14 on a 64-grid: K1 on the resident tensor-core kernel, K2 on the
+    stream kernel) exported on the card, saved and reloaded: equal to the
+    eager port on the card, and every launch of its run on the tensor cores."""
+    from hybridgl_tpu_torch.core.config import PipelineConfig, SamConfig, clip_preset
+    from hybridgl_tpu_torch.core.params import cast_tree, init_sam
+    from hybridgl_tpu_torch.kernels import launch_counts, reset_launch_counts, tc_launch_counts
+    from hybridgl_tpu_torch.models.sam.image_encoder import encode_image, prepare_sam_params
+    from hybridgl_tpu_torch.tools import export_serving
+
+    sam = SamConfig(img_size=1024, encoder_width=160, encoder_depth=2, encoder_heads=2, encoder_global_idx=(1,),
+                    window_size=14, prompt_dim=32)
+    cfg = PipelineConfig(sam_config=sam, clip_config=clip_preset("test-tiny"))
+    g = torch.Generator(device=dev).manual_seed(2)
+    enc = prepare_sam_params({"encoder": cast_tree(init_sam(g, sam), BF16)["encoder"]}, sam)["encoder"]
+    for blk in enc["blocks"]:
+        for key in ("rel_tab_h", "rel_tab_w"):
+            blk["attn"][key] = torch.randn(blk["attn"][key].shape, generator=g, device=dev) * 0.2
+    image = torch.randn((1, 1024, 1024, 3), generator=g, device=dev)
+    program = export_serving.export_encoder(cfg, enc, dev)
+    assert export_serving.kernel_nodes(program) == {"flash_windowed_fused": 1, "flash_attention_fused": 1}
+    path = tmp_path / "sam_encoder.pt2"
+    torch.export.save(program, path)
+    loaded = export_serving.load_exported(path).module()
+    with torch.no_grad():
+        want = encode_image(enc, image, sam)
+        reset_launch_counts()
+        got = loaded(enc, image)
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in launch_counts().items() if v}
+    assert counts == {k: v for k, v in tc_launch_counts().items() if v} == {
+        "flash_windowed_fused": 1, "flash_attention_fused": 1}
+    assert torch.equal(got, want) and torch.isfinite(got.float()).all()

@@ -1,7 +1,9 @@
 """The port's small extras against the JAX package on CPU: visual prompts,
-the CLIP ModifiedResNet, the host-side CLIP preprocessing, the bucket helper
-and the analytic FLOP model. Inputs come from numpy seeds; each test states
-its tolerance."""
+the CLIP ModifiedResNet, the host-side CLIP preprocessing, the bucket helper,
+the analytic FLOP model, the IoU metrics' public functions, the plain CLIP
+image encoder (``vit_blocks``, ``encode_image``), ``gem_heatmap`` and
+``make_attn_bias``. Inputs come from numpy seeds; each test states its
+tolerance."""
 
 import dataclasses
 
@@ -12,15 +14,22 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from hybridgl_tpu.core.config import AMG_PHRASECUT, AMG_REFCOCO, FUSION_MODES, PipelineConfig
+from hybridgl_tpu.core.config import AMG_PHRASECUT, AMG_REFCOCO, FUSION_MODES, GemConfig, PipelineConfig, clip_preset
 from hybridgl_tpu.core.convert import normalize_state_dict
+from hybridgl_tpu.core.params import init_clip as jax_init_clip
+from hybridgl_tpu.eval import metrics as jmetrics
+from hybridgl_tpu.models.clip import fusion as jfusion
+from hybridgl_tpu.models.clip import vit as jvit
+from hybridgl_tpu.models.gem import gem as jgem
 from hybridgl_tpu.models.clip import preprocess as jpre
 from hybridgl_tpu.models.clip import resnet as jresnet
 from hybridgl_tpu.pipeline import visual_prompts as jvp
 from hybridgl_tpu.utils import buckets as jbuckets
 from hybridgl_tpu.utils import flops as jflops
 from hybridgl_tpu_torch.core.params import from_numpy_tree
-from hybridgl_tpu_torch.models.clip import preprocess, resnet
+from hybridgl_tpu_torch.eval import metrics
+from hybridgl_tpu_torch.models.clip import fusion, preprocess, resnet, vit
+from hybridgl_tpu_torch.models.gem import gem
 from hybridgl_tpu_torch.pipeline import visual_prompts as vp
 from hybridgl_tpu_torch.utils import buckets, flops
 
@@ -197,3 +206,116 @@ def test_peak_flops_lists_only_the_port_card():
     from hybridgl_tpu_torch.tools import check_kernels
 
     assert check_kernels.PEAK_BF16_FLOPS == flops.peak_flops(next(iter(flops.PEAK_FLOPS_BY_DEVICE)))
+
+
+def _pair(rng, shape=(24, 32), p=0.4):
+    return rng.random(shape) < p, rng.random(shape) < p
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_metrics_update_and_report_equal_reference(seed):
+    """update / update_masked (enabled and not) over six samples, the
+    accumulator's oIoU and mIoU and report: the reference's f32 sums
+    exactly; one empty pair (U = 0 -> IoU 0) included."""
+    rng = np.random.default_rng(seed)
+    jacc, tacc = jmetrics.IoUAccum.zeros(), metrics.IoUAccum.zeros()
+    for k in range(6):
+        pred, gt = _pair(rng) if k != 3 else (np.zeros((24, 32), bool), np.zeros((24, 32), bool))
+        if k % 2:
+            enabled = bool(k % 3)
+            jacc = jmetrics.update_masked(jacc, jnp.asarray(pred), jnp.asarray(gt), enabled)
+            tacc = metrics.update_masked(tacc, torch.from_numpy(pred), torch.from_numpy(gt), enabled)
+        else:
+            jiou, jacc = jmetrics.update(jacc, jnp.asarray(pred), jnp.asarray(gt))
+            tiou, tacc = metrics.update(tacc, torch.from_numpy(pred), torch.from_numpy(gt))
+            assert float(tiou) == float(jiou)
+    assert [float(v) for v in tacc] == [float(v) for v in jacc]
+    assert float(tacc.overall_iou) == float(jacc.overall_iou) and float(tacc.mean_iou) == float(jacc.mean_iou)
+    assert metrics.report(tacc) == jmetrics.report(jacc)
+
+
+def test_compute_iou_equals_reference():
+    """The reference's Compute_IoU signature: a caller's list is extended and
+    returned, a fresh list each call without one, a leading target axis squeezed."""
+    rng = np.random.default_rng(4)
+    mine, theirs = [0.5], [0.5]
+    cum = (0.0, 0.0), (0.0, 0.0)
+    for k in range(3):
+        pred, gt = _pair(rng)
+        target = gt[None] if k == 1 else gt
+        got = metrics.compute_iou(torch.from_numpy(pred), torch.from_numpy(target), *cum[0], mean_iou=mine)
+        want = jmetrics.compute_iou(pred, target, *cum[1], mean_iou=theirs)
+        assert got[0] == want[0] and got[2:] == want[2:] and got[1] is mine
+        cum = got[2:], want[2:]
+    assert mine == theirs and len(mine) == 4
+    assert metrics.compute_iou(np.ones((2, 2)), np.ones((2, 2)))[1] == [1.0]
+    assert metrics.compute_iou(np.ones((2, 2)), np.zeros((2, 2)))[1] == [0.0]
+
+
+def test_a_is_part_of_b_equals_reference():
+    rng = np.random.default_rng(5)
+    b = np.zeros((20, 20), bool)
+    b[2:18, 2:18] = True
+    inside = np.zeros_like(b)
+    inside[3:17, 3:17] = True  # 90%+ inside, IoU 0.77
+    small = np.zeros_like(b)
+    small[5:8, 5:8] = True  # inside, IoU too small
+    spill = np.zeros_like(b)
+    spill[0:16, 0:16] = True  # more than 10% outside
+    cases = [(inside, b), (small, b), (spill, b), (b, b), (np.zeros_like(b), b), (np.zeros_like(b), np.zeros_like(b))]
+    cases += [_pair(rng, (20, 20), 0.7) for _ in range(4)]
+    got = [metrics.a_is_part_of_b(torch.from_numpy(x), torch.from_numpy(y)) for x, y in cases]
+    assert got == [jmetrics.a_is_part_of_b(x, y) for x, y in cases]
+    assert got[:4] == [True, False, False, True]
+
+
+@pytest.fixture(scope="module")
+def tiny_clip():
+    """The tiny CLIP from jax's init with noise in its zero-initialised vectors: (cfg, JAX tree, port tree)."""
+    cfg = clip_preset("test-tiny")
+    rng = np.random.default_rng(6)
+    tree = jax.tree_util.tree_map(np.asarray, jax_init_clip(jax.random.PRNGKey(2), cfg))
+    tree = jax.tree_util.tree_map(
+        lambda x: (rng.standard_normal(x.shape) * 0.1).astype(np.float32) if x.ndim == 1 and not x.any() else np.array(x),
+        tree)
+    return cfg, jax.tree_util.tree_map(jnp.asarray, tree), from_numpy_tree(tree)
+
+
+@pytest.mark.parametrize("cls_only", [True, False])
+def test_clip_encode_image_and_vit_blocks_equal_reference(tiny_clip, cls_only):
+    """The plain CLIP image encoder and a block range, f32, to 1e-4 (the bar
+    of tests/test_torch_clip_gem.py)."""
+    cfg, jp, tp = tiny_clip
+    img = np.random.default_rng(7).standard_normal((3, cfg.image_size, cfg.image_size, 3)).astype(np.float32)
+    want = jvit.encode_image(jp["visual"], jnp.asarray(img), cfg, cls_only=cls_only)
+    got = vit.encode_image(tp["visual"], torch.from_numpy(img), to_port(cfg), cls_only=cls_only)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert np.abs(got.numpy() - np.asarray(want)).max() <= 1e-4
+    x = vit.vit_stem(tp["visual"], torch.from_numpy(img), to_port(cfg))
+    jx = jvit.vit_stem(jp["visual"], jnp.asarray(img), cfg)
+    got, want = vit.vit_blocks(tp["visual"], x, to_port(cfg), 1, 3), jvit.vit_blocks(jp["visual"], jx, cfg, 1, 3)
+    assert np.abs(got.numpy() - np.asarray(want)).max() <= 1e-4
+
+
+def test_gem_heatmap_equals_reference(tiny_clip):
+    """[T, S, S] relevance maps of three phrases on a 64^2 image, f32, to 1e-4."""
+    cfg, jp, tp = tiny_clip
+    gem_cfg = GemConfig(img_size=64, depth=2)
+    rng = np.random.default_rng(8)
+    img = rng.standard_normal((64, 64, 3)).astype(np.float32)
+    text = rng.standard_normal((3, cfg.embed_dim)).astype(np.float32)
+    want = jgem.gem_heatmap(jp, jnp.asarray(img), jnp.asarray(text), cfg, gem_cfg)
+    got = gem.gem_heatmap(tp, torch.from_numpy(img), torch.from_numpy(text), to_port(cfg), to_port(gem_cfg))
+    assert got.shape == want.shape == (3, 64, 64)
+    assert np.abs(got.numpy() - np.asarray(want)).max() <= 1e-4
+
+
+def test_make_attn_bias_equals_reference():
+    """The full CLS-row bias [P, 1, L, L] of fractional masks (one empty), exactly."""
+    rng = np.random.default_rng(9)
+    grid = (rng.random((4, 4, 4)) * (rng.random((4, 4, 4)) > 0.5)).astype(np.float32)
+    grid[1] = 0.0
+    got = fusion.make_attn_bias(torch.from_numpy(grid))
+    want = np.asarray(jfusion.make_attn_bias(jnp.asarray(grid)))
+    assert got.shape == want.shape == (4, 1, 17, 17) and got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), want)

@@ -115,6 +115,24 @@ def test_sticky_with_cleanup_is_exact(weights):
         (float(np.float32(r.pure_iou)), float(np.float32(r.final_iou))) for rs in seq[0] for r in rs]
 
 
+def test_device_cleanup_matches_sequential(weights, monkeypatch):
+    """HYBRIDGL_CLEANUP=device on both sides (the spawned ranks inherit the
+    environment): the step's cleanup on tensors gives run_image's selections,
+    IoUs (equal, not close) and clamp under the same switch, and those are
+    the host pass's selections."""
+    cfg = tiny_cfg(min_mask_region_area=6)
+    samples = [make_sample(runner, seed) for seed in (21, 22, 23, 24)]
+    host = sequential(cfg, weights, samples)
+    monkeypatch.setenv("HYBRIDGL_CLEANUP", "device")
+    seq, par = sequential(cfg, weights, samples), parallel(cfg, weights, samples)
+    check(seq, par, 4)
+    assert (par["k1"], par["k2"]) == (seq[1].k1, seq[1].k2) == (host[1].k1, host[1].k2)
+    assert [rec[4:] for rec in par["records"]] == [
+        (float(np.float32(r.pure_iou)), float(np.float32(r.final_iou))) for rs in seq[0] for r in rs]
+    assert [(r.pure_index, r.final_index) for rs in seq[0] for r in rs] == \
+        [(r.pure_index, r.final_index) for rs in host[0] for r in rs]
+
+
 def test_stamped_survivors_move_the_clamp(weights):
     """Stamped bundles of 7, 5, 8 and 2 live proposals (the same on both
     sides, seeded by the image): the selections range over the slots and the

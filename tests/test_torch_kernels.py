@@ -377,7 +377,8 @@ def test_tensor_core_launch_counts_reset_with_the_others():
 def test_k5_zeroed_outputs_are_views_of_one_buffer():
     from hybridgl_tpu_torch.kernels.pass1_stats import _zeroed_outputs
 
-    counts, rows, cols = _zeroed_outputs(3, 24, "cpu")
+    counts, flags = _zeroed_outputs(3, 24, "cpu")
+    rows, cols = flags
     assert (counts.shape, counts.dtype) == ((3, 2), torch.int32)
     assert rows.shape == cols.shape == (3, 24) and rows.dtype == cols.dtype == torch.bool
     assert not counts.any() and not rows.any() and not cols.any()

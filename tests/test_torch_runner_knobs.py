@@ -3,8 +3,8 @@ runner under the matching switch, on the tiny pipeline of
 tests/test_torch_pipeline.py (CPU, f32, same weights): the batched sentence
 stage (the port's only one; HYBRIDGL_BATCH_SENTENCES=1 in JAX), proposal
 buckets (against HYBRIDGL_NO_BUCKETING=1 in JAX), the survival hook, the
-cleanup on tensors (kernels/connected.py, which the port's runner does not
-call; HYBRIDGL_CLEANUP=device in JAX) against the runner's host pass, the
+cleanup on tensors (kernels/connected.py, which the runner takes under
+HYBRIDGL_CLEANUP=device, as JAX does) against the runner's host pass, the
 cleanup threads and the default expression parser. Selections must
 be equal; IoUs agree to 1e-4 and accumulator sums to 1e-6 relative (1e-5
 absolute between one call and one call a sentence, which differ only in the
@@ -272,15 +272,19 @@ def test_device_cleanup_changes_something(cleanup_pipelines):
     assert differs
 
 
-def test_cleanup_is_the_host_pass_whatever_the_environment(cleanup_pipelines, monkeypatch):
-    """HYBRIDGL_CLEANUP is no switch of the port: its runner takes the native
-    host pass, once an image, and never the pass on tensors."""
+@pytest.mark.parametrize("value", [None, "host", "cpu"])
+def test_cleanup_is_the_host_pass_whatever_the_environment(cleanup_pipelines, monkeypatch, value):
+    """Unless HYBRIDGL_CLEANUP is ``device`` (unset, ``host`` or any other
+    value) the runner takes the native host pass, once an image, and never
+    the pass on tensors."""
     from hybridgl_tpu_torch.kernels import connected
 
     host, _ = cleanup_pipelines
-    monkeypatch.setenv("HYBRIDGL_CLEANUP", "device")
-    pipe = runner.HybridGLPipeline(host.cfg, host.sam_params, host.clip_params, parser=host.parser,
-                                   tokenizer=host.tokenizer, device="cpu")
+    if value is None:
+        monkeypatch.delenv("HYBRIDGL_CLEANUP", raising=False)
+    else:
+        monkeypatch.setenv("HYBRIDGL_CLEANUP", value)
+    pipe = device_pipeline(host)
     calls = []
     original = pipe._cleanup_host
     monkeypatch.setattr(pipe, "_cleanup_host", lambda *a: calls.append(1) or original(*a))
@@ -289,6 +293,72 @@ def test_cleanup_is_the_host_pass_whatever_the_environment(cleanup_pipelines, mo
     got = pipe.propose(sample)
     want = host.propose(sample)
     assert calls == [1] and got.num == want.num and torch.equal(got.masks, want.masks)
+
+
+def device_pipeline(host):
+    """A runner on the host pipeline's config and weights, built now (it reads HYBRIDGL_CLEANUP once)."""
+    return runner.HybridGLPipeline(host.cfg, host.sam_params, host.clip_params, parser=host.parser,
+                                   tokenizer=host.tokenizer, device="cpu")
+
+
+def speckled_survivors(cfg, n_live, seed, hw):
+    """``workers.stamped_survivors`` with 2% of the image's pixels flipped in
+    every live mask: one-pixel holes and islands for the cleanup to repair."""
+    from hybridgl_tpu_torch.kernels.masks import mask_to_box
+    from hybridgl_tpu_torch.parallel.workers import stamped_survivors
+
+    props = stamped_survivors(cfg, n_live, seed, hw, "cpu")
+    (h, w), C = hw, cfg.canonical_size
+    flip = torch.zeros_like(props.masks)
+    flip[:n_live, :h, :w] = torch.from_numpy(np.random.default_rng(seed).random((n_live, h, w)) < 0.02)
+    masks = props.masks ^ flip
+    return props._replace(masks=masks, boxes_xyxy=mask_to_box(masks) * props.valid[:, None].float(),
+                          areas=masks.sum((-2, -1)).float())
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_device_cleanup_switch_in_run_image(cleanup_pipelines, monkeypatch, seed):
+    """HYBRIDGL_CLEANUP=device: the runner cleans on tensors (never the host
+    pass) and run_image gives the host pass's selections, IoUs and sums, on
+    its own proposals, as the JAX runner does under the same switch."""
+    host, jax_device = cleanup_pipelines
+    monkeypatch.setenv("HYBRIDGL_CLEANUP", "device")
+    pipe = device_pipeline(host)
+    monkeypatch.setattr(pipe, "_cleanup_host", lambda *a: pytest.fail("the runner took the host pass"))
+    sample = make_sample(runner, seed)
+    a, b, js = host.init_state(), pipe.init_state(), jax_device.init_state()
+    r_host, r_dev = host.run_image(sample, a), pipe.run_image(sample, b)
+    r_jax = jrunner.materialize_results(jax_device.run_image(make_sample(jrunner, seed), js))
+    assert pipe.last_proposals.num == host.last_proposals.num
+    assert torch.equal(pipe.last_proposals.valid, host.last_proposals.valid)
+    agree(r_dev, r_host, b, a)
+    agree(r_dev, r_jax, b, js)
+
+
+@pytest.mark.parametrize("n_live", [7, 5, 8])
+def test_device_cleanup_switch_on_stamped_survivors(cleanup_pipelines, monkeypatch, n_live):
+    """The stamped survivors of the parallel tests (``workers.stamped_survivors``),
+    speckled, in place of the runner's proposals: under HYBRIDGL_CLEANUP=device
+    run_image cleans them on tensors to the host pass's masks, boxes and
+    validity, and selects as the host runner does."""
+    host, _ = cleanup_pipelines
+    sample = make_sample(runner, 30 + n_live)
+    hw = (sample.h, sample.w)
+    stamp = lambda _: speckled_survivors(host.cfg, n_live, 100 + n_live, hw)  # noqa: E731
+    monkeypatch.setenv("HYBRIDGL_CLEANUP", "device")
+    pipe = device_pipeline(host)
+    out = {}
+    for name, p in (("host", host), ("device", pipe)):
+        monkeypatch.setattr(p, "_launch_proposals", stamp)
+        state = p.init_state()
+        out[name] = (p.run_image(sample, state), state, p.last_proposals)
+    (r_host, s_host, p_host), (r_dev, s_dev, p_dev) = out["host"], out["device"]
+    raw = stamp(None)
+    assert not torch.equal(p_host.masks & p_host.valid[:, None, None], raw.masks), "the cleanup changed nothing"
+    assert torch.equal(p_dev.masks, p_host.masks & p_host.valid[:, None, None])
+    assert torch.equal(p_dev.boxes_xyxy, p_host.boxes_xyxy) and torch.equal(p_dev.valid, p_host.valid)
+    assert p_dev.num == p_host.num
+    agree(r_dev, r_host, s_dev, s_host)
 
 
 def test_cleanup_threads_env_and_equal_results(monkeypatch):

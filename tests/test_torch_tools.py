@@ -124,7 +124,8 @@ def test_dryrun_multichip_four_ranks_on_cpu(capsys):
     assert "dryrun_multichip OK: 4 ranks on cpu" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("tool", ["bench", "profile_proposals", "profile_multicrop", "device_time"])
+@pytest.mark.parametrize("tool", ["bench", "profile_proposals", "profile_multicrop", "device_time", "dispatch_cost",
+                                  "export_serving"])
 def test_card_tools_refuse_without_a_card(tool, capsys):
     import importlib
 
@@ -145,3 +146,22 @@ def test_profile_trace_capture_and_dryrun_refuse_without_a_card(tmp_path):
         profile_trace.main(["--out", str(tmp_path / "t")])
     with pytest.raises(RuntimeError, match="no CUDA card"):
         dryrun.dryrun_multichip(2)
+
+
+def test_dispatch_cost_inputs_run_each_route_on_cpu():
+    """The dispatch-cost tool's four kernels at their small shapes: the
+    operator and the public wrapper give the CPU implementation's outputs."""
+    from hybridgl_tpu_torch.kernels import _ops
+    from hybridgl_tpu_torch.tools import dispatch_cost
+
+    gen = torch.Generator().manual_seed(0)
+    for name in dispatch_cost.KERNELS:
+        args, wrapper = dispatch_cost._inputs(name, torch.device("cpu"), gen)
+        direct = _ops.REGISTERED[name].cpu(*args)
+        op = getattr(torch.ops.hybridgl, name).default(*args)
+        flat = lambda x: list(x) if isinstance(x, tuple) else [x]  # noqa: E731
+        assert all(torch.equal(a, b) for a, b in zip(flat(direct), flat(op), strict=True)), name
+        got = flat(wrapper())
+        if name == "pass1_stats_half":  # the wrapper splits the [2, B, C] flags
+            got = [got[0], torch.stack(got[1:])]
+        assert all(torch.equal(a, b) for a, b in zip(flat(op), got, strict=True)), name
