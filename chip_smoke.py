@@ -9,8 +9,9 @@ Phases (every phase asserts; any failure exits non-zero):
   2. build: compiles the port's CUDA kernels from csrc/ (one nvcc per
      source, all at once, sm_90a);
   3. kernel check: ``hybridgl_tpu_torch.tools.check_kernels`` over all ten
-     CUDA kernels against their plain PyTorch versions at production
-     geometry, bf16 inputs, TF32 off, with median times beside each
+     CUDA kernels of the TPU kernels and the port's NMS kernel against their
+     plain PyTorch versions at production geometry, bf16 inputs (f32 boxes
+     for NMS, held exactly), TF32 off, with median times beside each
      kernel's bound (operations or bytes) and, for the four attention
      kernels, the time of one ``scaled_dot_product_attention`` call on the
      same inputs (a yardstick, used nowhere in the port). K3 and K4 are
@@ -38,10 +39,15 @@ Phases (every phase asserts; any failure exits non-zero):
      CLIP ViT-B/16, random bf16 weights from seed 0, AMG at RefCOCO
      settings with the quality thresholds zeroed as the reference bench
      does) on one warm-up and two measured synthetic images, checking
-     finite outputs, that every kernel of the path launched, and that every
-     launch of a wrapper with two kernels (K3-K8) took its tensor-core one;
+     finite outputs, that every kernel of the path launched, that NMS ran
+     on the card once an image, and that every launch of a wrapper with two
+     kernels (K3-K8) took its tensor-core one;
   6. PhraseCut pipeline: the same at AMG_PHRASECUT (pps 64, one crop layer,
-     P = 128, canonical 1024), one warm-up and one measured image;
+     P = 128, canonical 1024), one warm-up and one measured image, NMS on
+     the card six times an image (five crops, then across crops); then one
+     more image timed (ms/img, peak device memory), one under torch.profiler
+     (the pageable DtoH copies: count, bytes, device ms) and one under a
+     dispatch mode (the reads to the host by call site);
   7. fusion modes: all six at full width on one RefCOCO image's proposals
      and on a bucket of 64 live synthetic proposals: finite features, and
      K6 launched as often as each mode's blocks need (the CLS-row bias in
@@ -72,7 +78,9 @@ Phases (every phase asserts; any failure exits non-zero):
      boxes and validity, both times; then one RefCOCO image through run_image
      under HYBRIDGL_CLEANUP=device against the host pass, on its own
      proposals and on 16 rectangles with holes and islands in their place:
-     equal selections and IoUs, both times;
+     equal selections and IoUs, both times, NMS on the card twice an image
+     (once without the switch); and one PhraseCut image both ways: equal
+     selections, NMS seven times (six);
  12. data parallel on the card: (a) the CLI with --data_parallel at world 1
      over nccl at full width on phase 8's synthetic REFER tree gives the
      sequential CLI's result log and parity records (equal indices, IoUs |d| <
@@ -99,9 +107,16 @@ Phases (every phase asserts; any failure exits non-zero):
      saved, loaded here and in a fresh process that imports only the port;
      28 + 4 and 15 kernel nodes; each loaded program once on the card against
      eager (cos > 0.999), K1 +28, K2 +4 and K6 +15 launches, all on the
-     tensor cores; the .pt2 sizes and both times.
-The ranks of phases 12, 13 and 15 run in processes of their own and report
-their launch counts, which the kernels line adds to this process's.
+     tensor cores; the .pt2 sizes and both times;
+ 17. the demo: ``python -m hybridgl_tpu_torch.cli.demo --random-weights`` at
+     its defaults (SAM ViT-B, CLIP ViT-B/16, 8 x 8 points) on a synthetic
+     480x640 image in a process of its own: exit code 0 and "no proposals
+     found" (random weights pass none of the quality thresholds), then again
+     with those zeroed: its overlay written; each run K1 x 8 and K2 x 4 at 12
+     heads of head dim 64, NMS x 1.
+The ranks of phases 12, 13 and 15 and the demo run in processes of their own
+and report their launch counts, which the kernels line adds to this
+process's.
 The decoder runs its default route: the HYBRIDGL_FUSED_* switches are
 removed from the environment at start. The second-to-last line is a JSON
 object with one entry per kernel; the last line is the JSON contract line.
@@ -141,11 +156,16 @@ MIN_LAUNCHES_PER_IMAGE = {
     "clip_attention": 15,
     "i2t_ln_then_t2i": 2,
     "upscale_hyper_blocked": 1,
+    "nms": 1,
 }
 # the PhraseCut path adds the pass-2 re-decode on the per-prompt route: two
 # K7 image->token updates and three K8 token->image attentions; its five
 # encoder passes and 128 pass-1 chunks launch the others many times over
-MIN_LAUNCHES_PER_PHRASECUT_IMAGE = dict(MIN_LAUNCHES_PER_IMAGE, i2t_ln_update=2, t2i_ctx=3)
+MIN_LAUNCHES_PER_PHRASECUT_IMAGE = dict(MIN_LAUNCHES_PER_IMAGE, i2t_ln_update=2, t2i_ctx=3, nms=6)
+# NMS launches an image, exactly (one a call): RefCOCO's one over all
+# candidates; PhraseCut's five per-crop calls and the cross-crop call;
+# HYBRIDGL_CLEANUP=device adds the cleanup's duplicate suppression
+NMS_LAUNCHES_PER_IMAGE = {"RefCOCO": 1, "PhraseCut": 6}
 # K6 launches of one hybrid_forward at ViT-B/16 (12 blocks, masking block 9,
 # last layer 10), one per block call: crop runs the 12 blocks once;
 # token_masking 9 + 3; attn_masking stops one block early (9 + 2, the
@@ -196,7 +216,7 @@ def phase_build():
 
 
 def phase_kernels():
-    """All ten kernels through the kernel-check entry point."""
+    """All eleven kernels through the kernel-check entry point."""
     from hybridgl_tpu_torch.tools.check_kernels import run_checks
 
     results = run_checks(log=log)
@@ -409,6 +429,8 @@ def phase_pipeline(tag, amg, canonical, n_images, min_launches, weights):
         short = {k: (delta[k], n) for k, n in min_launches.items() if delta[k] < n}
         if short:
             fail(f"{name}: kernels launched fewer times than the path needs: {short}")
+        if delta["nms"] != NMS_LAUNCHES_PER_IMAGE[tag]:
+            fail(f"{name}: NMS launched {delta['nms']} times on the card, expected {NMS_LAUNCHES_PER_IMAGE[tag]}")
     # at full width in bf16 every launch of a wrapper with two kernels is the tensor-core kernel's
     total, on_tc = launch_counts(), tc_launch_counts()
     off_tc = {k: (n, total[k]) for k, n in on_tc.items() if n != total[k]}
@@ -422,6 +444,30 @@ def phase_pipeline(tag, amg, canonical, n_images, min_launches, weights):
         f"(per image {[round(t, 1) for t in times]}), peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     return pipe, samples
+
+
+def phase_downloads(pipe, samples, card):
+    """One more PhraseCut image timed (ms/img, peak device memory), one under
+    torch.profiler (the copies from the card into pageable host memory:
+    count, bytes, device ms) and one under a dispatch mode (the reads to the
+    host by call site); NMS reads nothing back but its 4-byte counts."""
+    import torch
+
+    from hybridgl_tpu_torch.tools.device_time import host_reads, profile_image
+
+    sample = samples[-1]
+    torch.cuda.reset_peak_memory_stats()
+    ms, _ = _wall_ms(lambda: pipe.run_image(sample, pipe.init_state()))
+    peak = torch.cuda.max_memory_allocated()
+    down = profile_image(pipe, sample, pipe.init_state(), log=log, top_n=8)["dtoh_pageable"]
+    reads = host_reads(lambda: pipe.run_image(sample, pipe.init_state()), log=log)
+    size = "bytes not measured" if down["bytes"] is None else f"{down['bytes']} bytes ({down['bytes'] / 1e6:.1f} MB)"
+    log(f"PhraseCut, one image: pageable DtoH {size} in {down['copies']} copies, {down['device_ms']:.2f} ms of device "
+        f"time (torch.profiler); reads to the host {sum(b for _, _, b in reads)} bytes (dispatch mode); peak device "
+        f"memory {peak} bytes ({peak / 2**30:.2f} GiB); {ms:.1f} ms/img; on {card}")
+    big = [r for r in reads if "kernels/nms.py" in r[0] and r[2] > 4 * r[1]]
+    if big:
+        fail(f"NMS read more than its 4-byte counts back to the host: {big}")
 
 
 def _synthetic_full_bucket(pipe, P=64, h=480, w=640):
@@ -985,14 +1031,11 @@ def phase_device_cleanup(refcoco, phrasecut):
         del bundles, bundle, host, dev, out
         torch.cuda.empty_cache()
     _runner_cleanup_switch(*refcoco)
+    _phrasecut_cleanup_switch(*phrasecut)
 
 
-def _runner_cleanup_switch(pipe, samples):
-    """One RefCOCO image through run_image with HYBRIDGL_CLEANUP=device (a
-    pipeline built under it) and with the default host pass: on the image's
-    own proposals (random weights leave one), and on 16 rectangles with holes
-    and islands put in their place before the cleanup (13 survive it). Equal
-    selections and IoUs; both times after a warm-up."""
+def _device_cleanup_pipeline(pipe):
+    """The pipeline's twin built under HYBRIDGL_CLEANUP=device."""
     from hybridgl_tpu_torch.pipeline.runner import HybridGLPipeline
 
     saved = os.environ.get("HYBRIDGL_CLEANUP")
@@ -1007,6 +1050,20 @@ def _runner_cleanup_switch(pipe, samples):
             os.environ["HYBRIDGL_CLEANUP"] = saved
     if not on_card._device_cleanup or pipe._device_cleanup:
         fail("HYBRIDGL_CLEANUP=device did not select the cleanup on the card (or the default pipeline took it)")
+    return on_card
+
+
+def _runner_cleanup_switch(pipe, samples):
+    """One RefCOCO image through run_image with HYBRIDGL_CLEANUP=device (a
+    pipeline built under it) and with the default host pass: on the image's
+    own proposals (random weights leave one), and on 16 rectangles with holes
+    and islands put in their place before the cleanup (13 survive it). Equal
+    selections and IoUs; both times after a warm-up; NMS on the card once an
+    image on the host pass, twice under the switch (with the stamped bundle,
+    which skips the AMG, none and once)."""
+    from hybridgl_tpu_torch.kernels import launch_counts
+
+    on_card = _device_cleanup_pipeline(pipe)
     sample = samples[1]
     for label in ("its own proposals", "16 rectangles with holes and islands in place of its proposals"):
         out = {}
@@ -1016,19 +1073,44 @@ def _runner_cleanup_switch(pipe, samples):
             try:
                 p.run_image(sample, p.init_state())  # warm-up
                 state = p.init_state()
+                nms0 = launch_counts()["nms"]
                 ms, results = _wall_ms(lambda: p.run_image(sample, state))
+                n_nms = launch_counts()["nms"] - nms0
             finally:
                 p.__dict__.pop("_launch_proposals", None)
             out[name] = (ms, [(r.pure_index, r.final_index) for r in results],
-                         [(r.pure_iou, r.final_iou) for r in results], p.last_proposals.num)
-        (ms_h, sel_h, iou_h, n_h), (ms_d, sel_d, iou_d, n_d) = out.values()
+                         [(r.pure_iou, r.final_iou) for r in results], p.last_proposals.num, n_nms)
+        (ms_h, sel_h, iou_h, n_h, nms_h), (ms_d, sel_d, iou_d, n_d, nms_d) = out.values()
         d_iou = max(abs(a - b) for x, y in zip(iou_h, iou_d) for a, b in zip(x, y))
-        ok = sel_h == sel_d and d_iou <= 1e-6 and n_h == n_d
+        want_nms = (1, 2) if label == "its own proposals" else (0, 1)  # stamped bundles skip the AMG's NMS
+        ok = sel_h == sel_d and d_iou <= 1e-6 and n_h == n_d and (nms_h, nms_d) == want_nms
         log(f"  run_image, one RefCOCO image, {label}: host pass {ms_h:.1f} ms, HYBRIDGL_CLEANUP=device {ms_d:.1f} ms")
         log(f"{'PASS' if ok else 'FAIL'} run_image under HYBRIDGL_CLEANUP=device == the host pass, {label}: "
-            f"selections {sel_d}, live proposals {n_d}, IoU max|d| {d_iou:.2e}")
+            f"selections {sel_d}, live proposals {n_d}, IoU max|d| {d_iou:.2e}, NMS launches {nms_d} ({nms_h} on "
+            f"the host pass; expected {want_nms[1]} and {want_nms[0]})")
         if not ok:
             fail(f"run_image under HYBRIDGL_CLEANUP=device differs from the host pass ({label})")
+
+
+def _phrasecut_cleanup_switch(pipe, samples):
+    """One PhraseCut image through run_image with the host pass and under
+    HYBRIDGL_CLEANUP=device: equal selections and IoUs; NMS on the card six
+    times and seven (the cleanup's duplicate suppression)."""
+    from hybridgl_tpu_torch.kernels import launch_counts
+
+    sample, out = samples[1], {}
+    for name, p in (("host pass", pipe), ("HYBRIDGL_CLEANUP=device", _device_cleanup_pipeline(pipe))):
+        nms0 = launch_counts()["nms"]
+        ms, results = _wall_ms(lambda: p.run_image(sample, p.init_state()))
+        out[name] = (ms, [(r.pure_index, r.final_index, r.pure_iou, r.final_iou) for r in results],
+                     launch_counts()["nms"] - nms0)
+    (ms_h, r_h, nms_h), (ms_d, r_d, nms_d) = out.values()
+    ok = r_h == r_d and (nms_h, nms_d) == (NMS_LAUNCHES_PER_IMAGE["PhraseCut"], NMS_LAUNCHES_PER_IMAGE["PhraseCut"] + 1)
+    log(f"{'PASS' if ok else 'FAIL'} run_image under HYBRIDGL_CLEANUP=device == the host pass, one PhraseCut image: "
+        f"selections {[r[:2] for r in r_d]}, same {r_h == r_d}, NMS launches {nms_d} ({nms_h} on the host pass; "
+        f"expected 7 and 6); {ms_d:.1f} and {ms_h:.1f} ms (no warm-up)")
+    if not ok:
+        fail("PhraseCut under HYBRIDGL_CLEANUP=device differs from the host pass or missed its NMS launches")
 
 
 def phase_prepared(pipe, samples, weights):
@@ -1292,6 +1374,98 @@ def phase_dryrun():
         fail("the multi-device dry run failed on the card")
 
 
+_DEMO = """
+import contextlib, io, json, runpy, sys
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+import hybridgl_tpu_torch.core.config as config
+from hybridgl_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+
+class Shapes(TorchDispatchMode):  # the first operand's shape of every torch.ops.hybridgl call
+    def __init__(self):
+        super().__init__()
+        self.shapes = {}
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        name = func._schema.name
+        if name.startswith("hybridgl::"):
+            self.shapes.setdefault(name.split("::")[1], []).append(list(args[0].shape))
+        return func(*args, **(kwargs or {}))
+
+
+def demo(argv):
+    reset_launch_counts()
+    sys.argv = ["hybridgl_tpu_torch.cli.demo", *argv]
+    out = io.StringIO()
+    with Shapes() as mode, contextlib.redirect_stdout(out):
+        runpy.run_module("hybridgl_tpu_torch.cli.demo", run_name="__main__", alter_sys=True)
+    return {"stdout": out.getvalue(), "launches": launch_counts(), "shapes": mode.shapes}
+
+
+tmp, args = sys.argv[1], sys.argv[2:]
+runs = {"defaults": demo(args + ["--out", tmp + "/at_defaults.jpg"])}
+amg = config.AmgConfig  # the demo again, the quality thresholds zeroed as the bench does for random weights
+config.AmgConfig = lambda **kw: amg(**dict(dict(pred_iou_thresh=0.0, stability_score_thresh=0.0), **kw))
+runs["thresholds zeroed"] = demo(args + ["--out", tmp + "/overlay.jpg"])
+assert not {"jax", "jaxlib", "hybridgl_tpu"} & set(sys.modules)
+print(json.dumps(runs))
+"""
+
+
+def phase_demo(card):
+    """The port's demo as a user runs it (``python -m hybridgl_tpu_torch.cli.demo
+    --random-weights``: SAM ViT-B, CLIP ViT-B/16, 8 x 8 points, G2L) on a
+    synthetic 480x640 image, in a process of its own that records the shape
+    of every kernel operator's first operand; twice: at its defaults, where
+    random weights pass none of the AMG's quality thresholds (it prints "no
+    proposals found" and writes nothing, as the reference's demo does), then
+    with those two thresholds zeroed as the bench does, where it writes its
+    overlay. Each run: exit code 0, K1 x 8 on [25 windows x 12 heads, 196, 64]
+    and K2 x 4 on [12, 4096, 64] (ViT-B: 12 blocks, 4 of them global), NMS x
+    1; the second, the overlay at the image's size. Returns the process's
+    launch counts (both runs)."""
+    import tempfile
+
+    import numpy as np
+    from PIL import Image
+
+    with tempfile.TemporaryDirectory() as tmp:
+        img, out = os.path.join(tmp, "image.png"), os.path.join(tmp, "overlay.jpg")
+        Image.fromarray(np.random.default_rng(8).integers(0, 255, (480, 640, 3), np.uint8)).save(img)
+        t0 = time.perf_counter()
+        done = subprocess.run([sys.executable, "-c", _DEMO, tmp, "--img_path", img, "--ref_text", "the dog on the left",
+                               "--random-weights"], cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO),
+                              capture_output=True, text=True, timeout=600)
+        seconds = time.perf_counter() - t0
+        if done.returncode != 0:
+            fail(f"the demo exited with {done.returncode}: {done.stderr[-3000:]}")
+        runs = json.loads(done.stdout.strip().splitlines()[-1])
+        written = Image.open(out).size if os.path.exists(out) else None
+        at_defaults = os.path.exists(os.path.join(tmp, "at_defaults.jpg"))
+    total = {}
+    for tag, run in runs.items():
+        for line in run["stdout"].strip().splitlines():
+            log(f"  demo, {tag}: {line}")
+        launches, shapes = run["launches"], run["shapes"]
+        k1, k2 = shapes.get("flash_windowed_fused", []), shapes.get("flash_attention_fused", [])
+        printed = "no proposals found" in run["stdout"] if tag == "defaults" else f"wrote {out}" in run["stdout"]
+        ok = (printed and launches["flash_windowed_fused"] == len(k1) == 8
+              and launches["flash_attention_fused"] == len(k2) == 4 and launches["nms"] == 1
+              and all(s == [25 * 12, 196, 64] for s in k1) and all(s == [12, 4096, 64] for s in k2))
+        ok = ok and (not at_defaults if tag == "defaults" else written == (640, 480))
+        log(f"{'PASS' if ok else 'FAIL'} demo, {tag} (python -m hybridgl_tpu_torch.cli.demo --random-weights, vit_b + "
+            f"ViT-B/16): rc {done.returncode}, overlay {written if tag != 'defaults' else 'none (no proposal passes)'}, "
+            f"K1 x {len(k1)} on {k1[:1]}, K2 x {len(k2)} on {k2[:1]}, launches "
+            f"{dict((k, v) for k, v in launches.items() if v)}")
+        if not ok:
+            fail(f"the demo ({tag}) printed the wrong outcome, wrote no overlay or missed its kernels at ViT-B's "
+                 "12 heads of head dim 64")
+        total = {k: total.get(k, 0) + v for k, v in launches.items()}
+    log(f"  demo: both runs {seconds:.1f} s in all with weights, on {card}")
+    return total
+
+
 def phase_bench():
     """tools/bench.py as a user runs it, at BENCH_ITERS=4 BENCH_REPS=3; its JSON line is echoed."""
     env = dict(os.environ, BENCH_ITERS="4", BENCH_REPS="3", BENCH_MC_ITERS="2", PYTHONPATH=REPO)
@@ -1337,6 +1511,7 @@ def main(argv):
         missing = [k for k in mins if counts[tag][k] == 0]
         if missing:
             fail(f"kernels of the {tag} path never launched: {missing}")
+    phase_downloads(*paths["PhraseCut"], card)
     reset_launch_counts()
     phase_fusion_modes(*paths["RefCOCO"])
     counts["fusion modes"] = launch_counts()
@@ -1364,7 +1539,8 @@ def main(argv):
         counts[f"tensor-parallel encoder, rank {o['rank']}"] = o["launches"]
     phase_dryrun()
     phase_bench()
-    if "--profile" in argv:  # opt-in: CUPTI tracing is not part of the contract run
+    counts["demo"] = phase_demo(card)
+    if "--profile" in argv:  # opt-in: the stage and route breakdowns are not part of the contract run
         phase_profile(*paths["RefCOCO"])
         phase_routes(*paths["RefCOCO"])
         phase_multicrop_stages(*paths["PhraseCut"])

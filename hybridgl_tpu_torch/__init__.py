@@ -26,8 +26,8 @@ with its vocabulary, expression parsers, the native region-cleanup binding,
 env helpers, the REFER API, RLE codec, prefetcher, parity log and overlays)
 it keeps its own copy under the same relative path. A kernel wrapper runs its
 plain version for a CPU tensor and launches its CUDA kernel (or raises) for
-a CUDA tensor. Importing the package registers the ten kernels as PyTorch
-operators, ``torch.ops.hybridgl.*`` (``kernels/_ops.py``), which a program
+a CUDA tensor. Importing the package registers the ten kernels and the
+port's NMS kernel as PyTorch operators, ``torch.ops.hybridgl.*`` (``kernels/_ops.py``), which a program
 exported by ``tools/export_serving.py`` needs before ``torch.export.load``.
 """
 

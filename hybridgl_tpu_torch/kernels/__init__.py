@@ -2,17 +2,20 @@
 
 ``flash_attention``, ``clip_attention``, ``pass1_stats``, ``decoder_attn``,
 ``decoder_attn_t2i``, ``decoder_pass`` and ``upscale_hyper`` wrap the
-hand-written CUDA kernels in ``csrc/`` (built by ``_build``): each wrapper
-calls its registered operator, ``torch.ops.hybridgl.<TPU kernel's name>``
-(``_ops``), whose CUDA implementation launches the kernel and whose CPU one
-runs the plain version. The other modules are the plain tensor primitives
-the reference wrote as XLA.
+hand-written CUDA kernels in ``csrc/`` (built by ``_build``) that replace the
+ten TPU kernels, and ``nms`` wraps the port's own NMS kernel (the reference's
+``nms`` is XLA): each wrapper calls its registered operator,
+``torch.ops.hybridgl.<reference function's name>`` (``_ops``), whose CUDA
+implementation launches the kernel and whose CPU one runs the plain version.
+The other modules are the plain tensor primitives the reference wrote as
+XLA.
 
 Each kernel wrapper counts its launches in a plain integer attribute
 (``wrapper.launches``), incremented only where it launches its kernel, once
-a kernel launch (K3's split route makes several a call). The wrappers with a
-tensor-core and a CUDA-core kernel behind them (all ten) also count the
-launches that took the tensor-core one (``wrapper.tc_launches``).
+a kernel launch (K3's split route makes several a call; ``nms`` counts one a
+call for its two kernels). The wrappers with a tensor-core and a CUDA-core
+kernel behind them (the ten) also count the launches that took the
+tensor-core one (``wrapper.tc_launches``).
 """
 
 from __future__ import annotations
@@ -20,12 +23,13 @@ from __future__ import annotations
 
 def kernel_wrappers():
     """{name: wrapper} for every CUDA kernel of the port, by the name of its
-    operator; importing them registers the ten operators."""
+    operator; importing them registers the eleven operators."""
     from .clip_attention import clip_attention
     from .decoder_attn import i2t_ln_update
     from .decoder_attn_t2i import t2i_ctx
     from .decoder_pass import i2t_ln_then_t2i
     from .flash_attention import flash_attention_fused, flash_attention_rel_pos, flash_windowed_fused
+    from .nms import nms
     from .pass1_stats import pass1_stats, pass1_stats_half
     from .upscale_hyper import upscale_hyper
 
@@ -40,6 +44,7 @@ def kernel_wrappers():
         "t2i_ctx": t2i_ctx,
         "flash_attention_rel_pos": flash_attention_rel_pos,
         "pass1_stats": pass1_stats,
+        "nms": nms,
     }
 
 

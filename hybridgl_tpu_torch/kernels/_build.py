@@ -55,6 +55,8 @@ _SIGNATURES = {
     "hgl_decoder_attn_tc_smem": [],
     "hgl_upscale_hyper_tc_takes": [_i] * 5,
     "hgl_upscale_hyper_tc_smem": [],
+    "hgl_nms": [_vp, _vp, _i, _f, _vp, _vp, _vp, _vp],
+    "hgl_nms_max_n": [],
 }
 
 

@@ -1,6 +1,7 @@
-"""The ten kernels as PyTorch operators, ``torch.ops.hybridgl.<name>``.
+"""The port's kernels as PyTorch operators, ``torch.ops.hybridgl.<name>``.
 
-Each operator is named after the TPU kernel it replaces and has three
+Each operator is named after the reference function it replaces (the ten
+TPU kernels, and ``nms``, which the reference writes as XLA) and has three
 implementations: CUDA (the wrapper's ctypes launch, with its checks, its
 choice of kernel and its launch counters), CPU (the plain PyTorch version)
 and a fake one that gives the output shapes, dtypes and devices from the

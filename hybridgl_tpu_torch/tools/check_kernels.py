@@ -1,7 +1,8 @@
 """Check every CUDA kernel of the port against its plain version on the card.
 
 The counterpart of the reference's ``tools/check_tpu_kernels.py``: each of
-the ten kernels runs at production geometry with bf16 inputs and TF32 off,
+the ten kernels that replace the TPU kernels runs at production geometry with
+bf16 inputs and TF32 off,
 beside its plain PyTorch version on the same inputs, and prints one
 PASS/FAIL line with its median time and the plain version's (CUDA events
 around a batch of back-to-back calls, :func:`time_ms`). K3 and K4 have two
@@ -24,14 +25,18 @@ tensor-core peak or bytes over the memory rate, whichever is larger), and,
 for the four attention kernels, beside the one PyTorch call that computes
 the same function (``scaled_dot_product_attention`` with the bias
 materialised as ``attn_mask``). That call is a yardstick only: nothing else
-in the port calls it. The run ends with ``ALL PASS`` or ``FAILURES``; the
-exit code is 0 only if every kernel passed.
+in the port calls it. The port's own NMS kernel (``csrc/nms.cu``; the
+reference's NMS is XLA) is checked the same way on f32 boxes, its bound
+counted against the CUDA cores' f32 rate (no PyTorch call computes greedy
+NMS). The run ends with ``ALL PASS`` or ``FAILURES``; the exit code is 0
+only if every kernel passed.
 
     python -m hybridgl_tpu_torch.tools.check_kernels [name ...]   (default: all)
 
 Bars (the reference check's, ``tools/check_tpu_kernels.py:144-183``):
   * attention-type outputs: cos >= 0.999 and mean|d|/mean|plain| < 0.02;
   * decoder logits (K4): max|d| < 0.1 and > 99.5% sign agreement;
+  * NMS: order, keep_sorted and num_kept exactly equal;
   * pass-1 stats: stability |d| <= 1e-3 and box edges within 1 px in bf16;
     in f32 (``HYBRIDGL_STATS_BF16=0``) equal box edges and stability |d| <=
     1e-4: the f32 sums differ only in order, which can move a pixel lying
@@ -45,8 +50,9 @@ tp 8, S = 4096; B = 64 and 128 for K3/K4, 128 for K7/K8), pass 1 (K5: 192 RefCOC
 candidates at C = 640, and PhraseCut's layer-1 crop window and full-image
 window at C = 1024; K10: 16
 points x 3 masks at C = 1024 and window (17, 5, 451, 633), and 192
-candidates at C = 640). The check needs a CUDA card; it refuses to run
-without one.
+candidates at C = 640), NMS (N = 192, 1,280, 3,072, 12,288 and a ragged
+1,001 candidates, threshold 0.7). The check needs a CUDA card; it refuses to
+run without one.
 """
 
 from __future__ import annotations
@@ -71,13 +77,18 @@ KERNELS = {
     "t2i_ctx": ("hybridgl_tpu_torch/csrc/decoder_attn_wgmma.cu", "hybridgl_tpu/kernels/decoder_attn_t2i.py:82"),
     "flash_attention_rel_pos": ("hybridgl_tpu_torch/csrc/attention_wgmma.cu", "hybridgl_tpu/kernels/flash_attention.py:78"),
     "pass1_stats": ("hybridgl_tpu_torch/csrc/pass1_stats_wgmma.cu", "hybridgl_tpu/kernels/pass1_stats.py:152"),
+    # the port's own kernel: the reference's nms is an XLA program (the IoU matrix and a fori_loop sweep)
+    "nms": ("hybridgl_tpu_torch/csrc/nms.cu", "hybridgl_tpu/kernels/nms.py:31"),
 }
 
 
 # published peaks of one H100 SXM: dense bf16 on the tensor cores (the
-# FLOP model's table), HBM3
+# FLOP model's table), f32 on the CUDA cores, HBM3
 PEAK_BF16_FLOPS = PEAK_FLOPS_BY_DEVICE["NVIDIA H100"]
+PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
+# kernels whose operations run in f32 on the CUDA cores (their bound uses PEAK_F32_FLOPS)
+CUDA_CORE_F32 = ("nms",)
 
 
 def kernel_work(name: str, **d) -> tuple[int, int]:
@@ -90,7 +101,9 @@ def kernel_work(name: str, **d) -> tuple[int, int]:
     element) and G (rel-pos) or N (CLS-row bias rows); the pass-1 stats B, n,
     C, dh, dw (window extent), esize (stats dtype) and, full mode, n2; the
     decoder kernels B, S, C, Cq, GT, shared (qside and base are [1, S, .]);
-    K4 B, S, C, c4, c8, m."""
+    K4 B, S, C, c4, c8, m; the NMS kernel N and read_words, the mask words its
+    sweep read for these boxes (the diagonal words and the kept rows' words
+    right of theirs)."""
     if name in ("flash_windowed_fused", "flash_attention_fused", "flash_attention_rel_pos"):
         BH, S, hd, G, e = d["BH"], d["S"], d["hd"], d["G"], d["esize"]
         return 4 * BH * S * S * hd, 4 * BH * S * hd * e + 2 * BH * S * G * 4
@@ -120,12 +133,16 @@ def kernel_work(name: str, **d) -> tuple[int, int]:
         ops = B * S * (2 * C * 4 * c4 + 4 * 2 * c4 * 4 * c8 + 16 * 2 * c8 * m)
         e = d.get("esize", 2)  # src, the deconv weights and the hyper rows come in the stream dtype
         return ops, (B * S * C + C * 4 * c4 + c4 * 4 * c8 + B * m * c8) * e + B * m * 16 * S * 4
+    if name == "nms":  # ~15 f32 operations an IoU of the upper triangle; boxes, valid, the mask, keep, the count
+        N, W = d["N"], -(-d["N"] // 64)
+        written = sum(min(64, N - 64 * rb) * (W - rb) for rb in range(W))  # the upper triangle's words
+        return 15 * N * (N - 1) // 2, 16 * N + N + 8 * (written + d["read_words"]) + N + 4
     raise ValueError(f"unknown kernel {name}")
 
 
-def bound_ms(operations: int, nbytes: int) -> tuple[float, str]:
+def bound_ms(operations: int, nbytes: int, peak_flops: float = PEAK_BF16_FLOPS) -> tuple[float, str]:
     """The least time the card could take, in ms, and what sets it."""
-    by_ops, by_bytes = operations / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+    by_ops, by_bytes = operations / peak_flops * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
     return (by_ops, "operations") if by_ops >= by_bytes else (by_bytes, "bytes")
 
 
@@ -190,7 +207,7 @@ class _Run:
         library call; ``work`` is :func:`kernel_work`'s shape arguments."""
         ms, plain_ms = time_ms(kernel), time_ms(plain)
         library_ms = time_ms(library) if library is not None else None
-        bound, by = bound_ms(*kernel_work(name, **work))
+        bound, by = bound_ms(*kernel_work(name, **work), PEAK_F32_FLOPS if name in CUDA_CORE_F32 else PEAK_BF16_FLOPS)
         self.log(f"  {name} {shape}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, library "
                  + (f"{library_ms:.3f} ms" if library is not None else "no single call")
                  + f", bound {bound:.4f} ms by {by} ({100 * bound / ms:.1f}% of bound)")
@@ -560,6 +577,82 @@ def _decoder(run: _Run):
     _check_upscale(run, "B = 128, f32 at C = 128", 128, 3, "cuda-core", C=128, dtype=f32)
 
 
+NMS_SIZES = (192, 1280, 3072, 12288, 1001)
+
+
+def _candidate_boxes(run: _Run, N):
+    """N pass-1-like candidates in a 480x640 image, integer edges as
+    box_from_profiles gives them: two in three are one of N / 48 objects with
+    each edge moved by up to 8 px (the many points and masks that find one
+    object), the rest boxes of 8-400 px anywhere; random scores, 90% valid."""
+    g, dev = run.gen, run.dev
+    hi = torch.tensor([639.0, 479.0, 639.0, 479.0], device=dev)
+
+    def anywhere(n):
+        lo = torch.rand((n, 2), generator=g, device=dev) * hi[:2]
+        return torch.cat([lo, lo + 8.0 + torch.rand((n, 2), generator=g, device=dev) * 392.0], 1)
+
+    objects = anywhere(max(N // 48, 1))
+    pick = torch.randint(0, objects.shape[0], (N,), generator=g, device=dev)
+    jitter = torch.randint(-8, 9, (N, 4), generator=g, device=dev).float()
+    boxes = torch.where(torch.rand((N, 1), generator=g, device=dev) < 2 / 3, objects[pick] + jitter, anywhere(N))
+    boxes = torch.minimum(boxes.floor().clamp(min=0.0), hi).contiguous()
+    return boxes, torch.rand(N, generator=g, device=dev), torch.rand(N, generator=g, device=dev) > 0.1
+
+
+def _parent_route(boxes, scores, thr, valid):
+    """The port's NMS before its kernel, for its time only: the f32 IoU matrix
+    on the card, downloaded, and the sweep in a host loop."""
+    import numpy as np
+
+    from ..kernels.masks import box_iou_matrix
+
+    order = torch.sort(-torch.where(valid, scores, -1e30), stable=True).indices
+    b = boxes[order]
+    iou = box_iou_matrix(b, b).cpu().numpy()
+    idx, suppressed = np.arange(len(iou)), np.zeros(len(iou), bool)
+    for i in range(len(iou)):
+        if not suppressed[i]:
+            suppressed |= (iou[i] > thr) & (idx > i)
+    return int((~suppressed & valid[order].cpu().numpy()).sum())
+
+
+def _nms(run: _Run):
+    """The port's NMS kernel at the proposal stage's N (RefCOCO 192; PhraseCut
+    3,072 a layer-1 crop, 12,288 the full-image crop, 1,280 across crops) and
+    at a ragged N, box_nms_thresh 0.7: the wrapper's order, keep_sorted and
+    num_kept exactly equal to the plain version's (the score sort, then
+    reference_nms_sorted). Times: the operator (both kernels), its plain
+    version (the bitmask on the card, downloaded, the sweep on the host), the
+    whole wrapper (with its sort and 4-byte read), the parent's route (the f32
+    IoU matrix downloaded)."""
+    from ..kernels.nms import _n1, nms, reference_nms_sorted, suppression_matrix, sweep
+
+    thr = 0.7
+    for N in NMS_SIZES:
+        boxes, scores, valid = _candidate_boxes(run, N)
+        got = nms(boxes, scores, thr, valid)
+        order = torch.sort(-torch.where(valid, scores, -1e30), stable=True).indices
+        b, v = boxes[order].contiguous(), valid[order].contiguous()
+        keep, num = reference_nms_sorted(b, v, thr)
+        torch.cuda.synchronize()
+        d_keep = int((got.keep_sorted != keep).sum())
+        ok = torch.equal(got.order, order) and d_keep == 0 and got.num_kept == int(num)
+        run.verdict(f"nms N = {N}", ok, f"order equal {torch.equal(got.order, order)}, keep_sorted flags differing "
+                    f"{d_keep}, num_kept {got.num_kept} (plain {int(num)}) of {int(valid.sum())} valid")
+        kept_rows = (~sweep(suppression_matrix(b, thr).cpu())).nonzero().flatten()
+        W = -(-N // 64)
+        read_words = N + int((W - kept_rows // 64 - 1).sum())
+        wrapper_ms = time_ms(lambda: nms(boxes, scores, thr, valid))
+        parent_ms = time_ms(lambda: _parent_route(boxes, scores, thr, valid))
+        run.log(f"  nms N = {N}: the wrapper (sort, gather, operator, count read) {wrapper_ms:.3f} ms, the parent's "
+                f"route (f32 IoU matrix downloaded, host sweep) {parent_ms:.3f} ms, kept {got.num_kept}")
+        run.record("nms", ok, float(max(d_keep > 0, abs(got.num_kept - int(num)))), lambda: _n1(b, v, thr),
+                   lambda: reference_nms_sorted(b, v, thr), f"N = {N}, threshold {thr}",
+                   dict(N=N, read_words=read_words))
+        torch.cuda.empty_cache()
+
+
 # what run_checks reports for each kernel (library_ms is None where no
 # single PyTorch call computes the kernel's function)
 RESULT_KEYS = ("ok", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -570,11 +663,12 @@ _GROUPS = (
     (("clip_attention",), _clip),
     (("pass1_stats_half", "pass1_stats"), _pass1),
     (("i2t_ln_then_t2i", "i2t_ln_update", "t2i_ctx", "upscale_hyper_blocked"), _decoder),
+    (("nms",), _nms),
 )
 
 
 def run_checks(names=None, log=print) -> dict:
-    """Check the named kernels (default: all ten) on the card.
+    """Check the named kernels (default: all eleven) on the card.
 
     Returns {name: dict of RESULT_KEYS}; raises where no CUDA card is
     present."""

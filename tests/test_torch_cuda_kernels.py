@@ -24,6 +24,13 @@ The ten registered operators (``torch.ops.hybridgl.*``): each on CUDA tensors
 equal bit for bit to the ctypes launch it dispatches to, at production shapes;
 ``opcheck`` on the card for K1, K2 and K6; an encoder exported on the card
 equal to the eager port there, every launch of its run on the tensor cores.
+
+The port's NMS kernel (``csrc/nms.cu``, ``torch.ops.hybridgl.nms``) against
+its plain version bit for bit (``keep`` and the count) at N = 1, 33, 64, 65,
+192, 1,280, 3,072 and 12,288, float and integer boxes, thresholds 0.5 and
+0.7, and on pairs whose f32 IoU is exactly the f32 threshold or next to it;
+one launch counted a call; ``opcheck`` on the card; nothing of size N read
+back by the wrapper (a 4-byte count only); refused inputs raise.
 """
 
 import pytest
@@ -1123,3 +1130,98 @@ def test_exported_encoder_on_the_card_equals_eager(dev, tmp_path):
     assert counts == {k: v for k, v in tc_launch_counts().items() if v} == {
         "flash_windowed_fused": 1, "flash_attention_fused": 1}
     assert torch.equal(got, want) and torch.isfinite(got.float()).all()
+
+
+# --------------------------------------------------------------------------
+# the port's NMS kernel (csrc/nms.cu)
+# --------------------------------------------------------------------------
+
+
+def _nms_inputs(dev, N, integer, seed):
+    """N boxes (sorted order is the caller's) at a density that leaves many
+    overlaps, 80% valid."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    side = 12.0 * (max(N, 1) / 64.0) ** 0.5 + 8.0
+    xy = torch.rand((N, 2), generator=g, device=dev) * side
+    boxes = torch.cat([xy, xy + 2.0 + torch.rand((N, 2), generator=g, device=dev) * 20.0], 1)
+    if integer:
+        boxes = boxes.floor()
+    return boxes.contiguous(), torch.rand(N, generator=g, device=dev) > 0.2
+
+
+def _threshold_pairs(dev):
+    """Integer box pairs whose f32 IoU is f32(0.7) and f32(0.5) exactly (kept),
+    and just below (kept) and above (suppressed) each; every pair in a corner
+    of its own, the first box of a pair ahead of the second."""
+    base = [0, 0, 10, 10]
+    pairs = [(base, [0, 0, 7, 10]), (base, [0, 0, 10, 7]), (base, [3, 0, 10, 10]),  # 70 / 100
+             (base, [0, 0, 5, 10]), (base, [0, 5, 10, 10]),  # 50 / 100
+             (base, [0, 0, 10, 6.9]), (base, [0, 0, 10, 7.1]), (base, [0, 0, 4.9, 10]), (base, [0, 0, 5.1, 10])]
+    rows = [[v + 100.0 * k for v in box] for k, pair in enumerate(pairs) for box in pair]
+    return torch.tensor(rows, dtype=torch.float32, device=dev)
+
+
+@pytest.mark.parametrize("thr", [0.5, 0.7])
+@pytest.mark.parametrize("N", [1, 33, 64, 65, 192, 1280, 3072, 12288])
+def test_nms_kernel_equals_its_plain_version(dev, N, thr):
+    from hybridgl_tpu_torch.kernels.nms import _n1, nms, reference_nms_sorted
+
+    for integer in (True, False):
+        boxes, valid = _nms_inputs(dev, N, integer, seed=N + integer)
+        before = nms.launches
+        keep, num = _n1(boxes, valid, thr)
+        torch.cuda.synchronize()
+        assert nms.launches - before == 1
+        want_keep, want_num = reference_nms_sorted(boxes, valid, thr)
+        assert keep.is_cuda and num.is_cuda and num.dtype == torch.int32 and num.shape == ()
+        assert torch.equal(keep, want_keep) and int(num) == int(want_num) == int(keep.sum())
+        if N >= 192:
+            assert 0 < int(num) < int(valid.sum())
+
+
+def test_nms_kernel_at_the_threshold(dev):
+    from hybridgl_tpu_torch.kernels.nms import _n1, reference_nms_sorted
+
+    boxes = _threshold_pairs(dev)
+    valid = torch.ones(boxes.shape[0], dtype=torch.bool, device=dev)
+    for thr, second_kept in ((0.7, [1, 1, 1, 1, 1, 1, 0, 1, 1]), (0.5, [0, 0, 0, 1, 1, 0, 0, 1, 0])):
+        keep, num = _n1(boxes, valid, thr)
+        want_keep, want_num = reference_nms_sorted(boxes, valid, thr)
+        torch.cuda.synchronize()
+        assert torch.equal(keep, want_keep) and int(num) == int(want_num)
+        assert keep[1::2].cpu().tolist() == [bool(v) for v in second_kept] and keep[0::2].all()
+
+
+def test_nms_wrapper_reads_back_only_the_count(dev):
+    """On CUDA tensors nothing of size N leaves the card: the one transfer to
+    the host is the 4-byte count."""
+    from hybridgl_tpu_torch.kernels.nms import nms
+    from hybridgl_tpu_torch.tools.device_time import host_reads
+
+    boxes, valid = _nms_inputs(dev, 3072, True, seed=9)
+    scores = torch.rand(3072, device=dev)
+    out = []
+    reads = host_reads(lambda: out.append(nms(boxes, scores, 0.7, valid)), log=lambda _: None)
+    assert len(reads) == 1 and "kernels/nms.py" in reads[0][0] and reads[0][1:] == (1, 4)
+    assert out[0].keep_sorted.is_cuda and out[0].num_kept == int(out[0].keep_sorted.sum())
+
+
+def test_nms_opcheck_on_the_card(dev):
+    boxes, valid = _nms_inputs(dev, 300, True, seed=3)
+    utils = ("test_schema", "test_faketensor", "test_autograd_registration", "test_aot_dispatch_dynamic")
+    result = torch.library.opcheck(torch.ops.hybridgl.nms.default, (boxes, valid, 0.7), test_utils=utils)
+    assert result == dict.fromkeys(utils, "SUCCESS")
+
+
+def test_nms_refuses(dev):
+    from hybridgl_tpu_torch.kernels.nms import MAX_N, _n1, nms
+
+    boxes, valid = _nms_inputs(dev, 64, False, seed=4)
+    before = nms.launches
+    for args in ((boxes.double(), valid), (boxes[:, :3].contiguous(), valid), (boxes, valid.int()),
+                 (boxes, valid[:63]), (boxes[:0], valid[:0]), (torch.zeros((8, 8), device=dev)[:, ::2], valid[:8]),
+                 (boxes, valid.cpu())):
+        with pytest.raises(ValueError, match="nms"):
+            _n1(*args, 0.7)
+    assert MAX_N == _build.library().hgl_nms_max_n()
+    assert nms.launches == before

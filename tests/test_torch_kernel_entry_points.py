@@ -189,6 +189,7 @@ def test_kernel_work_covers_every_kernel():
         "i2t_ln_update": dict(B=128, S=4096, C=256, Cq=256, GT=64),
         "t2i_ctx": dict(B=128, S=4096, C=256, Cq=256, GT=64),
         "upscale_hyper_blocked": dict(B=64, S=4096, C=256, c4=64, c8=32, m=3),
+        "nms": dict(N=128, read_words=138),
     }
     assert set(shapes) == set(KERNELS)
     work = {name: kernel_work(name, **shape) for name, shape in shapes.items()}
@@ -208,6 +209,9 @@ def test_kernel_work_covers_every_kernel():
     # K5: only the window's rows and columns are computed
     assert work["pass1_stats_half"][0] == 2 * 192 * 480 * 640 * 256
     assert kernel_work("pass1_stats_half", B=192, n=256, C=1024, dh=162, dw=162, esize=2)[0] < work["pass1_stats_half"][0] / 5
+    # NMS: ~15 operations an IoU of the upper triangle; boxes, valid, the mask's 64 x 2 + 64 x 1 words of upper
+    # triangle written and 138 read, keep and the count
+    assert work["nms"] == (15 * 128 * 127 // 2, 16 * 128 + 128 + 8 * (192 + 138) + 128 + 4)
     with pytest.raises(ValueError):
         kernel_work("no_such_kernel")
 

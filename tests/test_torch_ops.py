@@ -1,5 +1,5 @@
-"""The ten kernels as registered PyTorch operators, ``torch.ops.hybridgl.*``
-(``hybridgl_tpu_torch/kernels/_ops.py``), on the CPU: for each operator
+"""The ten kernels and the port's NMS kernel as registered PyTorch operators,
+``torch.ops.hybridgl.*`` (``hybridgl_tpu_torch/kernels/_ops.py``), on the CPU: for each operator
 ``torch.library.opcheck`` (``test_schema``: the schema's aliasing and
 mutation claims hold; ``test_faketensor``: the fake implementation gives the
 real outputs' shapes, strides and dtypes; ``test_autograd_registration``;
@@ -21,6 +21,7 @@ from hybridgl_tpu_torch.kernels.clip_attention import clip_attention, reference_
 from hybridgl_tpu_torch.kernels.decoder_attn import i2t_ln_update, reference_i2t_ln_update
 from hybridgl_tpu_torch.kernels.decoder_attn_t2i import reference_t2i_ctx, t2i_ctx
 from hybridgl_tpu_torch.kernels.decoder_pass import i2t_ln_then_t2i, reference_i2t_ln_then_t2i
+from hybridgl_tpu_torch.kernels.nms import nms, reference_nms_sorted
 from hybridgl_tpu_torch.kernels.flash_attention import (
     flash_attention_fused,
     flash_attention_rel_pos,
@@ -37,7 +38,8 @@ from hybridgl_tpu_torch.kernels.upscale_hyper import reference_upscale_hyper, up
 
 OPS = torch.ops.hybridgl
 NAMES = ["flash_windowed_fused", "flash_attention_fused", "flash_attention_rel_pos", "clip_attention",
-         "pass1_stats_half", "pass1_stats", "i2t_ln_then_t2i", "i2t_ln_update", "t2i_ctx", "upscale_hyper_blocked"]
+         "pass1_stats_half", "pass1_stats", "i2t_ln_then_t2i", "i2t_ln_update", "t2i_ctx", "upscale_hyper_blocked",
+         "nms"]
 # K4's fake output side is isqrt(g * g): a symbolic size has no integer square root
 NOT_SYMBOLIC = {"upscale_hyper_blocked"}
 WINDOW = [2.0, 3.0, 10.0, 12.0]
@@ -98,6 +100,18 @@ def case(name, dtype=torch.float32, seed=0):
         ops, qw = _decoder(rng, Cq=16), _t(rng, 2, 32, 16, std=0.3)
         args = (qside, base, pe, *ops, qw, 2, 8, True)
         return args, lambda: reference_i2t_ln_then_t2i(*args), lambda: i2t_ln_then_t2i(*args)
+    if name == "nms":  # boxes in descending-score order, the padding last: the wrapper's sort is the identity
+        xy = rng.random((40, 2)).astype(np.float32) * 40
+        boxes = torch.from_numpy(np.concatenate([xy, xy + 4 + rng.random((40, 2)).astype(np.float32) * 20], 1))
+        valid = torch.arange(40) < 33
+        scores = torch.linspace(1.0, 0.1, 40)
+
+        def wrapper():
+            res = nms(boxes, scores, 0.5, valid)
+            assert torch.equal(res.order, torch.arange(40))
+            return res.keep_sorted, torch.tensor(res.num_kept, dtype=torch.int32)
+
+        return (boxes, valid, 0.5), lambda: reference_nms_sorted(boxes, valid, 0.5), wrapper
     assert name == "upscale_hyper_blocked"
     g, C, c4, c8, m = 5, 32, 8, 4, 3
     args = (_t(rng, 2, g * g, C), _t(rng, C, 4 * c4, std=0.2), _t(rng, c4), 1.0 + _t(rng, c4, std=0.1),
@@ -115,7 +129,8 @@ def pass1_outputs(stab, flags):
 
 
 def test_the_ten_operators_are_registered_under_the_reference_names():
-    assert set(NAMES) == set(kernel_wrappers()) and len(NAMES) == 10
+    # the ten TPU kernels' operators and the port's own NMS kernel's
+    assert set(NAMES) == set(kernel_wrappers()) and len(NAMES) == 11
     for name in NAMES:
         assert getattr(OPS, name).default.name() == f"hybridgl::{name}"
 
