@@ -44,10 +44,16 @@ Phases (every phase asserts; any failure exits non-zero):
      kernels (K3-K8) took its tensor-core one;
   6. PhraseCut pipeline: the same at AMG_PHRASECUT (pps 64, one crop layer,
      P = 128, canonical 1024), one warm-up and one measured image, NMS on
-     the card six times an image (five crops, then across crops); then one
-     more image timed (ms/img, peak device memory), one under torch.profiler
-     (the pageable DtoH copies: count, bytes, device ms) and one under a
-     dispatch mode (the reads to the host by call site);
+     the card six times an image (five crops, then across crops); then, on
+     each path, one more image timed (ms/img, peak device memory), one under
+     torch.profiler (every copy by kind, pageable and pinned DtoH among them:
+     count, bytes, device ms), one under a dispatch mode (the reads to the
+     host by call site) and one in the sync debug mode (the stream
+     synchronisations by call site), and the proposal dispatch alone in both
+     modes: no read from the proposal stage's sites (models/sam/amg.py,
+     kernels/nms.py), no read or synchronisation in the dispatch, and at
+     most 1 MB of pageable DtoH an image, or the run fails; then the busy share of three more images of each path through
+     run_dataset against run_image;
   7. fusion modes: all six at full width on one RefCOCO image's proposals
      and on a bucket of 64 live synthetic proposals: finite features, and
      K6 launched as often as each mode's blocks need (the CLS-row bias in
@@ -446,28 +452,71 @@ def phase_pipeline(tag, amg, canonical, n_images, min_launches, weights):
     return pipe, samples
 
 
-def phase_downloads(pipe, samples, card):
-    """One more PhraseCut image timed (ms/img, peak device memory), one under
-    torch.profiler (the copies from the card into pageable host memory:
-    count, bytes, device ms) and one under a dispatch mode (the reads to the
-    host by call site); NMS reads nothing back but its 4-byte counts."""
+# the proposal stage's call sites: once launched, the stage reads nothing back
+PROPOSAL_STAGE_SITES = ("models/sam/amg.py", "kernels/nms.py")
+MAX_PAGEABLE_DTOH_BYTES = 1 << 20  # a image: the hand-off moves packed live rows into pinned memory
+
+
+def phase_downloads(tag, pipe, samples, card):
+    """One more image timed (ms/img, peak device memory), one under
+    torch.profiler (every copy by kind: device to pageable and to pinned host
+    memory, host to device; count, bytes, device ms), one under a dispatch
+    mode (the reads to the host by call site, the non-blocking copies apart)
+    and one in the sync debug mode (the stream synchronisations by call site),
+    one with a blocking stage timer (the host cleanup's wall), then the
+    proposal dispatch alone in both modes. Fails if a call site of
+    the proposal stage reads the host, if the dispatch alone reads or
+    synchronises at all, or if the image's pageable DtoH bytes exceed 1 MB
+    (run_dataset against run_image: phase_dataset_path)."""
     import torch
 
-    from hybridgl_tpu_torch.tools.device_time import host_reads, profile_image
+    from hybridgl_tpu_torch.tools.device_time import host_reads, host_syncs, profile_image, stage_ms
 
     sample = samples[-1]
     torch.cuda.reset_peak_memory_stats()
     ms, _ = _wall_ms(lambda: pipe.run_image(sample, pipe.init_state()))
     peak = torch.cuda.max_memory_allocated()
-    down = profile_image(pipe, sample, pipe.init_state(), log=log, top_n=8)["dtoh_pageable"]
+    prof = profile_image(pipe, sample, pipe.init_state(), log=log, top_n=8)
     reads = host_reads(lambda: pipe.run_image(sample, pipe.init_state()), log=log)
-    size = "bytes not measured" if down["bytes"] is None else f"{down['bytes']} bytes ({down['bytes'] / 1e6:.1f} MB)"
-    log(f"PhraseCut, one image: pageable DtoH {size} in {down['copies']} copies, {down['device_ms']:.2f} ms of device "
-        f"time (torch.profiler); reads to the host {sum(b for _, _, b in reads)} bytes (dispatch mode); peak device "
-        f"memory {peak} bytes ({peak / 2**30:.2f} GiB); {ms:.1f} ms/img; on {card}")
-    big = [r for r in reads if "kernels/nms.py" in r[0] and r[2] > 4 * r[1]]
-    if big:
-        fail(f"NMS read more than its 4-byte counts back to the host: {big}")
+    syncs = host_syncs(lambda: pipe.run_image(sample, pipe.init_state()), log=log)
+    cleanup = stage_ms(pipe, sample, log=log).get("small_region_cleanup", 0.0)
+    log(f"  {tag}, the proposal dispatch alone (stage + hand-off, nothing waited for):")
+    dispatch_reads = host_reads(lambda: pipe._dispatch_proposals(sample), log=log)
+    dispatch_syncs = host_syncs(lambda: pipe._dispatch_proposals(sample), log=log)
+    torch.cuda.synchronize()
+    down, pinned = prof["dtoh_pageable"], prof["dtoh_pinned"]
+    size = lambda c: "bytes not measured" if c["bytes"] is None else f"{c['bytes']} bytes"  # noqa: E731
+    stage_reads = [r for r in reads + dispatch_reads if any(s in r[0] for s in PROPOSAL_STAGE_SITES)]
+    log(f"{tag}, one image: pageable DtoH {size(down)} in {down['copies']} copies, {down['device_ms']:.3f} ms of "
+        f"device time; pinned DtoH {size(pinned)} in {pinned['copies']} copies, {pinned['device_ms']:.3f} ms "
+        f"(torch.profiler); reads to the host {sum(n for _, n, _ in reads)} ({sum(b for _, _, b in reads)} bytes), "
+        f"{len(stage_reads)} from the proposal stage's sites {PROPOSAL_STAGE_SITES} (dispatch mode); stream "
+        f"synchronisations {sum(n for _, n in syncs)} an image, {sum(n for _, n in dispatch_syncs)} in the "
+        f"proposal dispatch; host cleanup {cleanup:.1f} ms (blocking timer); peak device memory {peak} bytes ({peak / 2**30:.2f} GiB); {ms:.1f} ms/img; on {card}")
+    if stage_reads or dispatch_reads or dispatch_syncs:
+        fail(f"{tag}: the proposal stage read the host or waited for the card: reads {stage_reads + dispatch_reads}, "
+             f"synchronisations in the dispatch {dispatch_syncs}")
+    if down["bytes"] is None or down["bytes"] > MAX_PAGEABLE_DTOH_BYTES:
+        fail(f"{tag}: pageable DtoH of one image {down['bytes']} bytes, more than {MAX_PAGEABLE_DTOH_BYTES} "
+             f"(or not measured)")
+
+
+def phase_busy_share(paths, card):
+    """The busy share of three more images of each path (the union of the
+    card's busy intervals over the wall, torch.profiler with device activity
+    only) through run_dataset and one run_image an image, in turns."""
+    import numpy as np
+
+    from hybridgl_tpu_torch.tools.device_time import compare_busy_share
+
+    for tag, (pipe, _) in paths.items():
+        C = pipe.cfg.canonical_size
+        rng = np.random.default_rng(11)
+        samples = [_sample(rng, 1024, C, 480, 640, 768, 1024, (100, 150, 300, 400)) for _ in range(3)]
+        out = compare_busy_share(pipe, samples, log=log)
+        med = {how: statistics.median(r["share"] for r in runs) for how, runs in out.items()}
+        log(f"{tag}: busy share over 3 images, run_dataset {med['run_dataset']:.3f} against run_image "
+            f"{med['run_image']:.3f} (medians of two runs each, profiler on); on {card}")
 
 
 def _synthetic_full_bucket(pipe, P=64, h=480, w=640):
@@ -1017,15 +1066,16 @@ def phase_device_cleanup(refcoco, phrasecut):
             changed = int((live(host) != live(bundle)).flatten(1).any(1).sum())
             equal = (torch.equal(live(host), live(dev)), torch.equal(host.boxes_xyxy, dev.boxes_xyxy),
                      torch.equal(host.valid, dev.valid))
-            ok = all(equal) and host.num == dev.num and 0 < host.num <= bundle.num
+            n_in = int(bundle.num)  # the AMG's count is a device scalar
+            ok = all(equal) and host.num == dev.num and 0 < host.num <= n_in
             if kind != "the image's own proposals":
                 ok = ok and changed > 0
             if kind.startswith("rectangles"):
-                ok = ok and host.num < bundle.num  # every fifth is a duplicate once cleaned
-            log(f"  cleanup of {bundle.num} survivors, {kind}, at {C}^2 (min area {amg.min_mask_region_area}): "
+                ok = ok and host.num < n_in  # every fifth is a duplicate once cleaned
+            log(f"  cleanup of {n_in} survivors, {kind}, at {C}^2 (min area {amg.min_mask_region_area}): "
                 f"host pass {ms_h:.1f} ms, pass on the card {ms_d:.1f} ms")
             log(f"{'PASS' if ok else 'FAIL'} cleanup on the card == host cleanup, {tag}, {kind}: {changed} masks changed, "
-                f"{bundle.num - host.num} duplicates suppressed, equal masks {equal[0]}, boxes {equal[1]}, valid {equal[2]}")
+                f"{n_in - host.num} duplicates suppressed, equal masks {equal[0]}, boxes {equal[1]}, valid {equal[2]}")
             if not ok:
                 fail(f"the cleanup on the card differs from the host cleanup ({tag}, {kind})")
         del bundles, bundle, host, dev, out
@@ -1511,7 +1561,9 @@ def main(argv):
         missing = [k for k in mins if counts[tag][k] == 0]
         if missing:
             fail(f"kernels of the {tag} path never launched: {missing}")
-    phase_downloads(*paths["PhraseCut"], card)
+    for tag in paths:
+        phase_downloads(tag, *paths[tag], card)
+    phase_busy_share(paths, card)
     reset_launch_counts()
     phase_fusion_modes(*paths["RefCOCO"])
     counts["fusion modes"] = launch_counts()

@@ -4,6 +4,8 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.transfer import upload
+
 
 def stability_score(logits: torch.Tensor, mask_threshold: float, offset: float) -> torch.Tensor:
     """IoU between the +offset and -offset thresholdings of mask logits
@@ -57,8 +59,8 @@ def mask_iou_matrix(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def box_near_crop_edge(boxes: torch.Tensor, crop_box, orig_box, atol: float = 20.0) -> torch.Tensor:
     """Boxes near their crop edge but not near the image edge (utils/amg.py:78-88)."""
-    crop = torch.as_tensor(crop_box, dtype=torch.float32, device=boxes.device)
-    orig = torch.as_tensor(orig_box, dtype=torch.float32, device=boxes.device)
+    crop = upload(crop_box, boxes.device, torch.float32)
+    orig = upload(orig_box, boxes.device, torch.float32)
     near_crop = torch.abs(boxes - crop[None]) <= atol
     near_img = torch.abs(boxes - orig[None]) <= atol
     return torch.any(near_crop & ~near_img, dim=-1)

@@ -7,7 +7,8 @@ sweep); it has no Pallas kernel. The port's counterpart is a kernel of its
 own, ``csrc/nms.cu``, behind the operator ``torch.ops.hybridgl.nms``
 (``_ops.py``): on CUDA tensors it writes the suppression bitmask (one bit a
 pair, ``N x ceil(N/64)`` words) and runs the greedy sweep on the card, and
-the wrapper reads back only the 4-byte count; on CPU tensors it runs
+the count stays on the card as an int32 scalar (the reference's
+``num_kept``), so a call reads nothing back; on CPU tensors it runs
 :func:`reference_nms_sorted`, the same two phases in plain PyTorch.
 
 The score sort and :func:`kept_in_score_order` stay plain torch, as they are
@@ -30,7 +31,7 @@ MAX_N = 4096 * 64  # hgl_nms_max_n (csrc/nms.cu): the sweep's removed bits fit i
 class NmsResult(NamedTuple):
     order: torch.Tensor  # [N] candidate indices sorted by descending score
     keep_sorted: torch.Tensor  # [N] bool, aligned with `order`
-    num_kept: int
+    num_kept: torch.Tensor  # int32 scalar on the boxes' device
 
 
 def suppression_matrix(b: torch.Tensor, iou_threshold: float) -> torch.Tensor:
@@ -95,7 +96,7 @@ def nms(boxes, scores, iou_threshold: float, valid=None) -> NmsResult:
     s = torch.where(valid, scores, torch.full_like(scores, NEG))
     order = torch.sort(-s, stable=True).indices
     keep_sorted, num_kept = _n1(boxes[order], valid[order], float(iou_threshold))
-    return NmsResult(order, keep_sorted, int(num_kept))
+    return NmsResult(order, keep_sorted, num_kept)
 
 
 nms.launches = 0

@@ -12,14 +12,16 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.transfer import upload
+
 
 def _f32(x, device) -> torch.Tensor:
-    return torch.as_tensor(x, dtype=torch.float32, device=device)
+    return upload(x, device, torch.float32)
 
 
 def _src_coords(out_size: int, src_size, device, dtype=torch.float32):
     i = torch.arange(out_size, dtype=dtype, device=device)
-    src = torch.as_tensor(src_size, dtype=dtype, device=device)
+    src = upload(src_size, device, dtype)
     c = (i + 0.5) * (src / out_size) - 0.5
     return torch.clamp(c, min=torch.zeros((), dtype=dtype, device=device), max=src - 1.0)
 
@@ -128,7 +130,7 @@ def place_region(img: torch.Tensor, src_hw, out_frame, dst_origin, dst_hw, fill=
     bot = lerp_rows(compute.index_select(0, yhi))
     out = top + (bot - top) * wy.reshape((OH, 1) + trail)
     inside = ((i >= y0) & (i < y0 + dh))[:, None] & ((j >= x0) & (j < x0 + dw))[None, :]
-    return torch.where(inside.reshape((OH, OW) + trail), out, torch.as_tensor(fill, dtype=out.dtype, device=dev))
+    return torch.where(inside.reshape((OH, OW) + trail), out, upload(fill, dev, out.dtype))
 
 
 def _resample_weights(out_frame: int, in_frame: int, in_extent, out_extent, antialias: bool, device):
@@ -206,7 +208,7 @@ def place_two_stage(low, mid_frame: int, mid_hw, out_frame, dst_origin, dst_hw, 
         ((i >= y0) & (i < y0 + _f32(dst_hw[0], dev)))[:, None]
         & ((j >= x0) & (j < x0 + _f32(dst_hw[1], dev)))[None, :]
     )
-    return torch.where(inside[None], out, torch.as_tensor(fill, dtype=out.dtype, device=dev))
+    return torch.where(inside[None], out, upload(fill, dev, out.dtype))
 
 
 def valid_mask(frame, hw, device="cpu") -> torch.Tensor:

@@ -22,6 +22,13 @@ per-prompt route: K7 and K8).
 
 Masks live in the canonical eval frame: a [C, C] zero-padded buffer whose
 top-left (h, w) corner is the image at original resolution.
+
+Once launched, the stage reads nothing back, as the reference's one
+dispatch: the NMS counts stay int32 scalars on the device (``Proposals.num``
+and ``.overflow``), the survivors are placed with their own crop's geometry
+gathered per row, and constants reach the device without a stream
+synchronisation (``utils/transfer.py``). The runner reads the counts in one
+meta buffer (``pipeline/handoff.py``).
 """
 
 from __future__ import annotations
@@ -37,6 +44,7 @@ from ...kernels.masks import box_from_profiles, box_near_crop_edge
 from ...kernels.nms import kept_in_score_order, nms
 from ...kernels.pass1_stats import half_transform, pass1_stats_half
 from ...kernels.resize import _composed_axis_weights, place_region, place_two_stage
+from ...utils.transfer import upload
 from .decoder import predict_masks
 from .prompt_encoder import dense_pe, embed_points, no_mask_dense
 from .sam import encode, predict_points, preprocess_padded
@@ -55,10 +63,12 @@ class Proposals(NamedTuple):
     points: torch.Tensor  # [P, 2] f32, original-resolution coords
     areas: torch.Tensor  # [P] f32 (mask pixel count)
     valid: torch.Tensor  # [P] bool
-    num: int
+    # live proposals: an int32 scalar on the device out of the AMG, an int
+    # once the runner has read the stage's meta buffer
+    num: torch.Tensor | int
     # NMS survivors dropped by the max_proposals bucket (the reference keeps
-    # every survivor, so a nonzero value is coverage loss)
-    overflow: int = 0
+    # every survivor, so a nonzero value is coverage loss); as ``num``
+    overflow: torch.Tensor | int = 0
 
 
 def build_point_grid(n_per_side: int) -> np.ndarray:
@@ -90,17 +100,17 @@ def _score_candidates(p_sam, embedding, grid01, origin, extent, rhw, img_hw, sam
     valid extent in SAM's frame is ``rhw``. Returns (iou, stab, boxes, valid,
     pts01 [n_points_padded, 2], the 256^2 logits or None)."""
     dev = embedding.device
-    chunks = torch.from_numpy(_chunk_points(grid01, amg_cfg.points_per_batch)).to(dev)
+    chunks = upload(_chunk_points(grid01, amg_cfg.points_per_batch), dev)
     B = amg_cfg.points_per_batch
     (y0, x0), (ch, cw), (rh, rw), (h, w) = origin, extent, rhw, img_hw
-    scale_1024 = torch.tensor([float(rw), float(rh)], device=dev)
+    scale_1024 = upload([float(rw), float(rh)], dev)
     n_low = sam_cfg.embed_grid * 4
     Wy = _composed_axis_weights(canonical, n_low, sam_cfg.img_size, rh, y0, ch, dev)
     Wx = _composed_axis_weights(canonical, n_low, sam_cfg.img_size, rw, x0, cw, dev)
     pe = dense_pe(p_sam["prompt"], sam_cfg)
     dense = no_mask_dense(p_sam["prompt"], sam_cfg, 1)[0]
-    img_box = torch.tensor([0.0, 0.0, float(w), float(h)], device=dev)
-    crop_box = torch.tensor([float(x0), float(y0), float(x0) + float(cw), float(y0) + float(ch)], device=dev)
+    img_box = upload([0.0, 0.0, float(w), float(h)], dev)
+    crop_box = upload([float(x0), float(y0), float(x0) + float(cw), float(y0) + float(ch)], dev)
 
     ious, stabs, boxes, valids, lows = [], [], [], [], []
     for pts01 in chunks:
@@ -162,8 +172,8 @@ def generate_proposals(p_sam, image_1024, rh, rw, h, w, sam_cfg: SamConfig, amg_
     kept_point = kept_idx // M
     kept_channel = kept_idx % M
     pts01 = grid_pts[kept_point]
-    scale_1024 = torch.tensor([float(rw), float(rh)], device=dev)
-    orig_scale = torch.tensor([float(w), float(h)], device=dev)
+    scale_1024 = upload([float(rw), float(rh)], dev)
+    orig_scale = upload([float(w), float(h)], dev)
     if cache_low_res:
         sel = lows[kept_idx]
     else:
@@ -182,8 +192,8 @@ def generate_proposals(p_sam, image_1024, rh, rw, h, w, sam_cfg: SamConfig, amg_
         points=(pts01 * orig_scale) * kv[:, None],
         areas=masks.sum(dim=(-2, -1)).float(),
         valid=kept_valid,
-        num=min(max(res.num_kept, 0), P),
-        overflow=max(res.num_kept - P, 0),
+        num=torch.clamp(res.num_kept, 0, P),
+        overflow=torch.clamp(res.num_kept - P, min=0),
     )
 
 
@@ -242,7 +252,7 @@ def generate_proposals_multicrop(p_sam, image_1024, rh, rw, image_canonical, h, 
 
     # ---- pass 1 + per-crop NMS into buckets of K
     sel = {k: [] for k in ("boxes", "iou", "stab", "valid", "cand", "crop", "inv_area", "grid")}
-    overflow = 0
+    overflow = torch.zeros((), dtype=torch.int32, device=dev)
     for crop_id, crop in enumerate(crops):
         iou, stab, boxes, valid, grid_pts, _ = _score_candidates(
             p_sam, crop["embedding"], crop["grid"], crop["origin"], crop["extent"], crop["rhw"], (h, w),
@@ -250,7 +260,7 @@ def generate_proposals_multicrop(p_sam, image_1024, rh, rw, image_canonical, h, 
         )
         res = nms(boxes, iou, amg_cfg.box_nms_thresh, valid)
         kept, kv = kept_in_score_order(res, K)
-        overflow += max(res.num_kept - K, 0)
+        overflow = overflow + torch.clamp(res.num_kept - K, min=0)
         sel["boxes"].append(boxes[kept])
         sel["iou"].append(iou[kept] * kv)
         sel["stab"].append(stab[kept] * kv)
@@ -275,8 +285,8 @@ def generate_proposals_multicrop(p_sam, image_1024, rh, rw, image_canonical, h, 
     # the dense-prompt slot (exact: predict_masks adds it to a zero image)
     maxg = max(g.shape[0] for g in sel["grid"])
     grids = torch.stack([torch.nn.functional.pad(g, (0, 0, 0, maxg - g.shape[0])) for g in sel["grid"]])
-    geo = torch.tensor([[float(c["rhw"][0]), float(c["rhw"][1]), *c["origin"], *c["extent"]] for c in crops],
-                       device=dev)  # rh, rw, y0, x0, ch, cw per crop
+    geo = upload([[float(c["rhw"][0]), float(c["rhw"][1]), *c["origin"], *c["extent"]] for c in crops],
+                 dev)  # rh, rw, y0, x0, ch, cw per crop
     g = geo[kept_crop]
     pts01 = grids[kept_crop, kept_point]
     coords = pts01 * torch.stack([g[:, 1], g[:, 0]], dim=-1)
@@ -287,13 +297,7 @@ def generate_proposals_multicrop(p_sam, image_1024, rh, rw, image_canonical, h, 
                                sparse, sam_cfg, dense_prompts=dense, multimask_output=True)
     low = low_res[torch.arange(P, device=dev), kept_channel]
 
-    # place each survivor with its own crop's geometry, one batch per crop
-    logits = torch.empty((P, canonical, canonical), dtype=torch.float32, device=dev)
-    for crop_id, c in enumerate(crops):
-        idx = torch.nonzero(kept_crop == crop_id).flatten()
-        if idx.numel():
-            logits[idx] = place_two_stage(low[idx], S, c["rhw"], (canonical, canonical), c["origin"], c["extent"],
-                                          fill=PAD_NEG).float()
+    logits = _place_per_crop(low, kept_crop, crops, geo, S, canonical)
     masks = (logits > sam_cfg.mask_threshold) & kept_valid[:, None, None]
     # points in original-image coordinates (the reference uncrops them)
     points = pts01 * torch.stack([g[:, 5], g[:, 4]], dim=-1) + torch.stack([g[:, 3], g[:, 2]], dim=-1)
@@ -306,6 +310,30 @@ def generate_proposals_multicrop(p_sam, image_1024, rh, rw, image_canonical, h, 
         points=points * kv[:, None],
         areas=masks.sum(dim=(-2, -1)).float(),
         valid=kept_valid,
-        num=min(max(res.num_kept, 0), P),
-        overflow=overflow + max(res.num_kept - P, 0),
+        num=torch.clamp(res.num_kept, 0, P),
+        overflow=overflow + torch.clamp(res.num_kept - P, min=0),
     )
+
+
+def _place_per_crop(low, kept_crop, crops, geo, mid_frame: int, canonical: int):
+    """[P, n, n] low-res logits -> [P, C, C] canonical-frame logits, each row
+    placed with the geometry of its crop ``kept_crop`` (the reference's
+    ``jax.vmap(place_one)``, amg.py:556-568): ``place_two_stage``'s two
+    products, with every crop's composed axis weights built once and gathered
+    per row, so that no count is read back. ``geo`` [crops, 6] holds rh, rw,
+    y0, x0, ch, cw. PAD_NEG outside the crop window."""
+    dev, n = low.device, low.shape[-1]
+
+    def per_crop(axis):  # [crops, C, n] weights and [crops, C] window of one axis
+        weights = torch.stack([_composed_axis_weights(canonical, n, mid_frame, c["rhw"][axis], c["origin"][axis],
+                                                      c["extent"][axis], dev) for c in crops])
+        i = torch.arange(canonical, dtype=torch.float32, device=dev)
+        o, e = geo[:, 2 + axis, None], geo[:, 4 + axis, None]
+        return weights, (i >= o) & (i < o + e)
+
+    (wy, iny), (wx, inx) = per_crop(0), per_crop(1)
+    tmp = torch.bmm(low.float(), wx[kept_crop].transpose(1, 2))  # [P, n, C]
+    logits = torch.bmm(wy[kept_crop], tmp)
+    del tmp
+    outside = ~(iny[kept_crop][:, :, None] & inx[kept_crop][:, None, :])
+    return logits.masked_fill_(outside, PAD_NEG)

@@ -6,6 +6,7 @@ import torch
 
 from ...core.config import SamConfig
 from ...kernels.resize import resize_bilinear
+from ...utils.transfer import upload
 
 from .decoder import predict_masks
 from .image_encoder import encode_image
@@ -23,8 +24,8 @@ def preprocess(image: torch.Tensor, cfg: SamConfig) -> torch.Tensor:
     normalized, then zero-padded to [S, S, 3] (reference sam.py:164-174: the
     pad is 0 in normalized space)."""
     dev = image.device
-    mean = torch.tensor(cfg.pixel_mean, dtype=torch.float32, device=dev)
-    std = torch.tensor(cfg.pixel_std, dtype=torch.float32, device=dev)
+    mean = upload(cfg.pixel_mean, dev, torch.float32)
+    std = upload(cfg.pixel_std, dev, torch.float32)
     x = (image.float() - mean) / std
     return torch.nn.functional.pad(x, (0, 0, 0, cfg.img_size - x.shape[1], 0, cfg.img_size - x.shape[0]))
 
@@ -33,8 +34,8 @@ def preprocess_padded(image_1024: torch.Tensor, valid_hw, cfg: SamConfig) -> tor
     """Normalize an already padded [S, S, 3] frame and zero the pad
     (reference sam.py:164-174: the pad is 0 in normalized space)."""
     dev = image_1024.device
-    mean = torch.tensor(cfg.pixel_mean, dtype=torch.float32, device=dev)
-    std = torch.tensor(cfg.pixel_std, dtype=torch.float32, device=dev)
+    mean = upload(cfg.pixel_mean, dev, torch.float32)
+    std = upload(cfg.pixel_std, dev, torch.float32)
     x = (image_1024.float() - mean) / std
     i = torch.arange(cfg.img_size, device=dev)
     valid = (i[:, None] < int(valid_hw[0])) & (i[None, :] < int(valid_hw[1]))

@@ -12,8 +12,10 @@ Parity with the sequential runner (``pipeline/runner.py``) is exact:
     ``sentence_ingredients``): one body, so what holds the runner holds this
     step;
   * the small-region cleanup inside the step is the runner's: by default its
-    native host pass, a plain call in eager PyTorch (the reference reaches the
-    same pass from inside its compiled step through a host callback, with
+    native host pass on the proposal stage's hand-off (``pipeline/handoff.py``:
+    bit-packed masks, only the live rows to the host, the count from one meta
+    buffer), a plain call in eager PyTorch (the reference reaches the same
+    pass from inside its compiled step through a host callback, with
     bit-packed masks); with ``HYBRIDGL_CLEANUP=device`` (read at each step, as
     the reference's full_eval.py:287-300 reads it where it traces) the pass on
     tensors, ``kernels/connected.py``, on the rank's device. Both give the
@@ -59,6 +61,8 @@ from ..pipeline.runner import (
     select_sentences,
     sentence_ingredients,
 )
+from ..pipeline.handoff import hand_off, receive
+from ..utils.transfer import upload
 from ..utils.buckets import next_pow2
 from .mesh import ProcessMesh, params_device, shard_batch
 
@@ -169,10 +173,16 @@ def _image_ingredients(sam_params, clip_params, rec: FullEvalBatch, cfg: Pipelin
     dev = params_device(sam_params)
     h, w = int(rec.h), int(rec.w)
     S, P = rec.sentence_valid.shape[0], cfg.amg.max_proposals
-    # multicrop dispatch on crop_n_layers as the sequential runner's (launch_proposals)
-    props = launch_proposals(cfg, sam_params, rec, dev)
-    if cfg.amg.min_mask_region_area > 0 and props.num > 0:
-        props = (cleanup_device if cleanup_on_device() else cleanup_host)(cfg, props, (h, w), dev)
+    # the canonical image once, for both stages; multicrop dispatch on
+    # crop_n_layers as the sequential runner's (launch_proposals)
+    image_c = upload(rec.image_canonical, dev)
+    on_device, min_area = cleanup_on_device(), cfg.amg.min_mask_region_area
+    handoff = hand_off(launch_proposals(cfg, sam_params, rec._replace(image_canonical=image_c), dev),
+                       pack=min_area > 0 and not on_device)
+    props, _ = receive(handoff)  # the count from the meta buffer
+    if min_area > 0 and props.num > 0:
+        props = (cleanup_device(cfg, props, (h, w), dev) if on_device
+                 else cleanup_host(cfg, props, (h, w), dev, handoff))
     if survival_hook is not None:  # the runner's testing knob, at the runner's place
         props = survival_hook(props)
     out = dict(num=int(props.num), score=torch.zeros((S, P)), score_neg=torch.zeros((S, P)), gem_scores=torch.zeros((S, P)),
@@ -181,9 +191,8 @@ def _image_ingredients(sam_params, clip_params, rec: FullEvalBatch, cfg: Pipelin
     if props.num > 0 and rows:
         bucket = bucket_size(props.valid, props.num)
         props = Proposals(*(f[:bucket] for f in props[:7]), num=props.num, overflow=props.overflow)
-        image_c = torch.from_numpy(np.asarray(rec.image_canonical)).to(dev)
         feats, gem_pf = feature_stage(cfg, clip_params, props, image_c, h, w, mesh.mp_shard if mp_axis else None)
-        gt = torch.from_numpy(np.asarray(rec.gt_mask)).to(dev)
+        gt = upload(rec.gt_mask, dev)
         ing = sentence_ingredients(cfg, clip_params, props, feats, gem_pf, rows, (h, w), gt)
         for name in ("score", "score_neg", "gem_scores"):
             out[name][at, :bucket] = getattr(ing, name).float().cpu()

@@ -110,20 +110,22 @@ def _np_nms(boxes: np.ndarray, scores: np.ndarray, thresh: float):
     return keep
 
 
-def postprocess_small_regions(props: Proposals, min_area: int, nms_thresh: float, hw=None):
+def postprocess_small_regions(props: Proposals, min_area: int, nms_thresh: float, hw=None, inplace_masks: bool = False):
     """Host pass over a numpy Proposals bundle -> (props, changed).
 
     Suppressed duplicates are invalidated in place (shapes kept); changed
     masks and boxes are updated. ``hw`` is the image's (h, w) inside the
     padded canonical frame (connected components must not run across the
-    padding). ``changed`` False means nothing was modified or suppressed."""
+    padding). ``changed`` False means nothing was modified or suppressed.
+    With ``inplace_masks`` the pass cleans ``props.masks`` itself instead of
+    a copy (the runner's cleanup unpacks a buffer of its own an image)."""
     masks = np.asarray(props.masks)
     boxes = np.asarray(props.boxes_xyxy).copy()
     valid = np.asarray(props.valid).copy()
     n = int(props.num)
     if n == 0 or min_area <= 0:
         return props, False
-    new_masks = masks.copy()
+    new_masks = masks if inplace_masks else masks.copy()
     H, W = masks.shape[-2:]
     if hw is not None:
         H, W = int(hw[0]), int(hw[1])

@@ -4,7 +4,8 @@ Per image:
   proposal stage  SAM encoder + AMG (models/sam/amg.py: single crop for
                   RefCOCO, one crop layer for PhraseCut, chosen by
                   cfg.amg.crop_n_layers), then the host small-region cleanup
-                  (pipeline/postprocess.py)
+                  (pipeline/postprocess.py) on the stage's hand-off
+                  (pipeline/handoff.py)
   feature stage   crops (pipeline/preprocess.py) -> hybrid fusion features
                   in cfg.fusion_mode (models/clip/fusion.py) -> GEM patch
                   features
@@ -20,10 +21,18 @@ every live proposal before the feature stage, as the reference does.
 the next image's proposal stage launched before the current one's host
 cleanup.
 
+The proposal stage reads nothing back (the reference's one dispatch): its
+counts stay on the device, and its hand-off (``pipeline/handoff.py``) packs
+the masks and starts copying the first packed rows, the per-proposal fields
+and a meta buffer (num, overflow, valid) to pinned host memory as soon as
+the stage is queued. The finish side waits once, reads the meta buffer and
+cleans only the live rows; the canonical image is uploaded once, at
+dispatch, and handed on to the feature stage.
+
 All of an image's sentences go through one sentence stage with a leading
 sentence dimension (the reference's ``HYBRIDGL_BATCH_SENTENCES=1`` path). The
-small-region cleanup is the native host pass by default, on the downloaded
-bundle. ``HYBRIDGL_CLEANUP=device`` (the reference's switch, read when the
+small-region cleanup is the native host pass by default, on the live rows
+of the hand-off. ``HYBRIDGL_CLEANUP=device`` (the reference's switch, read when the
 pipeline is built; default ``host``) runs the pass on tensors instead
 (kernels/connected.py:cleanup_proposals_jit) where the masks are, with the
 same results. Its time follows the masks: it takes as many sweeps as their
@@ -57,7 +66,9 @@ from ..models.gem.gem import gem_image_features, gem_preprocess
 from ..models.sam.amg import Proposals, generate_proposals, generate_proposals_multicrop
 from ..models.sam.image_encoder import prepare_sam_params
 from ..utils.buckets import next_pow2
+from ..utils.transfer import upload
 from .guidance import dir_flag_id, gem_mask_scores, normalize_heatmap, rela_flag_id, select_candidates
+from .handoff import Handoff, fetch_rows, hand_off, receive, unpack_masks
 from .postprocess import postprocess_small_regions
 from .preprocess import build_crops
 
@@ -111,32 +122,52 @@ class Ingredients(NamedTuple):
 
 
 def launch_proposals(cfg: PipelineConfig, sam_params, sample, device) -> Proposals:
-    """The proposal stage on the device (SAM encoder + AMG); ``sample`` has
-    ImageSample's image fields."""
-    image_1024 = torch.from_numpy(np.asarray(sample.image_1024)).to(device)
+    """The proposal stage on the device (SAM encoder + AMG), launched and not
+    waited for: ``num`` and ``overflow`` are device scalars. ``sample`` has
+    ImageSample's image fields; ``image_canonical`` may already be the
+    device tensor that the feature stage takes too."""
+    image_1024 = upload(sample.image_1024, device)
     rh, rw, h, w = int(sample.rh), int(sample.rw), int(sample.h), int(sample.w)
     if cfg.amg.crop_n_layers >= 1:
-        image_c = torch.from_numpy(np.asarray(sample.image_canonical)).to(device)
+        image_c = upload(sample.image_canonical, device)
         return generate_proposals_multicrop(
             sam_params, image_1024, rh, rw, image_c, h, w, cfg.sam, cfg.amg, cfg.canonical_size,
         )
     return generate_proposals(sam_params, image_1024, rh, rw, h, w, cfg.sam, cfg.amg, cfg.canonical_size)
 
 
-def cleanup_host(cfg: PipelineConfig, props: Proposals, hw, device) -> Proposals:
-    """The small-region cleanup: the native host pass on the downloaded bundle."""
-    host = Proposals(*(t.cpu().numpy() if isinstance(t, torch.Tensor) else t for t in props))
+def cleanup_host(cfg: PipelineConfig, props: Proposals, hw, device, handoff: Optional[Handoff] = None) -> Proposals:
+    """The small-region cleanup, the native host pass, on the live rows of
+    the bundle's hand-off (``handoff``, made here from ``props`` when not
+    given; the reference's runner.py:424-486): the packed rows up to the last
+    live one are unpacked into this call's own buffer and cleaned in place.
+    When nothing changed, ``props``' tensors come back as they are; else the
+    live rows are packed again, uploaded and unpacked on the device, and the
+    rows past the last live one are empty. ``num`` and ``overflow`` come back
+    as ints, from the hand-off's meta buffer."""
+    if handoff is None:
+        handoff = hand_off(props, pack=True)
+    received, valid = receive(handoff)
+    props = props._replace(num=received.num, overflow=received.overflow)
+    C, P = cfg.canonical_size, props.masks.shape[0]
+    live = np.nonzero(valid)[0]
+    n_live = int(live[-1]) + 1 if live.size else 0
+    masks = np.zeros((P, C, C), np.uint8)
+    if n_live:
+        masks[:n_live] = np.unpackbits(fetch_rows(handoff, n_live), axis=-1, count=C)
+    a = handoff.aux.numpy()
+    host = Proposals(masks.view(np.bool_), a[: 4 * P].reshape(P, 4), a[4 * P : 5 * P], a[5 * P : 6 * P],
+                     a[6 * P : 8 * P].reshape(P, 2), a[8 * P :], valid, num=props.num, overflow=props.overflow)
     amg = cfg.amg
-    out, changed = postprocess_small_regions(
-        host, amg.min_mask_region_area, max(amg.box_nms_thresh, amg.crop_nms_thresh), hw=hw
-    )
+    out, changed = postprocess_small_regions(host, amg.min_mask_region_area,
+                                             max(amg.box_nms_thresh, amg.crop_nms_thresh), hw=hw, inplace_masks=True)
     if not changed:
         return props
-    return Proposals(
-        *(torch.from_numpy(np.ascontiguousarray(f)).to(device) for f in out[:7]),
-        num=out.num,
-        overflow=out.overflow,
-    )
+    cleaned = torch.zeros((P, C, C), dtype=torch.bool, device=device)
+    if n_live:
+        cleaned[:n_live] = unpack_masks(upload(np.packbits(out.masks[:n_live], axis=-1), device), C)
+    return Proposals(cleaned, *(upload(np.ascontiguousarray(f), device) for f in out[1:7]), num=out.num,
+                     overflow=props.overflow)
 
 
 def cleanup_on_device() -> bool:
@@ -214,14 +245,14 @@ def sentence_ingredients(cfg: PipelineConfig, clip_params, props: Proposals, fea
     h, w = hw
     dev = feats.device
     S = len(rows)
-    toks = torch.from_numpy(np.stack([r[0] for r in rows])).to(dev)  # [S, 2 + K, L]
+    toks = upload(np.stack([r[0] for r in rows]), dev)  # [S, 2 + K, L]
     tf = encode_text(clip_params["text"], toks.reshape(-1, toks.shape[-1]), cfg.clip)
     tf = tf.reshape(S, toks.shape[1], -1)
     sent_f, np_f, other_f = tf[:, 0], tf[:, 1], tf[:, 2:]
     r = cfg.guidance.r
     ls = clip_params["logit_scale"]
     score = calculate_score(feats, r * sent_f + (1 - r) * np_f, ls).T  # [S, P]
-    n_others = torch.tensor([r_[1] for r_ in rows], device=dev)
+    n_others = upload([r_[1] for r_ in rows], dev)
     k_mask = torch.arange(other_f.shape[1], device=dev)[None, :] < n_others[:, None]
     neg_sum = torch.where(k_mask[..., None], other_f, 0.0).sum(1)
     neg_mean = torch.where((n_others > 0)[:, None], neg_sum / torch.clamp(n_others, min=1)[:, None], 0.0)
@@ -235,7 +266,7 @@ def sentence_ingredients(cfg: PipelineConfig, clip_params, props: Proposals, fea
     heat = place_valid_region_antialias(heat448, (C, C), (h, w)).movedim(-1, 0)  # [S, C, C]
     vm = valid_mask((C, C), (h, w), dev)
     heat = normalize_heatmap(heat, vm, [r_[2] for r_ in rows])
-    black = torch.tensor([r_[4] for r_ in rows], dtype=torch.float32, device=dev)
+    black = upload([r_[4] for r_ in rows], dev, torch.float32)
     gem_scores = gem_mask_scores(heat, props.masks, vm, black)  # [S, P]
     # every proposal's (I, U, IoU) against the ground truth (mask_iou, for all P at once)
     i = (props.masks & gt).sum(dim=(-2, -1)).float()
@@ -292,18 +323,34 @@ class HybridGLPipeline:
     def propose(self, sample: ImageSample) -> Proposals:
         """SAM proposals + the host small-region cleanup, which the reference
         applies whenever min_mask_region_area > 0 (automatic_mask_generator.py:166-171)."""
+        return self._propose_with_image(sample)[0]
+
+    def _propose_with_image(self, sample: ImageSample):
+        """:meth:`propose`, and the canonical image's device copy that the
+        dispatch uploaded, for the feature stage."""
         with self._span("proposals"):
-            props = self._launch_proposals(sample)
-        return self._finish_proposals(props, (sample.h, sample.w))
+            handoff, image_c = self._dispatch_proposals(sample)
+        return self._finish_proposals(handoff, (sample.h, sample.w)), image_c
+
+    def _dispatch_proposals(self, sample: ImageSample):
+        """Upload the canonical image, launch the proposal stage and queue its
+        hand-off (the reference's ``_dispatch_proposals``); waits for nothing.
+        -> (Handoff, the canonical image on the device)."""
+        image_c = upload(sample.image_canonical, self.device)
+        props = self._launch_proposals(sample._replace(image_canonical=image_c))
+        pack = self.cfg.amg.min_mask_region_area > 0 and not self._device_cleanup
+        return hand_off(props, pack), image_c
 
     def _launch_proposals(self, sample: ImageSample) -> Proposals:
         """The proposal stage on the device (SAM encoder + AMG)."""
         return launch_proposals(self.cfg, self.sam_params, sample, self.device)
 
-    def _finish_proposals(self, props: Proposals, hw) -> Proposals:
-        """The host side of the proposal stage: the overflow warning, the
-        small-region cleanup and the survival hook."""
+    def _finish_proposals(self, handoff: Handoff, hw) -> Proposals:
+        """The host side of the proposal stage: one wait for the hand-off and
+        its meta buffer, the overflow warning, the small-region cleanup and
+        the survival hook."""
         cfg = self.cfg
+        props, _ = receive(handoff)
         if props.overflow > 0 and not self._warned_overflow:
             # the reference keeps every NMS survivor; a full bucket drops some
             warnings.warn(
@@ -317,15 +364,15 @@ class HybridGLPipeline:
             with self._span("small_region_cleanup"):
                 if props.num > 0:
                     props = (cleanup_device(cfg, props, hw, self.device) if self._device_cleanup
-                             else self._cleanup_host(props, hw))
+                             else self._cleanup_host(props, hw, handoff))
         if self.survival_hook is not None:
             # benchmarking and testing knob: random weights leave degenerate
             # NMS survival, a hook sets a representative bucket occupancy
             props = self.survival_hook(props)
         return props
 
-    def _cleanup_host(self, props: Proposals, hw) -> Proposals:
-        return cleanup_host(self.cfg, props, hw, self.device)
+    def _cleanup_host(self, props: Proposals, hw, handoff: Optional[Handoff] = None) -> Proposals:
+        return cleanup_host(self.cfg, props, hw, self.device, handoff)
 
     @staticmethod
     def _bucket_props(props: Proposals) -> Proposals:
@@ -402,35 +449,38 @@ class HybridGLPipeline:
         image i+1's proposal stage is launched on the device before image i's
         host cleanup and scoring. Yields (sample, results), or (sample,
         results, proposals) with ``yield_props``, exactly what
-        :meth:`run_image` gives image by image; mutates ``state``. The AMG
-        reads its NMS counts on the host, so only the work queued after the
-        last of those reads overlaps the previous image's cleanup."""
-        pending = None  # (sample, launched proposals)
+        :meth:`run_image` gives image by image; mutates ``state``. The stage
+        reads nothing back, so the whole of image i+1's stage is queued
+        before image i's cleanup starts."""
+        pending = None  # (sample, Handoff, canonical image on the device)
         for sample in samples:
             with self._span("proposals_dispatch"):
-                launched = (sample, self._launch_proposals(sample))
+                launched = (sample, *self._dispatch_proposals(sample))
             if pending is not None:
                 yield self._emit(*pending, state, yield_props)
             pending = launched
         if pending is not None:
             yield self._emit(*pending, state, yield_props)
 
-    def _emit(self, sample: ImageSample, props: Proposals, state: PipelineState, yield_props: bool):
-        props = self._finish_proposals(props, (sample.h, sample.w))
+    def _emit(self, sample: ImageSample, handoff: Handoff, image_c, state: PipelineState, yield_props: bool):
+        props = self._finish_proposals(handoff, (sample.h, sample.w))
         self.last_proposals = props
-        results = self._score_image(sample, props, state)
+        results = self._score_image(sample, props, state, image_c)
         return (sample, results, props) if yield_props else (sample, results)
 
     @torch.inference_mode()
     def run_image(self, sample: ImageSample, state: PipelineState) -> List[SentenceResult]:
         """Process one image; mutates the ``state`` accumulators and clamps."""
-        props = self.propose(sample)
+        props, image_c = self._propose_with_image(sample)
         self.last_proposals = props
-        return self._score_image(sample, props, state)
+        return self._score_image(sample, props, state, image_c)
 
     @torch.inference_mode()
-    def _score_image(self, sample: ImageSample, props: Proposals, state: PipelineState) -> List[SentenceResult]:
-        """Feature and sentence stages for one image's proposal bundle."""
+    def _score_image(self, sample: ImageSample, props: Proposals, state: PipelineState,
+                     image_c: Optional[torch.Tensor] = None) -> List[SentenceResult]:
+        """Feature and sentence stages for one image's proposal bundle;
+        ``image_c`` is the canonical image on the device, if the dispatch
+        uploaded it."""
         num_props = int(props.num)
         C = self.cfg.canonical_size
         if num_props == 0:
@@ -439,14 +489,15 @@ class HybridGLPipeline:
             gt_area = float(np.sum(sample.gt_mask)) if sample.gt_mask is not None else 0.0
             out = []
             for s in sample.sentences:
-                miss = tuple(torch.tensor(v, device=self.device) for v in (0.0, gt_area, 0.0))
+                miss = tuple(upload(v, self.device) for v in (0.0, gt_area, 0.0))
                 state.pure = accumulate(state.pure, miss)
                 state.final = accumulate(state.final, miss)
                 out.append(SentenceResult(s, -1, -1, 0.0, 0.0))
             return out
 
         props = self._bucket_props(props)
-        image_c = torch.from_numpy(np.asarray(sample.image_canonical)).to(self.device)
+        if image_c is None:
+            image_c = upload(sample.image_canonical, self.device)
         with self._span("crops+fusion"):
             feats, gem_pf = self._feature_stage(props, image_c, sample.h, sample.w)
 
@@ -461,7 +512,7 @@ class HybridGLPipeline:
 
         has_gt = sample.gt_mask is not None
         gt = (
-            torch.from_numpy(np.asarray(sample.gt_mask)).to(self.device)
+            upload(sample.gt_mask, self.device)
             if has_gt
             else torch.zeros((C, C), dtype=torch.bool, device=self.device)
         )

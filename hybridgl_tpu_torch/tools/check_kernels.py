@@ -624,7 +624,7 @@ def _nms(run: _Run):
     num_kept exactly equal to the plain version's (the score sort, then
     reference_nms_sorted). Times: the operator (both kernels), its plain
     version (the bitmask on the card, downloaded, the sweep on the host), the
-    whole wrapper (with its sort and 4-byte read), the parent's route (the f32
+    whole wrapper (with its sort; it reads nothing back), the parent's route (the f32
     IoU matrix downloaded)."""
     from ..kernels.nms import _n1, nms, reference_nms_sorted, suppression_matrix, sweep
 
@@ -637,17 +637,18 @@ def _nms(run: _Run):
         keep, num = reference_nms_sorted(b, v, thr)
         torch.cuda.synchronize()
         d_keep = int((got.keep_sorted != keep).sum())
-        ok = torch.equal(got.order, order) and d_keep == 0 and got.num_kept == int(num)
+        kept = int(got.num_kept)
+        ok = torch.equal(got.order, order) and d_keep == 0 and kept == int(num)
         run.verdict(f"nms N = {N}", ok, f"order equal {torch.equal(got.order, order)}, keep_sorted flags differing "
-                    f"{d_keep}, num_kept {got.num_kept} (plain {int(num)}) of {int(valid.sum())} valid")
+                    f"{d_keep}, num_kept {kept} (plain {int(num)}) of {int(valid.sum())} valid")
         kept_rows = (~sweep(suppression_matrix(b, thr).cpu())).nonzero().flatten()
         W = -(-N // 64)
         read_words = N + int((W - kept_rows // 64 - 1).sum())
         wrapper_ms = time_ms(lambda: nms(boxes, scores, thr, valid))
         parent_ms = time_ms(lambda: _parent_route(boxes, scores, thr, valid))
-        run.log(f"  nms N = {N}: the wrapper (sort, gather, operator, count read) {wrapper_ms:.3f} ms, the parent's "
-                f"route (f32 IoU matrix downloaded, host sweep) {parent_ms:.3f} ms, kept {got.num_kept}")
-        run.record("nms", ok, float(max(d_keep > 0, abs(got.num_kept - int(num)))), lambda: _n1(b, v, thr),
+        run.log(f"  nms N = {N}: the wrapper (sort, gather, operator) {wrapper_ms:.3f} ms, the parent's "
+                f"route (f32 IoU matrix downloaded, host sweep) {parent_ms:.3f} ms, kept {kept}")
+        run.record("nms", ok, float(max(d_keep > 0, abs(kept - int(num)))), lambda: _n1(b, v, thr),
                    lambda: reference_nms_sorted(b, v, thr), f"N = {N}, threshold {thr}",
                    dict(N=N, read_words=read_words))
         torch.cuda.empty_cache()

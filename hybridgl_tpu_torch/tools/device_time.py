@@ -6,14 +6,18 @@ thresholds zeroed, synthetic 480x640 images), runs one warm-up image, two
 timed images (host clock around a synchronise) and one image under
 torch.profiler, and prints for each path the wall time, the device time
 summed over every kernel and copy, the busy share, the largest device
-items, the copies from the device into pageable host memory (count, bytes
-and device ms, from the profiler), the peak device memory of the timed
-images, and the reads to the host by call site: one more image under a
-dispatch mode that records every device-to-host transfer with the innermost
-frame of the package that asked for it. Both paths are host bound, so a
-kernel's gain shows in the device time long before it shows in ms per
-image. Uses only the package's public entry points, so the same file times
-an older tree when copied into it. Needs a CUDA card.
+items, every copy by kind (device to pageable or pinned host memory, host
+to device: count, bytes and device ms, from the profiler), the peak device
+memory of the timed images, the reads to the host by call site (one more
+image under a dispatch mode that records every device-to-host transfer
+with the innermost frame of the package that asked for it) and the stream
+synchronisations by call site (the same image under
+``torch.cuda.set_sync_debug_mode``); then the busy share of three images
+through ``run_dataset`` against the same three through ``run_image`` (the
+union of the device's busy intervals over the wall, in turns). Both paths
+are host bound, so a kernel's gain shows in the device time long before it
+shows in ms per image. Uses only the package's public entry points, so the
+same file times an older tree when copied into it. Needs a CUDA card.
 
     python -m hybridgl_tpu_torch.tools.device_time [refcoco] [phrasecut]   (default: both)
 """
@@ -40,26 +44,55 @@ OWN_KERNELS = ("rel_pos_", "resident_kernel", "attention_kernel", "pass1_stats",
 PACKAGE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def pageable_downloads(prof) -> dict:
-    """{copies, bytes, device_ms} of the profiled copies from the device into
-    pageable host memory. The byte counts are CUPTI's, which only the
-    exported trace carries (``args.bytes``); bytes is None where no copy has
-    one."""
+def _device_events(prof) -> list:
+    """The profiled device items (kernels, copies, fills) of the exported
+    trace, which alone carries CUPTI's byte counts (``args.bytes``)."""
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "trace.json")
         prof.export_chrome_trace(path)
         with open(path) as f:
             events = json.load(f)["traceEvents"]
-    copies = [e for e in events if e.get("ph") == "X" and e.get("cat") == "gpu_memcpy"
-              and "DtoH" in e.get("name", "") and "Pageable" in e.get("name", "")]
-    counted = [e["args"]["bytes"] for e in copies if "bytes" in e.get("args", {})]
-    return dict(copies=len(copies), bytes=sum(counted) if counted else None,
-                device_ms=sum(e["dur"] for e in copies) / 1e3)
+    return [e for e in events if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+
+
+def copies_by_kind(events) -> dict:
+    """{kind: {copies, bytes, device_ms}} of the profiled copies, the kind as
+    CUPTI names it ("DtoH (Device -> Pageable)", "DtoH (Device -> Pinned)",
+    "HtoD (Pinned -> Device)", ...); bytes is None where no copy of the kind
+    has a count."""
+    kinds = collections.defaultdict(list)
+    for e in events:
+        if e["cat"] == "gpu_memcpy":
+            kinds[e.get("name", "").replace("Memcpy ", "")].append(e)
+    out = {}
+    for kind, copies in sorted(kinds.items()):
+        counted = [e["args"]["bytes"] for e in copies if "bytes" in e.get("args", {})]
+        out[kind] = dict(copies=len(copies), bytes=sum(counted) if counted else None,
+                         device_ms=sum(e["dur"] for e in copies) / 1e3)
+    return out
+
+
+def busy_ms(events) -> float:
+    """The device's busy time: the union of its items' intervals (a copy on a
+    side stream that overlaps a kernel counts once)."""
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events)
+    total, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total / 1e3
+
+
+def _describe(kind: str, c: dict) -> str:
+    size = "bytes not measured" if c["bytes"] is None else f"{c['bytes']} bytes ({c['bytes'] / 1e6:.3f} MB)"
+    return f"{kind}: {c['copies']} copies, {size}, {c['device_ms']:.3f} ms of device time"
 
 
 def profile_image(pipe, sample, state, log=print, top_n: int = 12) -> dict:
     """One ``run_image`` under torch.profiler: {wall_ms, device_ms, launches,
-    dtoh_pageable: pageable_downloads}."""
+    copies: copies_by_kind, dtoh_pageable and dtoh_pinned: those two kinds
+    (zero copies where there were none)}."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -75,10 +108,13 @@ def profile_image(pipe, sample, state, log=print, top_n: int = 12) -> dict:
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:top_n]
     for e in top + [e for e in kernels if e not in top and any(n in e.key for n in OWN_KERNELS)]:
         log(f"  device {e.self_device_time_total / 1e3:8.2f} ms  x{e.count:<5d} {e.key[:90]}")
-    down = pageable_downloads(prof)
-    size = "bytes not measured" if down["bytes"] is None else f"{down['bytes']} bytes ({down['bytes'] / 1e6:.1f} MB)"
-    log(f"  pageable DtoH: {down['copies']} copies, {size}, {down['device_ms']:.2f} ms of device time")
-    return dict(wall_ms=wall, device_ms=device_total, launches=launches, dtoh_pageable=down)
+    copies = copies_by_kind(_device_events(prof))
+    for kind, c in copies.items():
+        log(f"  copy {_describe(kind, c)}")
+    none = dict(copies=0, bytes=0, device_ms=0.0)
+    return dict(wall_ms=wall, device_ms=device_total, launches=launches, copies=copies,
+                dtoh_pageable=copies.get("DtoH (Device -> Pageable)", none),
+                dtoh_pinned=copies.get("DtoH (Device -> Pinned)", none))
 
 
 def _call_site() -> str:
@@ -91,20 +127,34 @@ def _call_site() -> str:
 
 def host_reads(fn, log=print) -> list:
     """Run ``fn()`` under a dispatch mode that records every transfer from the
-    device to the host (a copy into a CPU tensor, or a scalar read) with its
-    call site, and log them: [(site, transfers, bytes)], most bytes first."""
+    device to the host with its call site, and log them. A read is a
+    transfer the host waits for (a blocking copy into a CPU tensor, a scalar
+    read, a ``nonzero``'s count): [(site, transfers, bytes)], most bytes
+    first. Non-blocking copies into (pinned) host memory are logged apart
+    and not returned. Under ``torch.inference_mode`` (the runner's) a scalar
+    read reaches the mode as ``aten.item`` or ``aten.is_nonzero``, elsewhere
+    as ``aten._local_scalar_dense``: all three count."""
     from torch.utils._python_dispatch import TorchDispatchMode
 
-    sites = collections.defaultdict(lambda: [0, 0])
+    aten = torch.ops.aten
+    scalar_reads = (aten._local_scalar_dense.default, aten.item.default, aten.is_nonzero.default)
+    sites = {False: collections.defaultdict(lambda: [0, 0]), True: collections.defaultdict(lambda: [0, 0])}
 
     class Reads(TorchDispatchMode):
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            out = func(*args, **(kwargs or {}))
+            kwargs = kwargs or {}
+            out = func(*args, **kwargs)
             src = next((a for a in args if isinstance(a, torch.Tensor) and a.is_cuda), None)
-            to_host = func is torch.ops.aten._local_scalar_dense.default or (
-                isinstance(out, torch.Tensor) and out.device.type == "cpu")
-            if src is not None and to_host:
-                site = sites[_call_site()]
+            if src is None:
+                return out
+            if func in scalar_reads or func is aten.nonzero.default:
+                site = sites[False][_call_site()]
+                site[0] += 1
+                site[1] += src.element_size() if func in scalar_reads else 8  # nonzero reads its int64 count
+            elif isinstance(out, torch.Tensor) and out.device.type == "cpu":
+                async_copy = func is aten.copy_.default and bool(
+                    args[2] if len(args) > 2 else kwargs.get("non_blocking", False))
+                site = sites[async_copy][_call_site()]
                 site[0] += 1
                 site[1] += src.numel() * src.element_size()
             return out
@@ -112,13 +162,100 @@ def host_reads(fn, log=print) -> list:
     with Reads():
         fn()
     torch.cuda.synchronize()
-    reads = sorted(((k, n, b) for k, (n, b) in sites.items()), key=lambda r: -r[2])
-    total = sum(b for _, _, b in reads)
-    log(f"  reads to the host by call site (dispatch mode): {sum(n for _, n, _ in reads)} transfers, "
-        f"{total} bytes ({total / 1e6:.1f} MB)")
-    for site, n, b in reads:
-        log(f"    {b:>12d} bytes  x{n:<5d} {site}")
+    for async_copy, what in ((False, "reads to the host"), (True, "non-blocking copies to the host")):
+        found = sorted(((k, n, b) for k, (n, b) in sites[async_copy].items()), key=lambda r: -r[2])
+        total = sum(b for _, _, b in found)
+        log(f"  {what} by call site (dispatch mode): {sum(n for _, n, _ in found)} transfers, "
+            f"{total} bytes ({total / 1e6:.3f} MB)")
+        for site, n, b in found:
+            log(f"    {b:>12d} bytes  x{n:<5d} {site}")
+        if not async_copy:
+            reads = found
     return reads
+
+
+def host_syncs(fn, log=print) -> list:
+    """Run ``fn()`` with ``torch.cuda.set_sync_debug_mode("warn")``, which
+    warns at every operation that makes the host wait for the stream (a read
+    to the host, a blocking copy either way, a stream synchronisation), and
+    log the call sites: [(site, syncs)], most first."""
+    import warnings
+
+    sites = collections.Counter()
+    saved = warnings.showwarning
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        if "synchronizing CUDA operation" in str(message):
+            sites[_call_site()] += 1
+        else:
+            saved(message, category, filename, lineno, file, line)
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    syncs = sites.most_common()
+    log(f"  stream synchronisations by call site (sync debug mode): {sum(sites.values())}")
+    for site, n in syncs:
+        log(f"    x{n:<5d} {site}")
+    return syncs
+
+
+def stage_ms(pipe, sample, log=print) -> dict:
+    """One ``run_image`` with a blocking ``StageTimer`` (the device
+    synchronised at the end of each span): {span: ms}. The runner's
+    ``small_region_cleanup`` span is the host cleanup alone."""
+    from ..utils.profiling import StageTimer
+
+    pipe.timer = StageTimer(block=True, device="cuda")
+    try:
+        pipe.run_image(sample, pipe.init_state())
+        out = {k: v * 1e3 for k, v in pipe.timer.totals.items()}
+    finally:
+        pipe.timer = None
+    log("  stage wall (blocking timer): " + ", ".join(f"{k} {v:.1f} ms" for k, v in out.items()))
+    return out
+
+
+def busy_share(pipe, samples, pipelined: bool) -> dict:
+    """``samples`` through ``run_dataset`` (``pipelined``) or one
+    ``run_image`` an image, under torch.profiler (device activity only):
+    {wall_ms, busy_ms, share}, the busy time the union of the device's items."""
+    from torch.profiler import ProfilerActivity, profile
+
+    state = pipe.init_state()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if pipelined:
+            for _ in pipe.run_dataset(iter(samples), state):
+                pass
+        else:
+            for sample in samples:
+                pipe.run_image(sample, state)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy = busy_ms(_device_events(prof))
+    return dict(wall_ms=wall, busy_ms=busy, share=busy / wall)
+
+
+def compare_busy_share(pipe, samples, log=print) -> dict:
+    """:func:`busy_share` of ``samples`` through run_image and through
+    run_dataset, in turns (image, dataset, dataset, image): {"run_image":
+    [...], "run_dataset": [...]}."""
+    out = {"run_image": [], "run_dataset": []}
+    for how in ("run_image", "run_dataset", "run_dataset", "run_image"):
+        out[how].append(busy_share(pipe, samples, how == "run_dataset"))
+    for how, runs in out.items():
+        log(f"  {how} over {len(samples)} images: busy share "
+            f"{[round(r['share'], 3) for r in runs]} (busy {[round(r['busy_ms'], 1) for r in runs]} ms of wall "
+            f"{[round(r['wall_ms'], 1) for r in runs]} ms; profiler on, device activity only)")
+    return out
 
 
 def _sample(rng, canonical, h=480, w=640, rh=768, rw=1024):
@@ -159,7 +296,7 @@ def main(argv=None) -> int:
                              amg=dataclasses.replace(amg, pred_iou_thresh=0.0, stability_score_thresh=0.0))
         pipe = HybridGLPipeline(cfg, *weights, HeuristicParser(), default_tokenizer(), device=torch.device("cuda"))
         rng = np.random.default_rng(0)
-        samples = [_sample(rng, canonical) for _ in range(4)]
+        samples = [_sample(rng, canonical) for _ in range(7)]
         state = pipe.init_state()
         times = []
         for i, sample in enumerate(samples[:3]):  # the first is the warm-up
@@ -173,8 +310,16 @@ def main(argv=None) -> int:
         print(f"{tag}: ms/img {[round(t, 1) for t in times[1:]]} after a warm-up of {times[0]:.1f} ms, peak device "
               f"memory {torch.cuda.max_memory_allocated()} bytes "
               f"({torch.cuda.max_memory_allocated() / 2**30:.2f} GiB)", flush=True)
-        profile_image(pipe, samples[3], state, log=lambda m: print(m, flush=True))
-        host_reads(lambda: pipe.run_image(samples[3], state), log=lambda m: print(m, flush=True))
+        say = lambda m: print(m, flush=True)  # noqa: E731
+        profile_image(pipe, samples[3], state, log=say)
+        host_reads(lambda: pipe.run_image(samples[3], state), log=say)
+        host_syncs(lambda: pipe.run_image(samples[3], state), log=say)
+        stage_ms(pipe, samples[3], log=say)
+        if hasattr(pipe, "_dispatch_proposals"):  # the stage's launch and hand-off alone
+            say("  the proposal dispatch alone:")
+            host_reads(lambda: pipe._dispatch_proposals(samples[3]), log=say)
+            host_syncs(lambda: pipe._dispatch_proposals(samples[3]), log=say)
+        compare_busy_share(pipe, samples[4:7], log=say)
     return 0
 
 

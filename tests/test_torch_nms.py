@@ -49,7 +49,9 @@ def both(boxes, scores, thr, valid=None):
 def assert_same(jr, tr):
     np.testing.assert_array_equal(tr.order.numpy(), np.asarray(jr.order))
     np.testing.assert_array_equal(tr.keep_sorted.numpy(), np.asarray(jr.keep_sorted))
-    assert isinstance(tr.num_kept, int) and tr.num_kept == int(jr.num_kept)
+    # the count stays a device scalar, as the reference's: nothing is read back
+    assert isinstance(tr.num_kept, torch.Tensor) and tr.num_kept.shape == () and tr.num_kept.dtype == torch.int32
+    assert int(tr.num_kept) == int(jr.num_kept)
 
 
 @pytest.mark.parametrize("thr", [0.5, 0.7])
@@ -62,7 +64,7 @@ def test_random_boxes_match_the_reference(N, thr):
     jr, tr = both(boxes, scores, thr, valid)
     assert_same(jr, tr)
     if N >= 192:  # the sweep really suppressed something, and kept something
-        assert 0 < tr.num_kept < int(valid.sum())
+        assert 0 < int(tr.num_kept) < int(valid.sum())
 
 
 def test_identical_boxes_keep_one():
@@ -70,7 +72,7 @@ def test_identical_boxes_keep_one():
     scores = np.random.default_rng(1).random(100).astype(np.float32)
     jr, tr = both(boxes, scores, 0.7)
     assert_same(jr, tr)
-    assert tr.num_kept == 1 and tr.order[0] == int(np.argmax(scores))
+    assert int(tr.num_kept) == 1 and tr.order[0] == int(np.argmax(scores))
 
 
 def test_disjoint_boxes_keep_all():
@@ -80,7 +82,7 @@ def test_disjoint_boxes_keep_all():
     scores = np.random.default_rng(2).random(len(boxes)).astype(np.float32)
     jr, tr = both(boxes, scores, 0.5)
     assert_same(jr, tr)
-    assert tr.num_kept == len(boxes)
+    assert int(tr.num_kept) == len(boxes)
 
 
 def test_zero_area_boxes_suppress_nothing():
@@ -93,7 +95,7 @@ def test_zero_area_boxes_suppress_nothing():
     scores = rng.random(len(boxes)).astype(np.float32)
     jr, tr = both(boxes, scores, 0.5)
     assert_same(jr, tr)
-    assert tr.num_kept == len(boxes)
+    assert int(tr.num_kept) == len(boxes)
 
 
 def f32_iou(a, b):
@@ -178,7 +180,7 @@ def test_a_cpu_call_runs_the_plain_version_and_counts_nothing():
     boxes = torch.from_numpy(random_boxes(np.random.default_rng(7), 64, integer=False))
     res = tnms.nms(boxes, torch.rand(64), 0.7)
     keep, num = tnms.reference_nms_sorted(boxes[res.order], torch.ones(64, dtype=torch.bool), 0.7)
-    assert torch.equal(res.keep_sorted, keep) and res.num_kept == int(num) and num.dtype == torch.int32
+    assert torch.equal(res.keep_sorted, keep) and torch.equal(res.num_kept, num) and num.dtype == torch.int32
     assert tnms.nms.launches == 0
 
 

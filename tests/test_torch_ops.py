@@ -109,7 +109,7 @@ def case(name, dtype=torch.float32, seed=0):
         def wrapper():
             res = nms(boxes, scores, 0.5, valid)
             assert torch.equal(res.order, torch.arange(40))
-            return res.keep_sorted, torch.tensor(res.num_kept, dtype=torch.int32)
+            return res.keep_sorted, res.num_kept
 
         return (boxes, valid, 0.5), lambda: reference_nms_sorted(boxes, valid, 0.5), wrapper
     assert name == "upscale_hyper_blocked"
