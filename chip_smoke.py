@@ -53,7 +53,14 @@ Phases (every phase asserts; any failure exits non-zero):
      modes: no read from the proposal stage's sites (models/sam/amg.py,
      kernels/nms.py), no read or synchronisation in the dispatch, and at
      most 1 MB of pageable DtoH an image, or the run fails; then the busy share of three more images of each path through
-     run_dataset against run_image;
+     run_dataset against run_image; then the stage graph: on each path the
+     pipeline's proposal stage is one CUDA graph captured at its first
+     image (pipeline/stage_graph.py); three image sizes replayed and held
+     bit for bit on every bundle field against the eager stage on the same
+     inputs, with its launch counts, selections and IoUs, and one capture;
+     the capture's numbers (ms, nodes, pool bytes) and the dispatch's host
+     ms to return beside the device ms it queues, with no read or
+     synchronisation in it;
   7. fusion modes: all six at full width on one RefCOCO image's proposals
      and on a bucket of 64 live synthetic proposals: finite features, and
      K6 launched as often as each mode's blocks need (the CLS-row bias in
@@ -504,11 +511,13 @@ def phase_downloads(tag, pipe, samples, card):
 def phase_busy_share(paths, card):
     """The busy share of three more images of each path (the union of the
     card's busy intervals over the wall, torch.profiler with device activity
-    only) through run_dataset and one run_image an image, in turns."""
+    only) through run_dataset and one run_image an image, in turns:
+    {path: {"run_dataset": median, "run_image": median}}."""
     import numpy as np
 
     from hybridgl_tpu_torch.tools.device_time import compare_busy_share
 
+    shares = {}
     for tag, (pipe, _) in paths.items():
         C = pipe.cfg.canonical_size
         rng = np.random.default_rng(11)
@@ -517,6 +526,81 @@ def phase_busy_share(paths, card):
         med = {how: statistics.median(r["share"] for r in runs) for how, runs in out.items()}
         log(f"{tag}: busy share over 3 images, run_dataset {med['run_dataset']:.3f} against run_image "
             f"{med['run_image']:.3f} (medians of two runs each, profiler on); on {card}")
+        shares[tag] = med
+    return shares
+
+
+# the stage-graph phase's image sizes (h, w) a path: landscape, portrait, and one side below half the canonical frame
+STAGE_GRAPH_SIZES = {"RefCOCO": ((480, 640), (640, 427), (240, 640)), "PhraseCut": ((480, 640), (1024, 683), (400, 1024))}
+
+
+def _selections(pipe, sample, props):
+    """A proposal bundle through the runner's finish (hand-off, host cleanup)
+    and scoring: [(pure_index, final_index, pure_iou, final_iou)] a sentence."""
+    from hybridgl_tpu_torch.pipeline.handoff import hand_off
+
+    pack = pipe.cfg.amg.min_mask_region_area > 0 and not pipe._device_cleanup
+    done = pipe._finish_proposals(hand_off(props, pack), (sample.h, sample.w))
+    return [(r.pure_index, r.final_index, r.pure_iou, r.final_iou)
+            for r in pipe._score_image(sample, done, pipe.init_state())]
+
+
+def phase_stage_graph(paths, card, shares):
+    """The proposal stage as one captured CUDA graph a configuration
+    (pipeline/stage_graph.py), on each full-width path: three image sizes
+    through the pipeline's StageGraph, each replay held bit for bit on every
+    bundle field against the eager stage on the same inputs, with the same
+    launch counts and the same selections and IoUs after the cleanup and
+    scoring, and still one capture; the capture's numbers (warm-up, capture
+    and instantiate ms, nodes, pool bytes); the host ms from the call of the
+    proposal dispatch to its return and the device ms it queued (CUDA events),
+    and no read or synchronisation in it; and phase_busy_share's run_dataset
+    against run_image. Fails on any difference, a second capture, or a read
+    or synchronisation in the dispatch."""
+    import numpy as np
+    import torch
+
+    from hybridgl_tpu_torch.kernels import launch_counts
+    from hybridgl_tpu_torch.models.sam.amg import Proposals
+    from hybridgl_tpu_torch.models.sam.sam import get_preprocess_shape
+    from hybridgl_tpu_torch.tools.device_time import dispatch_ms, host_reads, host_syncs
+
+    for tag, (pipe, samples) in paths.items():
+        stage, C = pipe.stage, pipe.cfg.canonical_size
+        rng = np.random.default_rng(13)
+        for h, w in STAGE_GRAPH_SIZES[tag]:
+            rh, rw = get_preprocess_shape(h, w, pipe.cfg.sam.img_size)
+            sample = _sample(rng, pipe.cfg.sam.img_size, C, h, w, rh, rw, (h // 5, w // 5, h // 2, w // 2))
+            c0 = launch_counts()
+            replayed = stage.launch(sample)
+            c1 = launch_counts()
+            eager = stage.eager()
+            c2 = launch_counts()
+            torch.cuda.synchronize()
+            differ = [f for f in Proposals._fields if not torch.equal(getattr(replayed, f), getattr(eager, f))]
+            by_replay = {k: c1[k] - c0[k] for k in c1 if c1[k] != c0[k]}
+            by_eager = {k: c2[k] - c1[k] for k in c2 if c2[k] != c1[k]}
+            sel_replay, sel_eager = _selections(pipe, sample, replayed), _selections(pipe, sample, eager)
+            ok = not differ and by_replay == by_eager and sel_replay == sel_eager and stage.captures == 1
+            log(f"{'PASS' if ok else 'FAIL'} {tag} stage graph, {h}x{w} (rh, rw {rh}, {rw}): replay against eager, "
+                f"fields that differ {differ}, proposals {int(replayed.num)}, selections {sel_replay} "
+                f"(eager {sel_eager}), launches a replay {by_replay} (eager {by_eager}), captures {stage.captures}")
+            if not ok:
+                fail(f"{tag}: the replayed proposal stage differs from the eager one at {h}x{w}")
+        sample = samples[-1]
+        reads = host_reads(lambda: pipe._dispatch_proposals(sample), log=log)
+        syncs = host_syncs(lambda: pipe._dispatch_proposals(sample), log=log)
+        if reads or syncs:
+            fail(f"{tag}: the replayed proposal dispatch read the host {reads} or synchronised {syncs}")
+        host, device = dispatch_ms(pipe, sample)
+        st = stage.stats()
+        share = shares[tag]
+        log(f"{tag} stage graph: {st['captures']} capture, warm-up {st['warmup_ms']:.1f} ms, capture "
+            f"{st['capture_ms']:.1f} ms, instantiate {st['instantiate_ms']:.1f} ms, {st['nodes']} nodes, pool "
+            f"{st['pool_bytes']} bytes; proposal dispatch: host ms to return {[round(t, 3) for t in host]}, device "
+            f"ms queued {[round(t, 3) for t in device]}; 0 reads, 0 syncs; busy share run_dataset "
+            f"{share['run_dataset']:.3f} against run_image {share['run_image']:.3f} "
+            f"({'above' if share['run_dataset'] > share['run_image'] else 'not above'}); on {card}")
 
 
 def _synthetic_full_bucket(pipe, P=64, h=480, w=640):
@@ -640,16 +724,13 @@ def phase_multicrop_stages(pipe, samples):
     x = preprocess_padded(torch.from_numpy(sample.image_1024).cuda(), (sample.rh, sample.rw), cfg.sam)
     stages = {"encoder, one frame (x5 per image)": _wall_ms(lambda: encode(p_sam, x, cfg.sam))[0]}
     emb = encode(p_sam, x, cfg.sam)
-    hw = (sample.h, sample.w)
-    full_grid = amg.build_point_grid(cfg.amg.points_per_side)
-    crop_grid = amg.build_point_grid(cfg.amg.points_per_side // cfg.amg.crop_n_points_downscale_factor)
-    cy0, cx0, ch, cw = amg._crop_boxes_layer1(*hw, cfg.amg.crop_overlap_ratio)[3]
-    for name, grid, origin, extent, rhw in (
-        ("pass 1, full-image crop (64 chunks)", full_grid, (0, 0), hw, (sample.rh, sample.rw)),
-        ("pass 1, one layer-1 crop (16 chunks, x4 per image)", crop_grid, (cy0, cx0), (ch, cw), (sample.rh, sample.rw)),
-    ):
-        stages[name] = _wall_ms(lambda: amg._score_candidates(p_sam, emb, grid, origin, extent, rhw, hw, cfg.sam,
-                                                              cfg.amg, cfg.canonical_size))[0]
+    # the stage's geometry table (row 0 the full image, rows 1-4 the layer-1 crops) and point grids
+    geo = torch.from_numpy(amg.geometry(sample.rh, sample.rw, sample.h, sample.w, cfg.sam, cfg.amg)).cuda()
+    consts = amg.stage_constants(cfg.sam, cfg.amg, "cuda")
+    for name, row in (("pass 1, full-image crop (64 chunks)", 0), ("pass 1, one layer-1 crop (16 chunks, x4 per image)", 4)):
+        stages[name] = _wall_ms(lambda: amg._score_candidates(p_sam, emb, consts.chunks[row], consts.n_points[row],
+                                                              geo[row], geo[0], cfg.sam, cfg.amg,
+                                                              cfg.canonical_size))[0]
     P, g = cfg.amg.max_proposals, cfg.sam.embed_grid
     coords = torch.rand((P, 1, 2), device="cuda") * 1000
     sparse = embed_points(p_sam["prompt"], coords, torch.ones((P, 1), device="cuda"), cfg.sam)
@@ -1432,14 +1513,16 @@ import hybridgl_tpu_torch.core.config as config
 from hybridgl_tpu_torch.kernels import launch_counts, reset_launch_counts
 
 
-class Shapes(TorchDispatchMode):  # the first operand's shape of every torch.ops.hybridgl call
+class Shapes(TorchDispatchMode):  # the first operand's shape of every torch.ops.hybridgl call a replay launches
     def __init__(self):
         super().__init__()
         self.shapes = {}
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         name = func._schema.name
-        if name.startswith("hybridgl::"):
+        # the proposal stage is a CUDA graph: its calls reach the dispatcher once, at the capture, and each replay
+        # launches them (the warm-up before the capture is set-up, as the launch counters have it)
+        if name.startswith("hybridgl::") and torch.cuda.is_current_stream_capturing():
             self.shapes.setdefault(name.split("::")[1], []).append(list(args[0].shape))
         return func(*args, **(kwargs or {}))
 
@@ -1467,7 +1550,8 @@ def phase_demo(card):
     """The port's demo as a user runs it (``python -m hybridgl_tpu_torch.cli.demo
     --random-weights``: SAM ViT-B, CLIP ViT-B/16, 8 x 8 points, G2L) on a
     synthetic 480x640 image, in a process of its own that records the shape
-    of every kernel operator's first operand; twice: at its defaults, where
+    of every kernel operator's first operand in the captured proposal stage
+    (what its replay launches); twice: at its defaults, where
     random weights pass none of the AMG's quality thresholds (it prints "no
     proposals found" and writes nothing, as the reference's demo does), then
     with those two thresholds zeroed as the bench does, where it writes its
@@ -1563,7 +1647,8 @@ def main(argv):
             fail(f"kernels of the {tag} path never launched: {missing}")
     for tag in paths:
         phase_downloads(tag, *paths[tag], card)
-    phase_busy_share(paths, card)
+    shares = phase_busy_share(paths, card)
+    phase_stage_graph(paths, card, shares)
     reset_launch_counts()
     phase_fusion_modes(*paths["RefCOCO"])
     counts["fusion modes"] = launch_counts()

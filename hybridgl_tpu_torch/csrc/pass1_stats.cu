@@ -10,7 +10,9 @@
 //   counts[b, 0] = #(logit > thresh + offset), counts[b, 1] = #(> thresh - offset)
 //   row_any[b, r], col_any[b, c] = any(logit > thresh) along each row / column
 // over the pixels inside the placement window (y0, x0, dh, dw); the
-// [B, C, C] frame never reaches device memory.
+// [B, C, C] frame never reaches device memory. The window is four f32 in
+// device memory, read by every block, so a launch captured in a CUDA graph
+// serves every image's window (the TPU kernel takes it as a traced value).
 //
 // K10 replaces hybridgl_tpu/kernels/pass1_stats.py:pass1_stats (the same
 // `_stats_call` with pre_half=False): it takes the raw logits low [B, n, n2]
@@ -117,9 +119,10 @@ __device__ __forceinline__ void block_sum2(int& hi, int& lo) {
 template <typename T>
 __global__ void __launch_bounds__(TX * TY)
 pass1_stats_kernel(const T* __restrict__ tmp, const T* __restrict__ wy, int n, int C,
-                   float y0, float x0, float dh, float dw, float thresh, float offset,
+                   const float* __restrict__ window, float thresh, float offset,
                    float* __restrict__ counts, uint8_t* __restrict__ row_any,
                    uint8_t* __restrict__ col_any) {
+  const float y0 = window[0], x0 = window[1], dh = window[2], dw = window[3];
   extern __shared__ float smem[];
   float* Ws = smem;                                  // [TILE][LDW]
   float* Ts = Ws + TILE * LDW;                       // [KC][LDT]
@@ -198,10 +201,11 @@ pass1_stats_kernel(const T* __restrict__ tmp, const T* __restrict__ wy, int n, i
 template <typename T>
 __global__ void __launch_bounds__(TX * TY)
 pass1_stats_full_kernel(const T* __restrict__ low, const T* __restrict__ wxt,
-                        const T* __restrict__ wy, int n, int n2, int C, float y0, float x0,
-                        float dh, float dw, float thresh, float offset,
+                        const T* __restrict__ wy, int n, int n2, int C,
+                        const float* __restrict__ window, float thresh, float offset,
                         int* __restrict__ counts, uint8_t* __restrict__ row_any,
                         uint8_t* __restrict__ col_any) {
+  const float y0 = window[0], x0 = window[1], dh = window[2], dw = window[3];
   const int c0 = blockIdx.x * TILE;
   if (!meets(c0, x0, dw)) return;  // the whole block leaves together
   extern __shared__ float smem[];
@@ -310,8 +314,8 @@ pass1_stats_full_kernel(const T* __restrict__ low, const T* __restrict__ wxt,
 }
 
 template <typename T>
-int launch(const void* tmp, const void* wy, int B, int n, int C, float y0, float x0,
-           float dh, float dw, float thresh, float offset, float* counts, void* row_any,
+int launch(const void* tmp, const void* wy, int B, int n, int C, const float* window,
+           float thresh, float offset, float* counts, void* row_any,
            void* col_any, cudaStream_t stream) {
   const size_t bytes = (size_t)(TILE * LDW + KC * LDT) * sizeof(float) + 2 * (size_t)C * sizeof(int);
   auto kern = pass1_stats_kernel<T>;
@@ -319,14 +323,14 @@ int launch(const void* tmp, const void* wy, int B, int n, int C, float y0, float
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
   kern<<<B, dim3(TX, TY), bytes, stream>>>(
-      static_cast<const T*>(tmp), static_cast<const T*>(wy), n, C, y0, x0, dh, dw, thresh,
+      static_cast<const T*>(tmp), static_cast<const T*>(wy), n, C, window, thresh,
       offset, counts, static_cast<uint8_t*>(row_any), static_cast<uint8_t*>(col_any));
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_full(const void* low, const void* wxt, const void* wy, int B, int n, int n2,
-                int C, float y0, float x0, float dh, float dw, float thresh, float offset,
+                int C, const float* window, float thresh, float offset,
                 int* counts, void* row_any, void* col_any, cudaStream_t stream) {
   const size_t n_pad = (size_t)(n + KC - 1) / KC * KC;
   const size_t bytes = (TILE * LDW + KC * LDT + n_pad * TILE) * sizeof(float) + (size_t)C * sizeof(int);
@@ -337,7 +341,7 @@ int launch_full(const void* low, const void* wxt, const void* wy, int B, int n, 
   dim3 grid((C + TILE - 1) / TILE, B);
   kern<<<grid, dim3(TX, TY), bytes, stream>>>(
       static_cast<const T*>(low), static_cast<const T*>(wxt), static_cast<const T*>(wy), n, n2,
-      C, y0, x0, dh, dw, thresh, offset, counts, static_cast<uint8_t*>(row_any),
+      C, window, thresh, offset, counts, static_cast<uint8_t*>(row_any),
       static_cast<uint8_t*>(col_any));
   return (int)cudaGetLastError();
 }
@@ -346,33 +350,34 @@ int launch_full(const void* low, const void* wxt, const void* wy, int B, int n, 
 
 extern "C" {
 
-// tmp [B, n, C] and wy [C, n], both bf16 (is_bf16) or both f32; counts
-// [B, 2] f32; row_any, col_any [B, C] bytes (0/1). Returns a cudaError_t code.
-int hgl_pass1_stats(const void* tmp, const void* wy, int B, int n, int C, float y0,
-                    float x0, float dh, float dw, float thresh, float offset,
+// tmp [B, n, C] and wy [C, n], both bf16 (is_bf16) or both f32; window [4]
+// f32 (y0, x0, dh, dw) on the device; counts [B, 2] f32; row_any, col_any [B, C] bytes (0/1). Returns a cudaError_t code.
+int hgl_pass1_stats(const void* tmp, const void* wy, int B, int n, int C, const void* window,
+                    float thresh, float offset,
                     float* counts, void* row_any, void* col_any, int is_bf16,
                     void* stream) {
   if (B < 1) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? launch<__nv_bfloat16>(tmp, wy, B, n, C, y0, x0, dh, dw, thresh, offset,
+  const float* win = static_cast<const float*>(window);
+  return is_bf16 ? launch<__nv_bfloat16>(tmp, wy, B, n, C, win, thresh, offset,
                                          counts, row_any, col_any, st)
-                 : launch<float>(tmp, wy, B, n, C, y0, x0, dh, dw, thresh, offset, counts,
+                 : launch<float>(tmp, wy, B, n, C, win, thresh, offset, counts,
                                  row_any, col_any, st);
 }
 
 // K10: low [B, n, n2], wxt [n2, C], wy [C, n], all bf16 (is_bf16) or all
-// f32; counts [B, 2] int32, row_any and col_any [B, C] bytes, all zeroed by
+// f32; window as above; counts [B, 2] int32, row_any and col_any [B, C] bytes, all zeroed by
 // the caller. Returns a cudaError_t code.
 int hgl_pass1_stats_full(const void* low, const void* wxt, const void* wy, int B, int n,
-                         int n2, int C, float y0, float x0, float dh, float dw,
-                         float thresh, float offset, int* counts, void* row_any,
+                         int n2, int C, const void* window, float thresh, float offset, int* counts, void* row_any,
                          void* col_any, int is_bf16, void* stream) {
   if (B < 1) return 0;
   if (B > 65535) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? launch_full<__nv_bfloat16>(low, wxt, wy, B, n, n2, C, y0, x0, dh, dw,
+  const float* win = static_cast<const float*>(window);
+  return is_bf16 ? launch_full<__nv_bfloat16>(low, wxt, wy, B, n, n2, C, win,
                                               thresh, offset, counts, row_any, col_any, st)
-                 : launch_full<float>(low, wxt, wy, B, n, n2, C, y0, x0, dh, dw, thresh,
+                 : launch_full<float>(low, wxt, wy, B, n, n2, C, win, thresh,
                                       offset, counts, row_any, col_any, st);
 }
 

@@ -8,7 +8,8 @@
 //   logit[r, c] = sum_j Wy[r, j] * tmp[b, j, c]      (bf16 operands, f32 sums)
 //   counts[b, 0] = #(logit > thresh + offset), counts[b, 1] = #(> thresh - offset)
 //   row_any[b, r], col_any[b, c] = any(logit > thresh) along each row / column
-// and the [B, C, C] frame never reaches device memory. pass1_stats.cu keeps the
+// and the [B, C, C] frame never reaches device memory. The window is four f32
+// in device memory (a captured launch serves every image). pass1_stats.cu keeps the
 // f32 CUDA-core kernel, which serves f32 stats (whose parity bar is exact
 // boxes: the tensor cores sum in another order) and the shapes this kernel
 // refuses (hgl_pass1_stats_tc_takes).
@@ -158,9 +159,10 @@ __device__ __forceinline__ void fill_wy(uint32_t dst, const __nv_bfloat16* wy, i
 template <bool FULL>
 __global__ void __launch_bounds__(THREADS, 1)
 pass1_stats_tc_kernel(const __nv_bfloat16* __restrict__ src, const __nv_bfloat16* __restrict__ wxt,
-                      const __nv_bfloat16* __restrict__ wy, int n, int n2, int C, float y0, float x0, float dh,
-                      float dw, float thresh, float offset, int* __restrict__ counts, uint8_t* __restrict__ row_any,
+                      const __nv_bfloat16* __restrict__ wy, int n, int n2, int C, const float* __restrict__ window,
+                      float thresh, float offset, int* __restrict__ counts, uint8_t* __restrict__ row_any,
                       uint8_t* __restrict__ col_any) {
+  const float y0 = window[0], x0 = window[1], dh = window[2], dw = window[3];
   const int c0 = blockIdx.x * STRIP;
   if (!meets(c0, STRIP, x0, dw)) return;  // the whole block leaves together
   extern __shared__ __align__(128) unsigned char smem[];
@@ -385,11 +387,12 @@ int hgl_pass1_stats_full_tc_takes(int n, int n2, int C) {
 }
 int hgl_pass1_stats_full_tc_smem(int n, int n2) { return n * STRIP * 2 + 4 * ROWS * (n > n2 ? n : n2) * 2; }
 
-// K5 in bf16: tmp [B, n, C] and wy [C, n] bf16; counts [B, 2] int32, row_any
+// K5 in bf16: tmp [B, n, C] and wy [C, n] bf16; window [4] f32 (y0, x0, dh,
+// dw) on the device; counts [B, 2] int32, row_any
 // and col_any [B, C] bytes, all zeroed by the caller. The caller has checked
 // hgl_pass1_stats_tc_takes. Returns a cudaError_t code (0 = launched).
-int hgl_pass1_stats_tc(const void* tmp, const void* wy, int B, int n, int C, float y0, float x0, float dh, float dw,
-                       float thresh, float offset, int* counts, void* row_any, void* col_any, void* stream) {
+int hgl_pass1_stats_tc(const void* tmp, const void* wy, int B, int n, int C, const void* window, float thresh,
+                       float offset, int* counts, void* row_any, void* col_any, void* stream) {
   if (B < 1) return 0;
   if (B > 65535 || !hgl_pass1_stats_tc_takes(n, C)) return (int)cudaErrorInvalidValue;
   const int bytes = hgl_pass1_stats_tc_smem(n);
@@ -398,15 +401,15 @@ int hgl_pass1_stats_tc(const void* tmp, const void* wy, int B, int n, int C, flo
   if (err != cudaSuccess) return (int)err;
   dim3 grid((C + STRIP - 1) / STRIP, B);
   pass1_stats_tc_kernel<false><<<grid, THREADS, bytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(tmp), nullptr, static_cast<const __nv_bfloat16*>(wy), n, 0, C, y0, x0, dh, dw,
-      thresh, offset, counts, static_cast<uint8_t*>(row_any), static_cast<uint8_t*>(col_any));
+      static_cast<const __nv_bfloat16*>(tmp), nullptr, static_cast<const __nv_bfloat16*>(wy), n, 0, C,
+      static_cast<const float*>(window), thresh, offset, counts, static_cast<uint8_t*>(row_any), static_cast<uint8_t*>(col_any));
   return (int)cudaGetLastError();
 }
 
 // K10 in bf16: low [B, n, n2], wxt [n2, C] and wy [C, n] bf16; outputs as
 // above, zeroed by the caller, who has checked hgl_pass1_stats_full_tc_takes.
-int hgl_pass1_stats_full_tc(const void* low, const void* wxt, const void* wy, int B, int n, int n2, int C, float y0,
-                            float x0, float dh, float dw, float thresh, float offset, int* counts, void* row_any,
+int hgl_pass1_stats_full_tc(const void* low, const void* wxt, const void* wy, int B, int n, int n2, int C,
+                            const void* window, float thresh, float offset, int* counts, void* row_any,
                             void* col_any, void* stream) {
   if (B < 1) return 0;
   if (B > 65535 || !hgl_pass1_stats_full_tc_takes(n, n2, C)) return (int)cudaErrorInvalidValue;
@@ -417,7 +420,7 @@ int hgl_pass1_stats_full_tc(const void* low, const void* wxt, const void* wy, in
   dim3 grid((C + STRIP - 1) / STRIP, B);
   pass1_stats_tc_kernel<true><<<grid, THREADS, bytes, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(low), static_cast<const __nv_bfloat16*>(wxt),
-      static_cast<const __nv_bfloat16*>(wy), n, n2, C, y0, x0, dh, dw, thresh, offset, counts,
+      static_cast<const __nv_bfloat16*>(wy), n, n2, C, static_cast<const float*>(window), thresh, offset, counts,
       static_cast<uint8_t*>(row_any), static_cast<uint8_t*>(col_any));
   return (int)cudaGetLastError();
 }

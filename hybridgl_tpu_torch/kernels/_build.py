@@ -39,12 +39,12 @@ _vp, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "hgl_rel_pos_attention": [_vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _f, _i, _vp],
     "hgl_cls_attention": [_vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _f, _i, _vp],
-    "hgl_pass1_stats": [_vp, _vp, _i, _i, _i, _f, _f, _f, _f, _f, _f, _vp, _vp, _vp, _i, _vp],
-    "hgl_pass1_stats_full": [_vp, _vp, _vp, _i, _i, _i, _i, _f, _f, _f, _f, _f, _f, _vp, _vp, _vp, _i, _vp],
-    "hgl_pass1_stats_tc": [_vp, _vp, _i, _i, _i, _f, _f, _f, _f, _f, _f, _vp, _vp, _vp, _vp],
+    "hgl_pass1_stats": [_vp, _vp, _i, _i, _i, _vp, _f, _f, _vp, _vp, _vp, _i, _vp],
+    "hgl_pass1_stats_full": [_vp, _vp, _vp, _i, _i, _i, _i, _vp, _f, _f, _vp, _vp, _vp, _i, _vp],
+    "hgl_pass1_stats_tc": [_vp, _vp, _i, _i, _i, _vp, _f, _f, _vp, _vp, _vp, _vp],
     "hgl_pass1_stats_tc_takes": [_i, _i],
     "hgl_pass1_stats_tc_smem": [_i],
-    "hgl_pass1_stats_full_tc": [_vp, _vp, _vp, _i, _i, _i, _i, _f, _f, _f, _f, _f, _f, _vp, _vp, _vp, _vp],
+    "hgl_pass1_stats_full_tc": [_vp, _vp, _vp, _i, _i, _i, _i, _vp, _f, _f, _vp, _vp, _vp, _vp],
     "hgl_pass1_stats_full_tc_takes": [_i, _i, _i],
     "hgl_pass1_stats_full_tc_smem": [_i, _i],
     "hgl_cls_tc_takes": [_i, _i],

@@ -28,6 +28,10 @@ Dtype policy (reference ``use_bf16_stats``, pass1_stats.py:39-55): the
 half-transform and the row matmul take bf16 operands with f32 sums by
 default, even with f32 params; ``$HYBRIDGL_STATS_BF16=0`` selects f32.
 
+The window (y0, x0, dh, dw) reaches the kernels as a [4] f32 tensor on the
+device (:func:`window_tensor`): a launch captured in the proposal stage's
+CUDA graph reads each image's window at replay.
+
 Each wrapper rounds its operands to the stats dtype and calls its operator,
 ``torch.ops.hybridgl.pass1_stats_half`` or ``.pass1_stats`` (``_ops.py``,
 which return the two flag rows as one [2, B, C] tensor): on a CPU tensor it
@@ -41,6 +45,7 @@ from __future__ import annotations
 import torch
 
 from ..utils.env import env_flag
+from ..utils.transfer import upload
 
 from . import _build, _ops
 
@@ -64,13 +69,20 @@ def half_transform(low: torch.Tensor, WxT: torch.Tensor) -> torch.Tensor:
     return torch.matmul(low.to(dt).float(), WxT.to(dt).float()).to(dt)
 
 
-def _window(window):
-    return tuple(float(w) for w in window)
+def window_tensor(window, device) -> torch.Tensor:
+    """The placement window (y0, x0, dh, dw) as the kernels read it: four f32
+    in device memory, so that a launch captured in a CUDA graph serves every
+    image's window. A tensor is used where it is (the proposal stage computes
+    its windows on the device); numbers are uploaded without a stream
+    synchronisation."""
+    if isinstance(window, torch.Tensor):
+        return window.to(device=device, dtype=torch.float32).reshape(4).contiguous()
+    return upload([float(w) for w in window], device, torch.float32)
 
 
 def reference_pass1_stats_half(tmp, Wy, window, thresh: float, offset: float):
     """Plain PyTorch version of K5: materialises the [B, C, C] logits."""
-    y0, x0, dh, dw = _window(window)
+    y0, x0, dh, dw = window_tensor(window, tmp.device).unbind()
     C = Wy.shape[0]
     lt = torch.matmul(Wy.float(), tmp.float())  # [B, C, C]
     idx = torch.arange(C, device=tmp.device, dtype=torch.float32)
@@ -143,18 +155,19 @@ def _launch_half(tmp, Wy, window, thresh: float, offset: float):
 
 
 _k5 = _ops.define(
-    "pass1_stats_half(Tensor tmp, Tensor Wy, float[] window, float thresh, float offset) -> (Tensor, Tensor)",
+    "pass1_stats_half(Tensor tmp, Tensor Wy, Tensor window, float thresh, float offset) -> (Tensor, Tensor)",
     lambda tmp, Wy, *a: _stacked(*reference_pass1_stats_half(tmp, Wy, *a)), _launch_half,
     lambda tmp, Wy, *_: _fake_stats(tmp.shape[0], tmp.shape[2], tmp))
 
 
 def pass1_stats_half(tmp, Wy, window, thresh: float, offset: float):
     """tmp [B, n, C] (pre-applied column half-transform), Wy [C, n] composed
-    row weights, window (y0, x0, dh, dw) -> (stab [B] f32, row_any [B, C]
-    bool, col_any [B, C] bool), stab = hi / max(lo, 1). Both operands are
-    rounded to the stats dtype first (``torch.ops.hybridgl.pass1_stats_half``)."""
+    row weights, window (y0, x0, dh, dw: four numbers or a [4] tensor,
+    :func:`window_tensor`) -> (stab [B] f32, row_any [B, C] bool, col_any
+    [B, C] bool), stab = hi / max(lo, 1). Both operands are rounded to the
+    stats dtype first (``torch.ops.hybridgl.pass1_stats_half``)."""
     dt = stats_dtype()
-    stab, flags = _k5(tmp.to(dt), Wy.to(dt), _window(window), float(thresh), float(offset))
+    stab, flags = _k5(tmp.to(dt), Wy.to(dt), window_tensor(window, tmp.device), float(thresh), float(offset))
     return stab, flags[0], flags[1]
 
 
@@ -163,12 +176,15 @@ def _launch_stats(wrapper, tc: bool, B: int, C: int, device, entry, operands, wi
     """Launch one pass-1 entry point of the library on zeroed outputs, count
     the launch on ``wrapper`` and turn the two counts into the stability
     score: (stab [B] f32, flags [2, B, C] bool: row_any, col_any). K5's
-    CUDA-core kernel stores its counts as f32, the others add integers."""
-    y0, x0, dh, dw = _window(window)
+    CUDA-core kernel stores its counts as f32, the others add integers.
+    ``window`` is the [4] f32 device tensor the kernel reads."""
+    if window.shape != (4,) or window.dtype != torch.float32 or window.device != device or not window.is_contiguous():
+        raise ValueError(f"{wrapper.__name__}: window must be a contiguous [4] f32 on {device}, got {window.dtype} "
+                         f"{tuple(window.shape)} on {window.device}")
     counts, flags = _zeroed_outputs(B, C, device)
     if f32_counts:
         counts = counts.view(torch.float32)
-    code = entry(*operands, y0, x0, dh, dw, float(thresh), float(offset), counts.data_ptr(), flags[0].data_ptr(),
+    code = entry(*operands, window.data_ptr(), float(thresh), float(offset), counts.data_ptr(), flags[0].data_ptr(),
                  flags[1].data_ptr(), *tail, _build.stream_handle(device))
     _build.check(code, wrapper.__name__)
     wrapper.launches += 1
@@ -207,7 +223,7 @@ def _launch_full(low, WxT, Wy, window, thresh: float, offset: float):
 
 
 _k10 = _ops.define(
-    "pass1_stats(Tensor low, Tensor WxT, Tensor Wy, float[] window, float thresh, float offset) -> (Tensor, Tensor)",
+    "pass1_stats(Tensor low, Tensor WxT, Tensor Wy, Tensor window, float thresh, float offset) -> (Tensor, Tensor)",
     lambda low, WxT, Wy, *a: _stacked(*reference_pass1_stats_half(half_transform(low, WxT), Wy, *a)), _launch_full,
     lambda low, WxT, *_: _fake_stats(low.shape[0], WxT.shape[-1], low))
 
@@ -231,7 +247,8 @@ def pass1_stats(low, WxT, Wy, window, thresh: float, offset: float, tile: int = 
         raise ValueError(f"pass1_stats: WxT must be [{n2}, C], got {tuple(WxT.shape)}")
     if Wy.shape != (C, n):
         raise ValueError(f"pass1_stats: Wy must be [{C}, {n}], got {tuple(Wy.shape)}")
-    stab, flags = _k10(low.to(dt), WxT.to(dt), Wy.to(dt), _window(window), float(thresh), float(offset))
+    stab, flags = _k10(low.to(dt), WxT.to(dt), Wy.to(dt), window_tensor(window, low.device), float(thresh),
+                       float(offset))
     return stab, flags[0], flags[1]
 
 

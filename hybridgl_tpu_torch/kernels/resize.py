@@ -5,7 +5,11 @@ antialiasing (torch ``F.interpolate(mode='bilinear', align_corners=False)``)
 for the gather forms, and dense weight matrices for the antialiased and the
 composed two-stage resizes. The source or destination extent of a padded
 frame may be a per-image number, so one code path serves every image size.
-The weight-matrix math is ported as written; ``F.interpolate`` is not used.
+Extents and origins are Python numbers or 0-d tensors on the device (the
+reference traces them): the proposal stage passes its geometry as tensors,
+so that one captured CUDA graph serves every image size, and nothing here
+reads them back. The weight-matrix math is ported as written;
+``F.interpolate`` is not used.
 """
 
 from __future__ import annotations
@@ -17,6 +21,14 @@ from ..utils.transfer import upload
 
 def _f32(x, device) -> torch.Tensor:
     return upload(x, device, torch.float32)
+
+
+def _last_index(size):
+    """``size - 1`` as an index bound: an int for a number, a 0-d long tensor
+    for a tensor (read by no one on the host)."""
+    if isinstance(size, torch.Tensor):
+        return (size - 1).long()
+    return int(size) - 1
 
 
 def _src_coords(out_size: int, src_size, device, dtype=torch.float32):
@@ -37,8 +49,8 @@ def resize_bilinear(img: torch.Tensor, out_hw, src_hw=None, axis: int = 0) -> to
     cx = _src_coords(ow, src_w, dev)
     y0 = torch.floor(cy).long()
     x0 = torch.floor(cx).long()
-    y1 = torch.clamp(y0 + 1, max=int(src_h) - 1)
-    x1 = torch.clamp(x0 + 1, max=int(src_w) - 1)
+    y1 = torch.clamp(y0 + 1, max=_last_index(src_h))
+    x1 = torch.clamp(x0 + 1, max=_last_index(src_w))
     floating = img.is_floating_point()
     wdt = img.dtype if floating else torch.float32
     wy = (cy - y0).to(wdt)
@@ -212,8 +224,10 @@ def place_two_stage(low, mid_frame: int, mid_hw, out_frame, dst_origin, dst_hw, 
 
 
 def valid_mask(frame, hw, device="cpu") -> torch.Tensor:
-    """Boolean [H, W] mask of the valid (h, w) corner of a padded frame."""
+    """Boolean [H, W] mask of the valid (h, w) corner of a padded frame;
+    ``hw`` numbers or 0-d tensors."""
     H, W = frame
     i = torch.arange(H, device=device)[:, None]
     j = torch.arange(W, device=device)[None, :]
-    return (i < int(hw[0])) & (j < int(hw[1]))
+    h, w = (v if isinstance(v, torch.Tensor) else int(v) for v in hw)
+    return (i < h) & (j < w)

@@ -26,9 +26,17 @@ top-left (h, w) corner is the image at original resolution.
 Once launched, the stage reads nothing back, as the reference's one
 dispatch: the NMS counts stay int32 scalars on the device (``Proposals.num``
 and ``.overflow``), the survivors are placed with their own crop's geometry
-gathered per row, and constants reach the device without a stream
-synchronisation (``utils/transfer.py``). The runner reads the counts in one
-meta buffer (``pipeline/handoff.py``).
+gathered per row, and the runner reads the counts in one meta buffer
+(``pipeline/handoff.py``). Its inputs are tensors, as the reference traces
+them: the image frames, one geometry table (:func:`geometry`: the extents,
+origins and windows of every crop, computed on the host and uploaded) and
+the configuration's constants (:func:`stage_constants`: the point grids,
+made once). Every extent, box, window and fill inside is computed from
+the geometry on the device, and every shape from the configuration, so
+:func:`proposal_stage` launches the same kernels with the same arguments
+for every image size: one CUDA graph captures it (``pipeline/stage_graph.py``).
+``generate_proposals`` and ``generate_proposals_multicrop`` keep the
+reference's signatures (the image geometry as numbers) and build the table.
 """
 
 from __future__ import annotations
@@ -87,30 +95,117 @@ def _chunk_points(grid01: np.ndarray, chunk: int) -> np.ndarray:
     return grid01.reshape(-1, chunk, 2)
 
 
+# ---------------------------------------------------------------------------
+# the stage's inputs: one geometry table an image, constants a configuration
+# ---------------------------------------------------------------------------
+
+def _crop_boxes_layer1(h, w, overlap_ratio: float):
+    """The four layer-1 crop boxes as (y0, x0, ch, cw) in f32 arithmetic
+    (reference amg.py:276, upstream utils/amg.py:200-234 with n_layers=1),
+    x-major as the reference iterates product(x0s, y0s)."""
+    f = np.float32
+    hf, wf = f(h), f(w)
+    overlap = np.floor(f(overlap_ratio) * min(hf, wf))
+    crop_w = np.ceil((overlap + wf) / f(2.0))
+    crop_h = np.ceil((overlap + hf) / f(2.0))
+    boxes = []
+    for x0 in (f(0.0), np.floor(crop_w - overlap)):
+        for y0 in (f(0.0), np.floor(crop_h - overlap)):
+            x1, y1 = min(x0 + crop_w, wf), min(y0 + crop_h, hf)
+            boxes.append((float(y0), float(x0), float(y1 - y0), float(x1 - x0)))
+    return boxes
+
+
+def geometry(rh, rw, h, w, sam_cfg: SamConfig, amg_cfg: AmgConfig) -> np.ndarray:
+    """One image's geometry, the stage's one per-image input beside its
+    pixels: [crops, 6] f32, a row a crop of (rh, rw, y0, x0, ch, cw): its
+    valid extent in SAM's S x S frame, then its window in the canonical frame.
+    Row 0 is the full image, (rh, rw, 0, 0, h, w); with a crop layer rows 1-4
+    are the layer-1 crops of :func:`_crop_boxes_layer1`, each long-side
+    resized into the frame (upstream transforms.py:26-31). Computed on the
+    host in f32 as the reference's traced arithmetic (amg.py:276-441); the
+    stage derives every extent, origin, box and window from it on the device."""
+    rows = [(rh, rw, 0.0, 0.0, h, w)]
+    if amg_cfg.crop_n_layers >= 1:
+        S = np.float32(sam_cfg.img_size)
+        for cy0, cx0, ch, cw in _crop_boxes_layer1(h, w, amg_cfg.crop_overlap_ratio):
+            scale = S / np.float32(max(ch, cw))
+            crh, crw = (np.floor(np.float32(v) * scale + np.float32(0.5)) for v in (ch, cw))
+            rows.append((crh, crw, cy0, cx0, ch, cw))
+    return np.asarray(rows, np.float32)
+
+
+class StageConstants(NamedTuple):
+    """What the stage needs that depends on the configuration alone, made
+    once for it (a captured graph keeps them alive): a row of the geometry
+    table each, the crop's point grid in whole ``points_per_batch`` chunks
+    ([n_chunks, B, 2] f32, zero-padded) and its number of real points."""
+
+    chunks: tuple
+    n_points: tuple
+
+
+def stage_constants(sam_cfg: SamConfig, amg_cfg: AmgConfig, device) -> StageConstants:
+    """The point grids of the full image and, with a crop layer, of the four
+    layer-1 crops (one tensor for the four), uploaded once."""
+    sides = [amg_cfg.points_per_side]
+    if amg_cfg.crop_n_layers >= 1:
+        sides += [max(int(amg_cfg.points_per_side / amg_cfg.crop_n_points_downscale_factor), 1)] * 4
+    made = {}
+    for n in sides:
+        if n not in made:
+            made[n] = upload(_chunk_points(build_point_grid(n), amg_cfg.points_per_batch), device)
+    return StageConstants(tuple(made[n] for n in sides), tuple(n * n for n in sides))
+
+
+def proposal_stage(p_sam, image_1024, image_canonical, geo, consts: StageConstants, sam_cfg: SamConfig,
+                   amg_cfg: AmgConfig, canonical: int) -> Proposals:
+    """The proposal stage of one image (the reference's ``proposal_stage``
+    without its hand-off, runner.py:170-226): single crop or one crop layer
+    by ``crop_n_layers``. Its inputs are the padded S x S frame, the
+    canonical frame (multicrop only), the :func:`geometry` table on the
+    device and the configuration's constants: nothing in it depends on a
+    Python number that varies by image and nothing reads the device, so its
+    launches are the same for every image size and one CUDA graph captures
+    it (``pipeline/stage_graph.py``)."""
+    if amg_cfg.crop_n_layers >= 1:
+        return multicrop_proposals(p_sam, image_1024, image_canonical, geo, consts, sam_cfg, amg_cfg, canonical)
+    return single_crop_proposals(p_sam, image_1024, geo, consts, sam_cfg, amg_cfg, canonical)
+
+
+# ---------------------------------------------------------------------------
+# pass 1
+# ---------------------------------------------------------------------------
+
+
 def _canonical_logits(low_res, rh, rw, h, w, sam_cfg: SamConfig, canonical: int):
     """[B, 256, 256] low-res logits -> [B, C, C] canonical-frame logits (two-
     stage bilinear of the reference postprocess, sam.py:154-161; PAD_NEG fill)."""
     return place_two_stage(low_res, sam_cfg.img_size, (rh, rw), (canonical, canonical), (0, 0), (h, w), fill=PAD_NEG)
 
 
-def _score_candidates(p_sam, embedding, grid01, origin, extent, rhw, img_hw, sam_cfg: SamConfig,
+def _score_candidates(p_sam, embedding, chunks, n_points: int, crop, image, sam_cfg: SamConfig,
                       amg_cfg: AmgConfig, canonical: int, keep_low: bool = False):
-    """Pass 1 over every (point, mask) candidate of one crop whose window in
-    the canonical frame is ``origin`` (y0, x0) + ``extent`` (ch, cw) and whose
-    valid extent in SAM's frame is ``rhw``. Returns (iou, stab, boxes, valid,
+    """Pass 1 over every (point, mask) candidate of one crop: ``chunks`` its
+    point grid in chunks ([n_chunks, B, 2], ``n_points`` real points), ``crop``
+    its geometry row ([6]: rh, rw, y0, x0, ch, cw, as :func:`geometry`) and
+    ``image`` the full image's row (its extent bounds the image box). Returns
+    (iou, stab, boxes, valid,
     pts01 [n_points_padded, 2], the 256^2 logits or None)."""
     dev = embedding.device
-    chunks = upload(_chunk_points(grid01, amg_cfg.points_per_batch), dev)
     B = amg_cfg.points_per_batch
-    (y0, x0), (ch, cw), (rh, rw), (h, w) = origin, extent, rhw, img_hw
-    scale_1024 = upload([float(rw), float(rh)], dev)
+    rh, rw, y0, x0, ch, cw = crop.unbind()
+    h, w = image[4], image[5]
+    scale_1024 = torch.stack([rw, rh])
     n_low = sam_cfg.embed_grid * 4
     Wy = _composed_axis_weights(canonical, n_low, sam_cfg.img_size, rh, y0, ch, dev)
     Wx = _composed_axis_weights(canonical, n_low, sam_cfg.img_size, rw, x0, cw, dev)
     pe = dense_pe(p_sam["prompt"], sam_cfg)
     dense = no_mask_dense(p_sam["prompt"], sam_cfg, 1)[0]
-    img_box = upload([0.0, 0.0, float(w), float(h)], dev)
-    crop_box = upload([float(x0), float(y0), float(x0) + float(cw), float(y0) + float(ch)], dev)
+    zero = torch.zeros_like(h)
+    img_box = torch.stack([zero, zero, w, h])
+    crop_box = torch.stack([x0, y0, x0 + cw, y0 + ch])
+    window = torch.stack([y0, x0, ch, cw])  # K5 reads it on the device
 
     ious, stabs, boxes, valids, lows = [], [], [], [], []
     for pts01 in chunks:
@@ -120,7 +215,7 @@ def _score_candidates(p_sam, embedding, grid01, origin, extent, rhw, img_hw, sam
         flat = low.reshape(B * M, n_low, n_low)
         half = half_transform(flat, Wx.T)
         stab, row_any, col_any = pass1_stats_half(
-            half, Wy, (y0, x0, ch, cw), sam_cfg.mask_threshold, amg_cfg.stability_score_offset
+            half, Wy, window, sam_cfg.mask_threshold, amg_cfg.stability_score_offset
         )
         bx = box_from_profiles(row_any, col_any)
         valid = torch.ones((B * M,), dtype=torch.bool, device=dev)
@@ -139,29 +234,47 @@ def _score_candidates(p_sam, embedding, grid01, origin, extent, rhw, img_hw, sam
             lows.append(flat)
     n_cand = chunks.shape[0] * B * M
     point_idx = torch.arange(n_cand, device=dev) // M
-    valid_all = torch.cat(valids) & (point_idx < grid01.shape[0])  # padded grid points
+    valid_all = torch.cat(valids) & (point_idx < n_points)  # padded grid points
     low_all = torch.cat(lows) if keep_low else None
     return torch.cat(ious), torch.cat(stabs), torch.cat(boxes), valid_all, chunks.reshape(-1, 2), low_all
 
 
-def generate_proposals(p_sam, image_1024, rh, rw, h, w, sam_cfg: SamConfig, amg_cfg: AmgConfig, canonical: int = 640, embedding=None) -> Proposals:
-    """Single-crop AMG (crop_n_layers = 0, the RefCOCO configuration).
+# ---------------------------------------------------------------------------
+# single crop (RefCOCO)
+# ---------------------------------------------------------------------------
 
-    image_1024: [S, S, 3] padded frame on the target device; (rh, rw) its
-    valid extent, (h, w) the original image size (<= canonical)."""
+
+def generate_proposals(p_sam, image_1024, rh, rw, h, w, sam_cfg: SamConfig, amg_cfg: AmgConfig, canonical: int = 640, embedding=None) -> Proposals:
+    """Single-crop AMG (crop_n_layers = 0, the RefCOCO configuration), with
+    the reference's signature: image_1024 [S, S, 3] padded frame on the
+    target device, (rh, rw) its valid extent, (h, w) the original image size
+    (<= canonical), as numbers. Builds the :func:`geometry` table and the
+    constants and runs :func:`single_crop_proposals`."""
     dev = image_1024.device
+    geo = upload(geometry(rh, rw, h, w, sam_cfg, amg_cfg), dev)
+    return single_crop_proposals(p_sam, image_1024, geo, stage_constants(sam_cfg, amg_cfg, dev), sam_cfg, amg_cfg,
+                                 canonical, embedding)
+
+
+def single_crop_proposals(p_sam, image_1024, geo, consts: StageConstants, sam_cfg: SamConfig, amg_cfg: AmgConfig,
+                          canonical: int, embedding=None) -> Proposals:
+    """Single-crop AMG on the device geometry ``geo`` (row 0: rh, rw, 0, 0,
+    h, w) and the configuration's ``consts``."""
+    dev = image_1024.device
+    image = geo[0]
+    rh, rw, _, _, h, w = image.unbind()
     x = preprocess_padded(image_1024, (rh, rw), sam_cfg)
     if embedding is None:
         embedding = encode(p_sam, x, sam_cfg)
 
-    grid01 = build_point_grid(amg_cfg.points_per_side)
+    chunks, n_points = consts.chunks[0], consts.n_points[0]
     B = amg_cfg.points_per_batch
-    n_cand = -(-grid01.shape[0] // B) * B * M
+    n_cand = chunks.shape[0] * B * M
     # keep pass 1's 256^2 logits for pass 2 when they fit (single crop at
     # RefCOCO: 192 x 256^2 f32 = 50 MB) instead of re-decoding the survivors
     cache_low_res = n_cand * 256 * 256 * 4 <= 256 * 1024 * 1024
     iou_all, stab_all, boxes_all, valid_all, grid_pts, lows = _score_candidates(
-        p_sam, embedding, grid01, (0, 0), (h, w), (rh, rw), (h, w), sam_cfg, amg_cfg, canonical, cache_low_res
+        p_sam, embedding, chunks, n_points, image, image, sam_cfg, amg_cfg, canonical, cache_low_res
     )
 
     # NMS over all candidates, scored by predicted IoU as the reference does
@@ -172,8 +285,8 @@ def generate_proposals(p_sam, image_1024, rh, rw, h, w, sam_cfg: SamConfig, amg_
     kept_point = kept_idx // M
     kept_channel = kept_idx % M
     pts01 = grid_pts[kept_point]
-    scale_1024 = upload([float(rw), float(rh)], dev)
-    orig_scale = upload([float(w), float(h)], dev)
+    scale_1024 = torch.stack([rw, rh])
+    orig_scale = torch.stack([w, h])
     if cache_low_res:
         sel = lows[kept_idx]
     else:
@@ -197,66 +310,58 @@ def generate_proposals(p_sam, image_1024, rh, rw, h, w, sam_cfg: SamConfig, amg_
     )
 
 
-def _crop_boxes_layer1(h, w, overlap_ratio: float):
-    """The four layer-1 crop boxes as (y0, x0, ch, cw) in f32 arithmetic
-    (reference amg.py:276, upstream utils/amg.py:200-234 with n_layers=1),
-    x-major as the reference iterates product(x0s, y0s)."""
-    f = np.float32
-    hf, wf = f(h), f(w)
-    overlap = np.floor(f(overlap_ratio) * min(hf, wf))
-    crop_w = np.ceil((overlap + wf) / f(2.0))
-    crop_h = np.ceil((overlap + hf) / f(2.0))
-    boxes = []
-    for x0 in (f(0.0), np.floor(crop_w - overlap)):
-        for y0 in (f(0.0), np.floor(crop_h - overlap)):
-            x1, y1 = min(x0 + crop_w, wf), min(y0 + crop_h, hf)
-            boxes.append((float(y0), float(x0), float(y1 - y0), float(x1 - x0)))
-    return boxes
+# ---------------------------------------------------------------------------
+# one crop layer (PhraseCut)
+# ---------------------------------------------------------------------------
 
 
-def multicrop_frames(image_1024, rh, rw, image_canonical, h, w, sam_cfg: SamConfig, amg_cfg: AmgConfig):
-    """The five crops of one image (the full image, then the four layer-1
-    crops): each a dict with its point ``grid``, its window in the canonical
-    frame (``origin``, ``extent``), its valid extent in SAM's frame (``rhw``)
-    and its preprocessed S x S ``frame``."""
+def multicrop_frames(image_1024, image_canonical, geo, sam_cfg: SamConfig):
+    """The preprocessed S x S frames of the five crops of one image: the
+    full image's padded frame, then each layer-1 crop cut from the canonical
+    frame and long-side-resized into the (crh, crw) corner of a zero-padded
+    frame (upstream transforms.py:26-31, sam.py:164-174), all from the device
+    geometry ``geo`` [5, 6]."""
     S = sam_cfg.img_size
-    grid_crop = build_point_grid(max(int(amg_cfg.points_per_side / amg_cfg.crop_n_points_downscale_factor), 1))
-    crops = [dict(grid=build_point_grid(amg_cfg.points_per_side), origin=(0.0, 0.0), extent=(float(h), float(w)),
-                  rhw=(rh, rw), frame=preprocess_padded(image_1024, (rh, rw), sam_cfg))]
+    frames = [preprocess_padded(image_1024, (geo[0, 0], geo[0, 1]), sam_cfg)]
     image_c = image_canonical.float()
-    for cy0, cx0, ch, cw in _crop_boxes_layer1(h, w, amg_cfg.crop_overlap_ratio):
-        # cut the crop and long-side-resize it into the (crh, crw) corner of a
-        # zero-padded S x S frame (upstream transforms.py:26-31, sam.py:164-174)
-        scale = np.float32(S) / np.float32(max(ch, cw))
-        crh, crw = (int(np.floor(np.float32(v) * scale + np.float32(0.5))) for v in (ch, cw))
+    for crh, crw, cy0, cx0, ch, cw in (row.unbind() for row in geo[1:]):
         frame = place_region(image_c, (ch, cw), (S, S), (0, 0), (crh, crw), src_origin=(cy0, cx0))
-        crops.append(dict(grid=grid_crop, origin=(cy0, cx0), extent=(ch, cw), rhw=(crh, crw),
-                          frame=preprocess_padded(frame, (crh, crw), sam_cfg)))
-    return crops
+        frames.append(preprocess_padded(frame, (crh, crw), sam_cfg))
+    return frames
 
 
 def generate_proposals_multicrop(p_sam, image_1024, rh, rw, image_canonical, h, w, sam_cfg: SamConfig,
                                  amg_cfg: AmgConfig, canonical: int = 1024) -> Proposals:
-    """AMG with one crop layer: the full image and 4 overlapping crops
-    (reference amg.py:383; upstream automatic_mask_generator.py:197-264).
+    """AMG with one crop layer, with the reference's signature (amg.py:383):
+    image_1024 the full image's padded SAM frame, image_canonical [C, C, 3]
+    the canonical frame the crops are cut from, both on the target device,
+    (rh, rw) and (h, w) numbers. Builds the :func:`geometry` table and the
+    constants and runs :func:`multicrop_proposals`."""
+    assert amg_cfg.crop_n_layers == 1, "only crop_n_layers in (0, 1) supported"
+    dev = image_1024.device
+    geo = upload(geometry(rh, rw, h, w, sam_cfg, amg_cfg), dev)
+    return multicrop_proposals(p_sam, image_1024, image_canonical, geo, stage_constants(sam_cfg, amg_cfg, dev),
+                               sam_cfg, amg_cfg, canonical)
 
-    image_1024: the full image's padded SAM frame, image_canonical [C, C, 3]
-    the canonical frame the crops are cut from, both on the target device.
+
+def multicrop_proposals(p_sam, image_1024, image_canonical, geo, consts: StageConstants, sam_cfg: SamConfig,
+                        amg_cfg: AmgConfig, canonical: int) -> Proposals:
+    """AMG with one crop layer: the full image and 4 overlapping crops
+    (reference amg.py:383; upstream automatic_mask_generator.py:197-264), on
+    the device geometry ``geo`` [5, 6] and the configuration's ``consts``.
     Per-crop survivors are capped at ``max_candidates_per_crop``."""
     assert amg_cfg.crop_n_layers == 1, "only crop_n_layers in (0, 1) supported"
     dev = image_1024.device
     K, P, S = amg_cfg.max_candidates_per_crop, amg_cfg.max_proposals, sam_cfg.img_size
-    crops = multicrop_frames(image_1024, rh, rw, image_canonical, h, w, sam_cfg, amg_cfg)
-    for crop in crops:  # five batch-1 encoder passes, as the reference
-        crop["embedding"] = encode(p_sam, crop.pop("frame"), sam_cfg)
+    # five batch-1 encoder passes, as the reference
+    embeddings = [encode(p_sam, frame, sam_cfg) for frame in multicrop_frames(image_1024, image_canonical, geo, sam_cfg)]
 
     # ---- pass 1 + per-crop NMS into buckets of K
     sel = {k: [] for k in ("boxes", "iou", "stab", "valid", "cand", "crop", "inv_area", "grid")}
     overflow = torch.zeros((), dtype=torch.int32, device=dev)
-    for crop_id, crop in enumerate(crops):
+    for crop_id, (embedding, chunks, n_points) in enumerate(zip(embeddings, consts.chunks, consts.n_points)):
         iou, stab, boxes, valid, grid_pts, _ = _score_candidates(
-            p_sam, crop["embedding"], crop["grid"], crop["origin"], crop["extent"], crop["rhw"], (h, w),
-            sam_cfg, amg_cfg, canonical,
+            p_sam, embedding, chunks, n_points, geo[crop_id], geo[0], sam_cfg, amg_cfg, canonical,
         )
         res = nms(boxes, iou, amg_cfg.box_nms_thresh, valid)
         kept, kv = kept_in_score_order(res, K)
@@ -267,8 +372,8 @@ def generate_proposals_multicrop(p_sam, image_1024, rh, rw, image_canonical, h, 
         sel["valid"].append(kv)
         sel["cand"].append(kept)
         sel["crop"].append(torch.full((K,), crop_id, dtype=torch.long, device=dev))
-        area = np.float32(crop["extent"][0]) * np.float32(crop["extent"][1])
-        sel["inv_area"].append(torch.full((K,), float(np.float32(1.0) / area), device=dev))
+        # 1 / crop area in f32, as the reference (ch * cw, then the quotient)
+        sel["inv_area"].append(torch.ones((K,), device=dev) / (geo[crop_id, 4] * geo[crop_id, 5]))
         sel["grid"].append(grid_pts)
     boxes_all, iou_all, stab_all, valid_all, cand_all, crop_all, inv_area = (
         torch.cat(sel[k]) for k in ("boxes", "iou", "stab", "valid", "cand", "crop", "inv_area")
@@ -285,19 +390,17 @@ def generate_proposals_multicrop(p_sam, image_1024, rh, rw, image_canonical, h, 
     # the dense-prompt slot (exact: predict_masks adds it to a zero image)
     maxg = max(g.shape[0] for g in sel["grid"])
     grids = torch.stack([torch.nn.functional.pad(g, (0, 0, 0, maxg - g.shape[0])) for g in sel["grid"]])
-    geo = upload([[float(c["rhw"][0]), float(c["rhw"][1]), *c["origin"], *c["extent"]] for c in crops],
-                 dev)  # rh, rw, y0, x0, ch, cw per crop
-    g = geo[kept_crop]
+    g = geo[kept_crop]  # rh, rw, y0, x0, ch, cw of each survivor's crop
     pts01 = grids[kept_crop, kept_point]
     coords = pts01 * torch.stack([g[:, 1], g[:, 0]], dim=-1)
     sparse = embed_points(p_sam["prompt"], coords[:, None, :], torch.ones((P, 1), device=dev), sam_cfg)
-    emb_stack = torch.stack([c["embedding"] for c in crops])
+    emb_stack = torch.stack(embeddings)
     dense = emb_stack[kept_crop] + no_mask_dense(p_sam["prompt"], sam_cfg, P)
     low_res, _ = predict_masks(p_sam["decoder"], torch.zeros_like(emb_stack[0]), dense_pe(p_sam["prompt"], sam_cfg),
                                sparse, sam_cfg, dense_prompts=dense, multimask_output=True)
     low = low_res[torch.arange(P, device=dev), kept_channel]
 
-    logits = _place_per_crop(low, kept_crop, crops, geo, S, canonical)
+    logits = _place_per_crop(low, kept_crop, geo, S, canonical)
     masks = (logits > sam_cfg.mask_threshold) & kept_valid[:, None, None]
     # points in original-image coordinates (the reference uncrops them)
     points = pts01 * torch.stack([g[:, 5], g[:, 4]], dim=-1) + torch.stack([g[:, 3], g[:, 2]], dim=-1)
@@ -315,18 +418,18 @@ def generate_proposals_multicrop(p_sam, image_1024, rh, rw, image_canonical, h, 
     )
 
 
-def _place_per_crop(low, kept_crop, crops, geo, mid_frame: int, canonical: int):
+def _place_per_crop(low, kept_crop, geo, mid_frame: int, canonical: int):
     """[P, n, n] low-res logits -> [P, C, C] canonical-frame logits, each row
     placed with the geometry of its crop ``kept_crop`` (the reference's
     ``jax.vmap(place_one)``, amg.py:556-568): ``place_two_stage``'s two
-    products, with every crop's composed axis weights built once and gathered
-    per row, so that no count is read back. ``geo`` [crops, 6] holds rh, rw,
-    y0, x0, ch, cw. PAD_NEG outside the crop window."""
+    products, with every crop's composed axis weights built once from its
+    row of ``geo`` [crops, 6] (rh, rw, y0, x0, ch, cw) and gathered per row,
+    so that no count is read back. PAD_NEG outside the crop window."""
     dev, n = low.device, low.shape[-1]
 
     def per_crop(axis):  # [crops, C, n] weights and [crops, C] window of one axis
-        weights = torch.stack([_composed_axis_weights(canonical, n, mid_frame, c["rhw"][axis], c["origin"][axis],
-                                                      c["extent"][axis], dev) for c in crops])
+        weights = torch.stack([_composed_axis_weights(canonical, n, mid_frame, row[axis], row[2 + axis],
+                                                      row[4 + axis], dev) for row in geo])
         i = torch.arange(canonical, dtype=torch.float32, device=dev)
         o, e = geo[:, 2 + axis, None], geo[:, 4 + axis, None]
         return weights, (i >= o) & (i < o + e)

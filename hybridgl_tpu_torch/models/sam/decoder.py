@@ -210,7 +210,7 @@ def _i2t_prep_shared_q(p, k_tok, v_tok, num_heads: int, tp: int):
     eye = torch.eye(num_heads, dtype=torch.float32, device=kh.device)
     w = F.pad(torch.einsum("btnd,nm->bndmt", kh, eye), (0, tp - T)).reshape(B, D, num_heads * tp)
     off = torch.zeros((B, num_heads, tp), dtype=torch.float32, device=kh.device)
-    off[:, :, T:] = -1e30
+    off[:, :, T:].fill_(-1e30)  # a fill of the padding lanes (no host scalar tensor)
     wo = p["out"]["w"].reshape(num_heads, hd, -1).float()
     vo = torch.einsum("btnd,nde->bnte", vh.reshape(B, T, num_heads, hd).float(), wo)
     vo = F.pad(vo, (0, 0, 0, tp - T)).reshape(B, num_heads * tp, -1)
@@ -294,7 +294,7 @@ def _i2t_shared_q_from_prepared(prep, k_tok, v_tok, num_heads: int, tp: int):
     eye = torch.eye(num_heads, dtype=torch.float32, device=kh.device)
     w = F.pad(torch.einsum("btnd,nm->bndmt", kh, eye), (0, tp - T)).reshape(B, D, num_heads * tp)
     off = torch.zeros((B, num_heads, tp), dtype=torch.float32, device=kh.device)
-    off[:, :, T:] = -1e30
+    off[:, :, T:].fill_(-1e30)  # a fill of the padding lanes (no host scalar tensor)
     return w, off.reshape(B, num_heads * tp), _vo_from_prepared(prep, v_tok, num_heads, tp), prep["const"]
 
 

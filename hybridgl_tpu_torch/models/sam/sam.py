@@ -5,8 +5,7 @@ from __future__ import annotations
 import torch
 
 from ...core.config import SamConfig
-from ...kernels.resize import resize_bilinear
-from ...utils.transfer import upload
+from ...kernels.resize import resize_bilinear, valid_mask
 
 from .decoder import predict_masks
 from .image_encoder import encode_image
@@ -19,26 +18,29 @@ def get_preprocess_shape(h: int, w: int, long_side: int) -> tuple[int, int]:
     return int(h * scale + 0.5), int(w * scale + 0.5)
 
 
+def _pixel_stats(cfg: SamConfig, device):
+    """The normalisation's mean and std, [3] f32 each, made on the device
+    from fills (no host buffer, so a captured stage keeps nothing of the host)."""
+    return tuple(torch.stack([torch.full((), v, dtype=torch.float32, device=device) for v in vals])
+                 for vals in (cfg.pixel_mean, cfg.pixel_std))
+
+
 def preprocess(image: torch.Tensor, cfg: SamConfig) -> torch.Tensor:
     """[H <= S, W <= S, 3] uint8 or float, already longest-side resized ->
     normalized, then zero-padded to [S, S, 3] (reference sam.py:164-174: the
     pad is 0 in normalized space)."""
-    dev = image.device
-    mean = upload(cfg.pixel_mean, dev, torch.float32)
-    std = upload(cfg.pixel_std, dev, torch.float32)
+    mean, std = _pixel_stats(cfg, image.device)
     x = (image.float() - mean) / std
     return torch.nn.functional.pad(x, (0, 0, 0, cfg.img_size - x.shape[1], 0, cfg.img_size - x.shape[0]))
 
 
 def preprocess_padded(image_1024: torch.Tensor, valid_hw, cfg: SamConfig) -> torch.Tensor:
     """Normalize an already padded [S, S, 3] frame and zero the pad
-    (reference sam.py:164-174: the pad is 0 in normalized space)."""
-    dev = image_1024.device
-    mean = upload(cfg.pixel_mean, dev, torch.float32)
-    std = upload(cfg.pixel_std, dev, torch.float32)
+    (reference sam.py:164-174: the pad is 0 in normalized space). The valid
+    extent ``valid_hw`` is numbers or 0-d tensors (the proposal stage's)."""
+    mean, std = _pixel_stats(cfg, image_1024.device)
     x = (image_1024.float() - mean) / std
-    i = torch.arange(cfg.img_size, device=dev)
-    valid = (i[:, None] < int(valid_hw[0])) & (i[None, :] < int(valid_hw[1]))
+    valid = valid_mask((cfg.img_size, cfg.img_size), valid_hw, image_1024.device)
     return torch.where(valid[..., None], x, 0.0)
 
 

@@ -7,10 +7,10 @@ optionally, the fusion stage's proposal axis over ``mp``.
 
 Parity with the sequential runner (``pipeline/runner.py``) is exact:
 
-  * a rank runs the runner's own stage functions (``launch_proposals``,
-    ``cleanup_host`` or ``cleanup_device``, ``feature_stage``,
-    ``sentence_ingredients``): one body, so what holds the runner holds this
-    step;
+  * a rank runs the runner's own stages (the proposal stage's
+    ``StageGraph``, ``cleanup_host`` or ``cleanup_device``,
+    ``feature_stage``, ``sentence_ingredients``): one body, so what holds the
+    runner holds this step;
   * the small-region cleanup inside the step is the runner's: by default its
     native host pass on the proposal stage's hand-off (``pipeline/handoff.py``:
     bit-packed masks, only the live rows to the host, the count from one meta
@@ -57,11 +57,11 @@ from ..pipeline.runner import (
     cleanup_host,
     cleanup_on_device,
     feature_stage,
-    launch_proposals,
     select_sentences,
     sentence_ingredients,
 )
 from ..pipeline.handoff import hand_off, receive
+from ..pipeline.stage_graph import StageGraph
 from ..utils.transfer import upload
 from ..utils.buckets import next_pow2
 from .mesh import ProcessMesh, params_device, shard_batch
@@ -165,19 +165,19 @@ def _rows(rec: FullEvalBatch):
     return rows, at
 
 
-def _image_ingredients(sam_params, clip_params, rec: FullEvalBatch, cfg: PipelineConfig, mesh: ProcessMesh, mp_axis,
-                       survival_hook=None):
+def _image_ingredients(stage: StageGraph, clip_params, rec: FullEvalBatch, cfg: PipelineConfig, mesh: ProcessMesh,
+                       mp_axis, survival_hook=None):
     """Proposals -> cleanup -> crops -> fusion -> per-sentence score tables
     and the per-proposal IoU table for one image, through the sequential
-    runner's stage functions. Returns one flat f32 row (:func:`_pack`)."""
-    dev = params_device(sam_params)
+    runner's stage functions; ``stage`` is the rank's :class:`StageGraph`.
+    Returns one flat f32 row (:func:`_pack`)."""
+    dev = stage.device
     h, w = int(rec.h), int(rec.w)
     S, P = rec.sentence_valid.shape[0], cfg.amg.max_proposals
-    # the canonical image once, for both stages; multicrop dispatch on
-    # crop_n_layers as the sequential runner's (launch_proposals)
+    # the canonical image once, for both stages
     image_c = upload(rec.image_canonical, dev)
     on_device, min_area = cleanup_on_device(), cfg.amg.min_mask_region_area
-    handoff = hand_off(launch_proposals(cfg, sam_params, rec._replace(image_canonical=image_c), dev),
+    handoff = hand_off(stage.launch(rec._replace(image_canonical=image_c)),
                        pack=min_area > 0 and not on_device)
     props, _ = receive(handoff)  # the count from the meta buffer
     if min_area > 0 and props.num > 0:
@@ -275,14 +275,22 @@ def build_full_eval_step(cfg: PipelineConfig, mesh: ProcessMesh, axis: str = "dp
     that keeps the run's state passes them to :func:`finalize_sticky`).
 
     ``survival_hook`` is ``HybridGLPipeline.survival_hook``: where set, it
-    replaces each image's proposal bundle after the cleanup."""
+    replaces each image's proposal bundle after the cleanup.
+
+    The step keeps one :class:`StageGraph` for the parameters it is given (a
+    new one if they change): on a CUDA device each rank captures its
+    proposal stage once and replays it for every image, as the sequential
+    runner does."""
     g = cfg.guidance
+    stages = []  # this rank's StageGraph
 
     @torch.no_grad()
     def step(sam_params, clip_params, batch: FullEvalBatch):
         S, P = batch.sentence_valid.shape[1], cfg.amg.max_proposals
+        if not stages or stages[0].sam_params is not sam_params:
+            stages[:] = [StageGraph(cfg, sam_params, params_device(sam_params))]
         recs = [FullEvalBatch(*(x[b] for x in batch)) for b in range(len(batch.rh))]
-        flat = torch.stack([_image_ingredients(sam_params, clip_params, rec, cfg, mesh, mp_axis, survival_hook)
+        flat = torch.stack([_image_ingredients(stages[0], clip_params, rec, cfg, mesh, mp_axis, survival_hook)
                             for rec in recs])
         if sticky:
             return _unpack(mesh.all_gather(flat, axis), S, P)

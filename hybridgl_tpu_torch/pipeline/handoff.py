@@ -31,7 +31,11 @@ from ..utils.buckets import next_pow2
 from ..utils.transfer import to_host_async, upload
 
 PACKED_HEAD = 8  # packed rows copied at dispatch: random weights leave one NMS survivor
-_BITS = (128, 64, 32, 16, 8, 4, 2, 1)
+
+
+def _bits(device) -> torch.Tensor:
+    """A byte's bit weights, first pixel in the high bit: [8] uint8, made on the device."""
+    return (2 ** torch.arange(7, -1, -1, device=device)).to(torch.uint8)
 
 
 class Handoff(NamedTuple):
@@ -49,14 +53,12 @@ def pack_masks(masks: torch.Tensor) -> torch.Tensor:
     m = masks.to(torch.uint8)
     if C % 8:
         m = torch.nn.functional.pad(m, (0, 8 - C % 8))
-    bits = upload(_BITS, masks.device, torch.uint8)
-    return (m.reshape(*m.shape[:-1], -1, 8) * bits).sum(-1, dtype=torch.uint8)
+    return (m.reshape(*m.shape[:-1], -1, 8) * _bits(masks.device)).sum(-1, dtype=torch.uint8)
 
 
 def unpack_masks(packed: torch.Tensor, C: int) -> torch.Tensor:
     """Inverse of :func:`pack_masks`: [..., ceil(C/8)] uint8 -> [..., C] bool."""
-    bits = upload(_BITS, packed.device, torch.uint8)
-    return (packed[..., None] & bits).ne(0).reshape(*packed.shape[:-1], -1)[..., :C]
+    return (packed[..., None] & _bits(packed.device)).ne(0).reshape(*packed.shape[:-1], -1)[..., :C]
 
 
 def hand_off(props: Proposals, pack: bool) -> Handoff:

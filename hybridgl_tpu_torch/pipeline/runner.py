@@ -21,7 +21,12 @@ every live proposal before the feature stage, as the reference does.
 the next image's proposal stage launched before the current one's host
 cleanup.
 
-The proposal stage reads nothing back (the reference's one dispatch): its
+The proposal stage is one dispatch, as the reference's one jitted program
+(runner.py:361): on a CUDA device the pipeline's ``StageGraph``
+(``pipeline/stage_graph.py``) captures the SAM encoder + AMG once for its
+configuration and replays the graph for every image, whatever its size, after
+copying the image's frames and geometry into the graph's inputs; off the card
+the same stage function runs eagerly. The stage reads nothing back: its
 counts stay on the device, and its hand-off (``pipeline/handoff.py``) packs
 the masks and starts copying the first packed rows, the per-proposal fields
 and a meta buffer (num, overflow, valid) to pinned host memory as soon as
@@ -63,7 +68,7 @@ from ..kernels.resize import place_valid_region_antialias, resize_bilinear, vali
 from ..models.clip.fusion import calculate_score, hybrid_forward
 from ..models.clip.text import encode_text
 from ..models.gem.gem import gem_image_features, gem_preprocess
-from ..models.sam.amg import Proposals, generate_proposals, generate_proposals_multicrop
+from ..models.sam.amg import Proposals
 from ..models.sam.image_encoder import prepare_sam_params
 from ..utils.buckets import next_pow2
 from ..utils.transfer import upload
@@ -71,6 +76,7 @@ from .guidance import dir_flag_id, gem_mask_scores, normalize_heatmap, rela_flag
 from .handoff import Handoff, fetch_rows, hand_off, receive, unpack_masks
 from .postprocess import postprocess_small_regions
 from .preprocess import build_crops
+from .stage_graph import StageGraph
 
 
 class ImageSample(NamedTuple):
@@ -119,21 +125,6 @@ class Ingredients(NamedTuple):
     boxes_xywh: torch.Tensor  # [P, 4]
     prop_valid: torch.Tensor  # [P] bool
     iu: torch.Tensor  # [P, 3] f32: (I, U, IoU) of each proposal against the ground truth
-
-
-def launch_proposals(cfg: PipelineConfig, sam_params, sample, device) -> Proposals:
-    """The proposal stage on the device (SAM encoder + AMG), launched and not
-    waited for: ``num`` and ``overflow`` are device scalars. ``sample`` has
-    ImageSample's image fields; ``image_canonical`` may already be the
-    device tensor that the feature stage takes too."""
-    image_1024 = upload(sample.image_1024, device)
-    rh, rw, h, w = int(sample.rh), int(sample.rw), int(sample.h), int(sample.w)
-    if cfg.amg.crop_n_layers >= 1:
-        image_c = upload(sample.image_canonical, device)
-        return generate_proposals_multicrop(
-            sam_params, image_1024, rh, rw, image_c, h, w, cfg.sam, cfg.amg, cfg.canonical_size,
-        )
-    return generate_proposals(sam_params, image_1024, rh, rw, h, w, cfg.sam, cfg.amg, cfg.canonical_size)
 
 
 def cleanup_host(cfg: PipelineConfig, props: Proposals, hw, device, handoff: Optional[Handoff] = None) -> Proposals:
@@ -295,6 +286,8 @@ class HybridGLPipeline:
         self.device = torch.device(device) if device is not None else sam_params["prompt"]["pe_gaussian"].device
         # what depends on the weights alone is built once (the reference's runner.py:118-133)
         self.sam_params = prepare_sam_params(sam_params, cfg.sam)
+        # the proposal stage, captured at the first image on a CUDA device (the reference's jit)
+        self.stage = StageGraph(cfg, self.sam_params, self.device)
         self.clip_params = clip_params
         self.parser = parser or get_parser(rela_right_bug=cfg.compat.rela_right_bug)
         if tokenizer is None:
@@ -342,8 +335,10 @@ class HybridGLPipeline:
         return hand_off(props, pack), image_c
 
     def _launch_proposals(self, sample: ImageSample) -> Proposals:
-        """The proposal stage on the device (SAM encoder + AMG)."""
-        return launch_proposals(self.cfg, self.sam_params, sample, self.device)
+        """The proposal stage on the device (SAM encoder + AMG), launched and
+        not waited for (``num`` and ``overflow`` device scalars): a replay of
+        the pipeline's captured stage on a CUDA device."""
+        return self.stage.launch(sample)
 
     def _finish_proposals(self, handoff: Handoff, hw) -> Proposals:
         """The host side of the proposal stage: one wait for the hand-off and

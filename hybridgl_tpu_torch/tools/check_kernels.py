@@ -343,6 +343,7 @@ def _pass1(run: _Run):
         stats_dtype,
         variant,
         variant_full,
+        window_tensor,
     )
     from ..kernels.resize import _composed_axis_weights
 
@@ -387,8 +388,9 @@ def _pass1(run: _Run):
                 Wyd = Wy_.to(tmp.dtype)
                 kind = variant(tmp.dtype, tmp.shape[1], Wy_.shape[0])
                 want_kind = want_kind if bf16 else "cuda-core"
-                kernel = lambda: pass1_stats_half(tmp, Wyd, win, 0.0, 1.0)  # noqa: E731
-                plain = lambda: reference_pass1_stats_half(tmp, Wyd, win, 0.0, 1.0)  # noqa: E731
+                win_d = window_tensor(win, run.dev)  # as the stage passes it: on the device, uploaded once
+                kernel = lambda: pass1_stats_half(tmp, Wyd, win_d, 0.0, 1.0)  # noqa: E731
+                plain = lambda: reference_pass1_stats_half(tmp, Wyd, win_d, 0.0, 1.0)  # noqa: E731
                 label = f"pass1_stats_half ({kind}, {note}, {tag})"
                 ok_v = run.verdict(f"{label} kernel", kind == want_kind, kind)
                 ok, err = _stats_verdict(run, label, kernel(), plain(), not bf16)
@@ -405,8 +407,9 @@ def _pass1(run: _Run):
                 low_d, WxT_d, Wy_d = low_.to(dt), WxT_.to(dt), Wy_.to(dt)
                 kind = variant_full(dt, low_.shape[1], low_.shape[2], Wy_.shape[0])
                 want_kind = want_kind if bf16 else "cuda-core"
-                kernel = lambda: pass1_stats(low_d, WxT_d, Wy_d, win, 0.0, 1.0)  # noqa: E731
-                plain = lambda: reference_pass1_stats_half(half_transform(low_d, WxT_d), Wy_d, win, 0.0, 1.0)  # noqa: E731
+                win_d = window_tensor(win, run.dev)
+                kernel = lambda: pass1_stats(low_d, WxT_d, Wy_d, win_d, 0.0, 1.0)  # noqa: E731
+                plain = lambda: reference_pass1_stats_half(half_transform(low_d, WxT_d), Wy_d, win_d, 0.0, 1.0)  # noqa: E731
                 label = f"pass1_stats ({kind}, {note}, {tag})"
                 tc0 = pass1_stats.tc_launches
                 got = kernel()
@@ -418,7 +421,7 @@ def _pass1(run: _Run):
                            dict(B=low_.shape[0], n=low_.shape[1], n2=low_.shape[2], C=Wy_.shape[0], dh=int(win[2]),
                                 dw=int(win[3]), esize=low_d.element_size()))
                 # the port's other route to the same numbers: one matmul, then K5
-                pair = time_ms(lambda: pass1_stats_half(half_transform(low_d, WxT_d), Wy_d, win, 0.0, 1.0))
+                pair = time_ms(lambda: pass1_stats_half(half_transform(low_d, WxT_d), Wy_d, win_d, 0.0, 1.0))
                 run.log(f"  pass1_stats {note} {tag}: half_transform + pass1_stats_half {pair:.3f} ms")
                 if bf16 and want_kind == "wgmma":
                     run.results["pass1_stats"].setdefault("pair_ms", pair)

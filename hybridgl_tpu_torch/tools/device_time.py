@@ -14,7 +14,12 @@ with the innermost frame of the package that asked for it) and the stream
 synchronisations by call site (the same image under
 ``torch.cuda.set_sync_debug_mode``); then the busy share of three images
 through ``run_dataset`` against the same three through ``run_image`` (the
-union of the device's busy intervals over the wall, in turns). Both paths
+union of the device's busy intervals over the wall, in turns). Beside them,
+the proposal dispatch's host ms from the call to its return against the
+device ms it queues, and, where the tree captures its proposal stage as a
+CUDA graph, the capture's numbers (warm-up, capture and instantiate ms,
+nodes, pool bytes) and the stage's kernel time under a replay and an eager
+run (:func:`stage_graph_report`). Both paths
 are host bound, so a kernel's gain shows in the device time long before it
 shows in ms per image. Uses only the package's public entry points, so the
 same file times an older tree when copied into it. Needs a CUDA card.
@@ -222,6 +227,81 @@ def stage_ms(pipe, sample, log=print) -> dict:
     return out
 
 
+def dispatch_ms(pipe, sample, n: int = 5):
+    """The proposal dispatch (stage + hand-off, nothing waited for) ``n``
+    times, the card drained between calls: ([host ms from the call to its
+    return], [device ms from the first to the last work it queued, CUDA
+    events])."""
+    host, device = [], []
+    for _ in range(n):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        t0 = time.perf_counter()
+        pipe._dispatch_proposals(sample)
+        host.append((time.perf_counter() - t0) * 1e3)
+        end.record()
+        torch.cuda.synchronize()
+        device.append(start.elapsed_time(end))
+    return host, device
+
+
+def _kernel_device_ms(fn) -> tuple:
+    """``fn()`` under torch.profiler (device activity): (kernels, device ms,
+    {kernel name: device ms} of the port's own kernels)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in _device_events(prof) if e["cat"] == "kernel"]
+    own = collections.defaultdict(float)
+    for e in kernels:
+        if any(k in e["name"] for k in OWN_KERNELS):
+            own[e["name"][:60]] += e["dur"] / 1e3
+    return len(kernels), sum(e["dur"] for e in kernels) / 1e3, dict(own)
+
+
+def stage_graph_report(pipe, sample, log=print) -> dict:
+    """The proposal stage as a captured graph (``pipe.stage``, a
+    ``pipeline/stage_graph.py:StageGraph``; absent from older trees): its
+    capture's numbers, the dispatch's host ms to return beside the device ms
+    it queues (:func:`dispatch_ms`), and the stage's device time by kernel
+    under a replay and under an eager run of the same stage function on the
+    same inputs (the profiler may not see inside a replay; the eager run is
+    the breakdown then)."""
+    host, device = dispatch_ms(pipe, sample)
+    out = dict(dispatch_host_ms=host, dispatch_device_ms=device)
+    log(f"  proposal dispatch: host ms to return {[round(t, 3) for t in host]}, device ms queued "
+        f"{[round(t, 3) for t in device]}")
+    stage = getattr(pipe, "stage", None)
+    if stage is None:
+        log("  no captured proposal stage in this tree")
+        return out
+    st = stage.stats()
+    out.update(st)
+    replay = []
+    for _ in range(5):  # the graph launch alone, on a drained card
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stage.graph.replay()
+        replay.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    out["replay_host_ms"] = replay
+    log(f"  the graph's replay call alone: host ms to return {[round(t, 3) for t in replay]}")
+    log(f"  stage graph: {st['captures']} capture, warm-up {st['warmup_ms']:.1f} ms, capture {st['capture_ms']:.1f} "
+        f"ms, instantiate {st['instantiate_ms']:.1f} ms, {st['nodes']} nodes, pool {st['pool_bytes']} bytes "
+        f"({st['pool_bytes'] / 2**30:.2f} GiB), launches a replay {st['launches']}")
+    for how, fn in (("replay", lambda: stage.launch(sample)), ("eager", stage.eager)):
+        n, ms, own = _kernel_device_ms(fn)
+        out[f"{how}_kernels"], out[f"{how}_device_ms"] = n, ms
+        seen = "" if n else " (the profiler attributes no kernel inside a replay: see the eager run)"
+        log(f"  stage under {how}: {n} kernels, {ms:.1f} ms of kernel time{seen}")
+        for name, t in sorted(own.items(), key=lambda kv: -kv[1]):
+            log(f"    {t:8.2f} ms  {name}")
+    return out
+
+
 def busy_share(pipe, samples, pipelined: bool) -> dict:
     """``samples`` through ``run_dataset`` (``pipelined``) or one
     ``run_image`` an image, under torch.profiler (device activity only):
@@ -309,7 +389,8 @@ def main(argv=None) -> int:
             times.append((time.perf_counter() - t0) * 1e3)
         print(f"{tag}: ms/img {[round(t, 1) for t in times[1:]]} after a warm-up of {times[0]:.1f} ms, peak device "
               f"memory {torch.cuda.max_memory_allocated()} bytes "
-              f"({torch.cuda.max_memory_allocated() / 2**30:.2f} GiB)", flush=True)
+              f"({torch.cuda.max_memory_allocated() / 2**30:.2f} GiB) allocated, "
+              f"{torch.cuda.memory_reserved()} bytes reserved", flush=True)
         say = lambda m: print(m, flush=True)  # noqa: E731
         profile_image(pipe, samples[3], state, log=say)
         host_reads(lambda: pipe.run_image(samples[3], state), log=say)
@@ -319,6 +400,7 @@ def main(argv=None) -> int:
             say("  the proposal dispatch alone:")
             host_reads(lambda: pipe._dispatch_proposals(samples[3]), log=say)
             host_syncs(lambda: pipe._dispatch_proposals(samples[3]), log=say)
+            stage_graph_report(pipe, samples[3], log=say)
         compare_busy_share(pipe, samples[4:7], log=say)
     return 0
 

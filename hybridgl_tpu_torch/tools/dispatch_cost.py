@@ -55,9 +55,9 @@ def _inputs(name: str, device, gen):
         args = (r(12, 197, 64), r(12, 197, 64), r(12, 197, 64), bias.contiguous(), 12, 0.125)
         return args, lambda: wrapper(*args)
     if name == "pass1_stats_half":
-        window = (0, 0, 480, 640)
-        args = (r(3, 256, 640), r(640, 256, std=0.02), [float(v) for v in window], 0.0, 1.0)
-        return args, lambda: wrapper(args[0], args[1], window, 0.0, 1.0)
+        window = torch.tensor([0.0, 0.0, 480.0, 640.0], device=device)  # the stage's: on the device
+        args = (r(3, 256, 640), r(640, 256, std=0.02), window, 0.0, 1.0)
+        return args, lambda: wrapper(*args)
     assert name == "i2t_ln_then_t2i"
     off = r(1, 8, 8, dtype=f32)
     off[:, :, 7:] = -1e30

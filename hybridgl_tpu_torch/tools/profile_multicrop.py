@@ -46,16 +46,16 @@ def main(argv=None) -> int:
     canon = canon.cuda()
     pe, dense = dense_pe(params["prompt"], sam_cfg), no_mask_dense(params["prompt"], sam_cfg, 1)[0]
     B = amg_cfg.points_per_batch
+    geo = torch.from_numpy(amg.geometry(rh, rw, h, w, sam_cfg, amg_cfg)).cuda()  # the stage's geometry input
+    consts = amg.stage_constants(sam_cfg, amg_cfg, "cuda")
 
     def enc5(im):
-        crops = amg.multicrop_frames(im, rh, rw, canon, h, w, sam_cfg, amg_cfg)
-        return [(c, encode(params, c["frame"], sam_cfg)) for c in crops]
+        return [encode(params, frame, sam_cfg) for frame in amg.multicrop_frames(im, canon, geo, sam_cfg)]
 
     def enc5_decode(im):
         out = []
-        for crop, emb in enc5(im):
-            chunks = torch.from_numpy(amg._chunk_points(crop["grid"], B)).cuda()
-            scale = torch.tensor([float(crop["rhw"][1]), float(crop["rhw"][0])], device="cuda")
+        for row, chunks, emb in zip(geo, consts.chunks, enc5(im)):
+            scale = torch.stack([row[1], row[0]])  # the crop's (rw, rh)
             labels = torch.ones((B, 1), device="cuda")
             out += [predict_points(params, emb, (pts * scale)[:, None, :], labels, sam_cfg, True, pe=pe, dense=dense)
                     for pts in chunks]

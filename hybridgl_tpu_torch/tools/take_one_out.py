@@ -44,7 +44,7 @@ def _child(flags: list[str]) -> None:
 
     from ..kernels import _build
     from ..kernels.decoder_pass import i2t_ln_then_t2i
-    from ..kernels.pass1_stats import half_transform, pass1_stats, pass1_stats_half
+    from ..kernels.pass1_stats import half_transform, pass1_stats, pass1_stats_half, window_tensor
     from ..kernels.resize import _composed_axis_weights
     from ..kernels.upscale_hyper import upscale_hyper
     from .check_kernels import _i2t_ops, _Run, _smooth_logits, time_ms
@@ -64,8 +64,8 @@ def _child(flags: list[str]) -> None:
             continue
         Wy = _composed_axis_weights(Cc, 256, 1024, frame_h, win[0], win[2], run.dev).bfloat16()
         Wx = _composed_axis_weights(Cc, 256, 1024, 1024, win[1], win[3], run.dev)
-        tmp = half_transform(low, Wx.T)
-        times[label] = time_ms(lambda: pass1_stats_half(tmp, Wy, win, 0.0, 1.0))
+        tmp, win_d = half_transform(low, Wx.T), window_tensor(win, run.dev)
+        times[label] = time_ms(lambda: pass1_stats_half(tmp, Wy, win_d, 0.0, 1.0))
     # K10: check_kernels' two shapes (48 candidates with soft weights, the RefCOCO window)
     for label, B, Cc, frame_h, win in (("K10 B = 48, C = 1024", 48, 1024, 768, (17, 5, 451, 633)),
                                        ("K10 B = 192, C = 640", 192, 640, 768, (0, 0, 480, 640))):
@@ -74,8 +74,8 @@ def _child(flags: list[str]) -> None:
             continue
         Wy = _composed_axis_weights(Cc, 256, 1024, frame_h, win[0], win[2], run.dev).bfloat16()
         WxT = _composed_axis_weights(Cc, 256, 1024, 1024, win[1], win[3], run.dev).T.contiguous().bfloat16()
-        low_b = low[:B].bfloat16()
-        times[label] = time_ms(lambda: pass1_stats(low_b, WxT, Wy, win, 0.0, 1.0))
+        low_b, win_d = low[:B].bfloat16(), window_tensor(win, run.dev)
+        times[label] = time_ms(lambda: pass1_stats(low_b, WxT, Wy, win_d, 0.0, 1.0))
     if "K3" not in touched and "K4" not in touched:
         print("TIMES " + ", ".join(f"{k} {v:.3f} ms" for k, v in times.items()), flush=True)
         return

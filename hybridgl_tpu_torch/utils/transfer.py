@@ -6,9 +6,10 @@ copy waits for all the work queued before it. A constant uploaded that way
 in the middle of the proposal stage makes the host wait for the stage it is
 still dispatching, so nothing it does next overlaps the card. ``upload``
 puts a number on the device as a fill and an array through pinned memory
-with a non-blocking copy; ``to_host_async`` starts a copy into pinned host
-memory that the caller waits for on an event. On the CPU both are plain
-tensor operations.
+with a non-blocking copy, and ``upload_into`` copies into a tensor that is
+already there (a captured graph's input); ``to_host_async`` starts a copy
+into pinned host memory that the caller waits for on an event. On the CPU
+they are plain tensor operations.
 """
 
 from __future__ import annotations
@@ -30,6 +31,17 @@ def upload(x, device, dtype=None) -> torch.Tensor:
     if device.type != "cuda" or t.device.type != "cpu":
         return t.to(device)
     return t.pin_memory().to(device, non_blocking=True)
+
+
+def upload_into(dst: torch.Tensor, x) -> torch.Tensor:
+    """Copy ``x`` (a numpy array or a tensor of ``dst``'s shape) into ``dst``
+    without a stream synchronisation: from the host through a pinned buffer
+    of this call's own (the caching host allocator keeps it until the copy
+    has run), on the device as a copy in stream order."""
+    t = x if isinstance(x, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(x))
+    if dst.device.type == "cuda" and t.device.type == "cpu":
+        t = t.pin_memory()
+    return dst.copy_(t, non_blocking=True)
 
 
 def to_host_async(t: torch.Tensor) -> torch.Tensor:

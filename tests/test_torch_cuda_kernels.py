@@ -1041,11 +1041,11 @@ def _production_args(name, dev, seed=0):
         return r(1536, 197, 64), r(1536, 197, 64), r(1536, 197, 64), bias.contiguous(), 12, 0.125
     if name == "pass1_stats_half":
         Wy = _composed_axis_weights(640, 256, 1024, 768, 0, 480, dev).to(BF16)
-        return r(192, 256, 640, std=2.0), Wy, [0.0, 0.0, 480.0, 640.0], 0.0, 1.0
+        return r(192, 256, 640, std=2.0), Wy, torch.tensor([0.0, 0.0, 480.0, 640.0], device=dev), 0.0, 1.0
     if name == "pass1_stats":
         Wy = _composed_axis_weights(640, 256, 1024, 768, 0, 480, dev).to(BF16)
         WxT = _composed_axis_weights(640, 256, 1024, 1024, 0, 640, dev).T.contiguous().to(BF16)
-        return r(192, 256, 256, std=4.0), WxT, Wy, [0.0, 0.0, 480.0, 640.0], 0.0, 1.0
+        return r(192, 256, 256, std=4.0), WxT, Wy, torch.tensor([0.0, 0.0, 480.0, 640.0], device=dev), 0.0, 1.0
     off = r(128, 8, 8, dtype=f32)
     off[:, :, 7:] = -1e30
     B = 64 if name == "i2t_ln_then_t2i" else 128

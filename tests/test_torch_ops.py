@@ -42,7 +42,7 @@ NAMES = ["flash_windowed_fused", "flash_attention_fused", "flash_attention_rel_p
          "nms"]
 # K4's fake output side is isqrt(g * g): a symbolic size has no integer square root
 NOT_SYMBOLIC = {"upscale_hyper_blocked"}
-WINDOW = [2.0, 3.0, 10.0, 12.0]
+WINDOW = torch.tensor([2.0, 3.0, 10.0, 12.0])  # the operators take the window as a [4] f32 tensor
 
 
 def _t(rng, *shape, dtype=torch.float32, std=0.5):
