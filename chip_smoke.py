@@ -60,7 +60,16 @@ Phases (every phase asserts; any failure exits non-zero):
      inputs, with its launch counts, selections and IoUs, and one capture;
      the capture's numbers (ms, nodes, pool bytes) and the dispatch's host
      ms to return beside the device ms it queues, with no read or
-     synchronisation in it;
+     synchronisation in it; then the score graphs: on each path the feature
+     stage is one CUDA graph a proposal bucket and the sentence stage one a
+     (bucket, sentence bucket) (pipeline/score_graph.py); three image sizes
+     x 1, 2 and 3 sentences through _score_image, each replay held bit for
+     bit against the eager stages on the same inputs (features, GEM patch
+     features, scores, selections, IoUs, accumulators) with the same launch
+     counts (K6 x 15 a replay), one capture a key, no read or
+     synchronisation in _score_image; each graph's numbers, the scoring
+     call's host ms beside the device ms it queues, the busy share and
+     ms/img of run_dataset against run_image;
   7. fusion modes: all six at full width on one RefCOCO image's proposals
      and on a bucket of 64 live synthetic proposals: finite features, and
      K6 launched as often as each mode's blocks need (the CLS-row bias in
@@ -263,6 +272,13 @@ def _sample(rng, sam_size, canonical, h, w, rh, rw, gt_box):
     return ImageSample(img1024, rh, rw, imgc, h, w, gt, SENTENCES)
 
 
+def _plain(results):
+    """An image's results with plain Python values (one read of their device scalars)."""
+    from hybridgl_tpu_torch.pipeline.runner import materialize_results
+
+    return materialize_results(results)
+
+
 def _check_results(tag, results, props, n_sentences):
     import math
 
@@ -333,7 +349,7 @@ def phase_small_parity():
             pipe = HybridGLPipeline(cfg, tree_map(move, sam_p), tree_map(move, clip_p),
                                     HeuristicParser(), TinyVocabTokenizer(), device=dev)
             reset_launch_counts()
-            results = pipe.run_image(sample, pipe.init_state())
+            results = _plain(pipe.run_image(sample, pipe.init_state()))
             props = pipe.last_proposals
             _check_results(f"small {tag}/{dev}", results, props, len(SENTENCES))
             out[dev] = (results, props, launch_counts(), pipe)
@@ -371,7 +387,7 @@ def _small_fusion_modes(sample, cpu, gpu):
                                      pipe.parser, pipe.tokenizer, device=pipe.device)
                 if label != "proposals":
                     props = _synthetic_full_bucket(p, 8, sample.h, sample.w)
-                picks.append(p._score_image(sample, props, p.init_state()))
+                picks.append(_plain(p._score_image(sample, props, p.init_state())))
             r_cpu, r_gpu = picks
             same_sel = [(a.pure_index, a.final_index) for a in r_cpu] == [(b.pure_index, b.final_index) for b in r_gpu]
             d_iou = max(abs(a.final_iou - b.final_iou) for a, b in zip(r_cpu, r_gpu))
@@ -431,6 +447,7 @@ def phase_pipeline(tag, amg, canonical, n_images, min_launches, weights):
         results = pipe.run_image(sample, state)
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
+        results = _plain(results)
         props = pipe.last_proposals
         delta = {k: v - before[k] for k, v in launch_counts().items()}
         name = f"{tag} warm-up" if i == 0 else f"{tag} image {i}"
@@ -540,9 +557,9 @@ def _selections(pipe, sample, props):
     from hybridgl_tpu_torch.pipeline.handoff import hand_off
 
     pack = pipe.cfg.amg.min_mask_region_area > 0 and not pipe._device_cleanup
-    done = pipe._finish_proposals(hand_off(props, pack), (sample.h, sample.w))
+    done, bucket = pipe._finish_proposals(hand_off(props, pack), (sample.h, sample.w))
     return [(r.pure_index, r.final_index, r.pure_iou, r.final_iou)
-            for r in pipe._score_image(sample, done, pipe.init_state())]
+            for r in _plain(pipe._score_image(sample, done, pipe.init_state(), bucket=bucket))]
 
 
 def phase_stage_graph(paths, card, shares):
@@ -601,6 +618,91 @@ def phase_stage_graph(paths, card, shares):
             f"ms queued {[round(t, 3) for t in device]}; 0 reads, 0 syncs; busy share run_dataset "
             f"{share['run_dataset']:.3f} against run_image {share['run_image']:.3f} "
             f"({'above' if share['run_dataset'] > share['run_image'] else 'not above'}); on {card}")
+
+
+def phase_score_graph(paths, card, shares):
+    """The feature and sentence stages as CUDA graphs, one a shape key
+    (pipeline/score_graph.py), on each full-width path: three image sizes x
+    1, 2 and 3 sentences through _score_image, each replay held bit for bit
+    against the eager stages on the same inputs (fusion features, GEM patch
+    features, scores, selections, IoUs, accumulators) with the same launch
+    counts (K6 included), and one capture a key; no read and no stream
+    synchronisation in _score_image; then each graph's warm-up, capture and
+    instantiate ms, nodes and pool bytes, the scoring call's host ms to return
+    beside the device ms it queues, the busy share of run_dataset against
+    run_image (phase_busy_share) and ms/img both ways. Fails on any
+    difference, a second capture of a key, or a read or synchronisation."""
+    import numpy as np
+    import torch
+
+    from hybridgl_tpu_torch.kernels import launch_counts
+    from hybridgl_tpu_torch.models.sam.sam import get_preprocess_shape
+    from hybridgl_tpu_torch.tools.device_time import host_reads, host_syncs, score_ms
+
+    sentences = SENTENCES + ["the small cup to the right of the person"]
+    for tag, (pipe, _) in paths.items():
+        scorer, C = pipe.scorer, pipe.cfg.canonical_size
+        rng = np.random.default_rng(17)
+        bases = []
+        for h, w in STAGE_GRAPH_SIZES[tag]:
+            rh, rw = get_preprocess_shape(h, w, pipe.cfg.sam.img_size)
+            base = _sample(rng, pipe.cfg.sam.img_size, C, h, w, rh, rw, (h // 5, w // 5, h // 2, w // 2))
+            bases.append(base)
+            with torch.inference_mode():
+                handoff, image_c = pipe._dispatch_proposals(base)
+                props, bucket = pipe._finish_proposals(handoff, (h, w))
+            for n in (1, 2, 3):
+                sample = base._replace(sentences=sentences[:n])
+                state = pipe.init_state()
+                c0 = launch_counts()
+                results = pipe._score_image(sample, props, state, image_c, bucket)
+                c1 = launch_counts()
+                bk, _ = scorer.last
+                feats, gem_pf, out = bk.feats.clone(), bk.gem_pf.clone(), scorer.outputs
+                e_feats, e_gem, e_out = scorer.eager()
+                c2 = launch_counts()
+                torch.cuda.synchronize()
+                differ = [name for name, a, b in (("feats", feats, e_feats), ("gem_pf", gem_pf, e_gem),
+                                                  *zip(out._fields, out, e_out)) if not torch.equal(a, b)]
+                state_acc = torch.stack([*state.pure, *state.final]).reshape(2, 4)
+                by_replay = {k: c1[k] - c0[k] for k in c1 if c1[k] != c0[k]}
+                by_eager = {k: c2[k] - c1[k] for k in c2 if c2[k] != c1[k]}
+                picks = [(r.pure_index, r.final_index, r.pure_iou, r.final_iou) for r in _plain(results)]
+                once = all(v == 1 for v in scorer.captures.values())
+                ok = (not differ and torch.equal(state_acc, out.acc) and by_replay == by_eager
+                      and by_replay.get("clip_attention", 0) == K6_LAUNCHES_PER_MODE["G2L"] and once)
+                log(f"{'PASS' if ok else 'FAIL'} {tag} score graph, {h}x{w}, {n} sentence(s) (bucket "
+                    f"{bk.masks.shape[0]}, sentence bucket {out.picks.shape[0]}): replay against eager, outputs that "
+                    f"differ {differ}, selections {picks}, launches a replay {by_replay} (eager {by_eager}), "
+                    f"captures {dict(scorer.captures)}")
+                if not ok:
+                    fail(f"{tag}: the replayed scoring stages differ from the eager ones at {h}x{w}, {n} sentence(s)")
+        fn = lambda: pipe._score_image(sample, props, pipe.init_state(), image_c, bucket)  # noqa: E731
+        reads, syncs = host_reads(fn, log=log), host_syncs(fn, log=log)
+        if reads or syncs:
+            fail(f"{tag}: _score_image read the host {reads} or synchronised {syncs}")
+        host, device = score_ms(pipe, sample, finished=(props, image_c, bucket))
+        for key, st in scorer.stats().items():
+            log(f"  {tag} score graph {key}: warm-up {st['warmup_ms']:.1f} ms, capture {st['capture_ms']:.1f} ms, "
+                f"instantiate {st['instantiate_ms']:.1f} ms, {st['nodes']} nodes, pool {st['pool_bytes']} bytes, "
+                f"launches a replay {st['launches']}")
+        pools = sum(st["pool_bytes"] for st in scorer.stats().values())
+        ms_image, ms_dataset = [], []
+        state = pipe.init_state()
+        for base in bases:
+            ms_image.append(_wall_ms(lambda: _plain(pipe.run_image(base, state)))[0])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _, results in pipe.run_dataset(iter(bases), pipe.init_state()):
+            _plain(results)  # the CLI's one read an image
+        torch.cuda.synchronize()
+        ms_dataset = (time.perf_counter() - t0) * 1e3 / len(bases)
+        share = shares[tag]
+        log(f"{tag} score graphs: {len(scorer.stats())} graphs, one capture a key, pools {pools} bytes in all; "
+            f"_score_image: 0 reads, 0 syncs, host ms to return {[round(t, 3) for t in host]}, device ms queued "
+            f"{[round(t, 3) for t in device]}; busy share run_dataset {share['run_dataset']:.3f} against run_image "
+            f"{share['run_image']:.3f}; ms/img run_image {[round(t, 1) for t in ms_image]}, run_dataset "
+            f"{ms_dataset:.1f} (three sizes, results read once an image); on {card}")
 
 
 def _synthetic_full_bucket(pipe, P=64, h=480, w=640):
@@ -838,9 +940,9 @@ def phase_dataset_path(pipe, samples, card):
 
     measured = samples[1:]
     state_a = pipe.init_state()
-    seq = [pipe.run_image(smp, state_a) for smp in measured]
+    seq = [_plain(pipe.run_image(smp, state_a)) for smp in measured]
     state_b = pipe.init_state()
-    piped = [results for _, results in pipe.run_dataset(iter(measured), state_b)]
+    piped = [_plain(results) for _, results in pipe.run_dataset(iter(measured), state_b)]
     same = [[(r.pure_index, r.final_index, r.pure_iou, r.final_iou) for r in rs] for rs in seq] == \
         [[(r.pure_index, r.final_index, r.pure_iou, r.final_iou) for r in rs] for rs in piped]
     same_state = [float(v) for v in (*state_a.pure, *state_a.final)] == [float(v) for v in (*state_b.pure, *state_b.final)]
@@ -1023,15 +1125,15 @@ def phase_batched_sentences(pipe, samples):
         for label, props in (("the image's proposals", pipe.propose(sample)),
                              ("64 live synthetic proposals", _synthetic_full_bucket(pipe))):
             props = pipe._bucket_props(props)
-            feats, gem_pf = pipe._feature_stage(props, image_c, sample.h, sample.w)
+            feats, gem_pf = pipe._feature_stage(props, image_c, (sample.h, sample.w))
             k1, k2 = min(g.k1, props.num), min(g.k2, props.num)
 
             def together(state):
-                return pipe._sentence_stage(sample, props, feats, gem_pf, rows, k1, k2, gt, state)
+                return _plain(pipe._sentence_stage(sample, props, feats, gem_pf, rows, k1, k2, gt, state))
 
             def one_by_one(state):
-                return [r for sentence, row in zip(sentences, rows) for r in pipe._sentence_stage(
-                    sample._replace(sentences=[sentence]), props, feats, gem_pf, [row], k1, k2, gt, state)]
+                return [r for sentence, row in zip(sentences, rows) for r in _plain(pipe._sentence_stage(
+                    sample._replace(sentences=[sentence]), props, feats, gem_pf, [row], k1, k2, gt, state))]
 
             out = {}
             for mode, fn in (("one call a sentence", one_by_one), ("one call", together)):
@@ -1205,7 +1307,7 @@ def _runner_cleanup_switch(pipe, samples):
                 p.run_image(sample, p.init_state())  # warm-up
                 state = p.init_state()
                 nms0 = launch_counts()["nms"]
-                ms, results = _wall_ms(lambda: p.run_image(sample, state))
+                ms, results = _wall_ms(lambda: _plain(p.run_image(sample, state)))
                 n_nms = launch_counts()["nms"] - nms0
             finally:
                 p.__dict__.pop("_launch_proposals", None)
@@ -1232,7 +1334,7 @@ def _phrasecut_cleanup_switch(pipe, samples):
     sample, out = samples[1], {}
     for name, p in (("host pass", pipe), ("HYBRIDGL_CLEANUP=device", _device_cleanup_pipeline(pipe))):
         nms0 = launch_counts()["nms"]
-        ms, results = _wall_ms(lambda: p.run_image(sample, p.init_state()))
+        ms, results = _wall_ms(lambda: _plain(p.run_image(sample, p.init_state())))
         out[name] = (ms, [(r.pure_index, r.final_index, r.pure_iou, r.final_iou) for r in results],
                      launch_counts()["nms"] - nms0)
     (ms_h, r_h, nms_h), (ms_d, r_d, nms_d) = out.values()
@@ -1432,7 +1534,7 @@ def phase_data_parallel(pipe, card):
     state = pipe.init_state()
     pipe.run_image(samples[0], pipe.init_state())  # warm-up
     pipe.survival_hook = workers.survival_stamp(pipe.cfg, survival, hw, pipe.device)
-    t_seq, seq = _wall_ms(lambda: [pipe.run_image(smp, state) for smp in samples])
+    t_seq, seq = _wall_ms(lambda: [_plain(pipe.run_image(smp, state)) for smp in samples])
     pipe.survival_hook = None
     spec = dict(cfg=pipe.cfg, samples=samples, seed=0, dtype="bfloat16", repeats=2, survival=survival, survival_hw=hw)
     t0 = time.perf_counter()
@@ -1649,6 +1751,7 @@ def main(argv):
         phase_downloads(tag, *paths[tag], card)
     shares = phase_busy_share(paths, card)
     phase_stage_graph(paths, card, shares)
+    phase_score_graph(paths, card, shares)
     reset_launch_counts()
     phase_fusion_modes(*paths["RefCOCO"])
     counts["fusion modes"] = launch_counts()

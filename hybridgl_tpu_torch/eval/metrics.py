@@ -60,6 +60,20 @@ def update_masked(acc: IoUAccum, pred, target, enabled) -> IoUAccum:
     return IoUAccum(acc.cum_i + e * i, acc.cum_u + e * u, acc.sum_iou + e * iou, acc.count + e)
 
 
+def accumulate_sentences(acc: torch.Tensor, pure_iu: torch.Tensor, final_iu: torch.Tensor, enable) -> torch.Tensor:
+    """The (pure, final) accumulators as one [2, 4] tensor (cum_i, cum_u,
+    sum_iou, count) with each sentence's picks added in sentence order,
+    times its ``enable`` flag [S] (0 for a padded sentence or an image with
+    no ground truth): the reference's ``sentence_stage_accum``
+    (runner.py:338-342), on the device. ``pure_iu`` / ``final_iu`` are [S, 3]
+    (I, U, IoU) rows."""
+    vals = torch.stack([pure_iu, final_iu])  # [2, S, 3]
+    vals = torch.cat([vals, torch.ones_like(vals[..., :1])], dim=-1)
+    for s in range(vals.shape[1]):
+        acc = acc + enable[s] * vals[:, s]
+    return acc
+
+
 def _host(x):
     return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 

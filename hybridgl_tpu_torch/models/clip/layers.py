@@ -9,6 +9,7 @@ otherwise (the text encoder's causal bias, GEM's 785 tokens) the plain path.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -46,6 +47,13 @@ def allowed_mask_to_bias(allowed: torch.Tensor) -> torch.Tensor:
     return torch.where(allowed, 0.0, torch.finfo(torch.float32).min).float()
 
 
+@functools.lru_cache(maxsize=None)
+def _rounded_scale(hd: int, dtype: torch.dtype) -> float:
+    """1 / sqrt(hd) rounded to ``dtype``, worked out once on the host (not
+    at every block of every image)."""
+    return float(1.0 / torch.sqrt(torch.tensor(float(hd))).to(dtype))
+
+
 def multi_head_attention(p, x, num_heads: int, attn_bias: Optional[torch.Tensor] = None, cls_bias: Optional[torch.Tensor] = None):
     """Self-attention matching torch nn.MultiheadAttention(d, h); x [N, L, D].
 
@@ -74,7 +82,7 @@ def multi_head_attention(p, x, num_heads: int, attn_bias: Optional[torch.Tensor]
         # q * scale round in x's dtype, QK sums in f32 and is stored in the score
         # dtype, the bias is added there (finfo(f32).min becomes -inf under bf16),
         # PV sums in f32 and rounds to x's dtype
-        scale_dt = float(1.0 / torch.sqrt(torch.tensor(float(hd))).to(dt))
+        scale_dt = _rounded_scale(hd, dt)
         sdt = score_dtype(dt)
         attn = torch.matmul((q * scale_dt).float(), k.float().transpose(-1, -2)).to(sdt)
         if attn_bias is not None:

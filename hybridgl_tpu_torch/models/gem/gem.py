@@ -11,11 +11,14 @@ plain PyTorch (the reference has no kernel for it).
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from ...core.config import ClipConfig, GemConfig
 from ...core.dtypes import score_dtype, softmax_scores
 from ...kernels.resize import resize_bilinear
+from ...utils.transfer import upload
 from ..clip.layers import layer_norm, linear, quick_gelu
 
 GEM_NORM_MEAN = (0.48145466, 0.4578275, 0.40821073)
@@ -130,6 +133,11 @@ def gem_preprocess(image_u8: torch.Tensor, size: int) -> torch.Tensor:
     if tuple(x.shape[:2]) != (size, size):
         x = resize_bilinear(x, (size, size))
     x = x / 255.0
-    mean = torch.tensor(GEM_NORM_MEAN, device=x.device)
-    std = torch.tensor(GEM_NORM_STD, device=x.device)
+    mean, std = norm_constants(x.device)
     return (x - mean) / std
+
+
+@functools.lru_cache(maxsize=None)
+def norm_constants(device: torch.device):
+    """(OpenAI CLIP mean, std) on ``device``, made once a device (not uploaded at every image)."""
+    return upload(GEM_NORM_MEAN, device, torch.float32), upload(GEM_NORM_STD, device, torch.float32)

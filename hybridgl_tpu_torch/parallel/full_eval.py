@@ -7,10 +7,13 @@ optionally, the fusion stage's proposal axis over ``mp``.
 
 Parity with the sequential runner (``pipeline/runner.py``) is exact:
 
-  * a rank runs the runner's own stages (the proposal stage's
-    ``StageGraph``, ``cleanup_host`` or ``cleanup_device``,
-    ``feature_stage``, ``sentence_ingredients``): one body, so what holds the
-    runner holds this step;
+  * a rank runs the runner's own stage functions (the proposal stage's
+    ``StageGraph``, ``cleanup_host`` or ``cleanup_device``, and
+    ``pipeline/scoring.py``'s ``feature_stage``, ``sentence_ingredients`` and
+    ``select_sentences``, on the runner's proposal and sentence buckets): one
+    body, so what holds the runner holds this step. The scoring functions run
+    eagerly here, since the step ships its ingredients to the host by design,
+    as the reference's does;
   * the small-region cleanup inside the step is the runner's: by default its
     native host pass on the proposal stage's hand-off (``pipeline/handoff.py``:
     bit-packed masks, only the live rows to the host, the count from one meta
@@ -52,13 +55,18 @@ from ..pipeline.guidance import dir_flag_id, rela_flag_id
 from ..pipeline.runner import (
     Ingredients,
     Proposals,
+    SentenceInputs,
     bucket_size,
     cleanup_device,
     cleanup_host,
     cleanup_on_device,
     feature_stage,
+    meta_bucket,
+    read_bucket,
     select_sentences,
+    sentence_arrays,
     sentence_ingredients,
+    sentence_inputs,
 )
 from ..pipeline.handoff import hand_off, receive
 from ..pipeline.stage_graph import StageGraph
@@ -180,22 +188,29 @@ def _image_ingredients(stage: StageGraph, clip_params, rec: FullEvalBatch, cfg: 
     handoff = hand_off(stage.launch(rec._replace(image_canonical=image_c)),
                        pack=min_area > 0 and not on_device)
     props, _ = receive(handoff)  # the count from the meta buffer
+    host_valid = True
     if min_area > 0 and props.num > 0:
-        props = (cleanup_device(cfg, props, (h, w), dev) if on_device
-                 else cleanup_host(cfg, props, (h, w), dev, handoff))
+        if on_device:
+            props, host_valid = cleanup_device(cfg, props, (h, w), dev), False
+        else:
+            props = cleanup_host(cfg, props, (h, w), dev, handoff)
     if survival_hook is not None:  # the runner's testing knob, at the runner's place
-        props = survival_hook(props)
+        props, host_valid = survival_hook(props), False
+    # the bucket as the runner takes it: from the meta buffer, or one read of a bundle it does not describe
+    props, bucket = (props, meta_bucket(handoff)) if host_valid else read_bucket(props)
     out = dict(num=int(props.num), score=torch.zeros((S, P)), score_neg=torch.zeros((S, P)), gem_scores=torch.zeros((S, P)),
                boxes_xywh=torch.zeros((P, 4)), prop_valid=torch.zeros(P, dtype=torch.bool), iu=torch.zeros((P, 3)))
     rows, at = _rows(rec)
     if props.num > 0 and rows:
-        bucket = bucket_size(props.valid, props.num)
         props = Proposals(*(f[:bucket] for f in props[:7]), num=props.num, overflow=props.overflow)
-        feats, gem_pf = feature_stage(cfg, clip_params, props, image_c, h, w, mesh.mp_shard if mp_axis else None)
+        hw = upload(np.asarray((h, w), np.int64), dev)
+        feats, gem_pf = feature_stage(cfg, clip_params, props.masks, image_c, hw, mesh.mp_shard if mp_axis else None)
         gt = upload(rec.gt_mask, dev)
-        ing = sentence_ingredients(cfg, clip_params, props, feats, gem_pf, rows, (h, w), gt)
+        # the runner's sentence bucket (padded with row 0), so the tables are its bits; k is the selection's
+        sent = sentence_inputs(sentence_arrays(rows, True), (0, 0), dev)
+        ing = sentence_ingredients(cfg, clip_params, props, feats, gem_pf, sent, hw, gt)
         for name in ("score", "score_neg", "gem_scores"):
-            out[name][at, :bucket] = getattr(ing, name).float().cpu()
+            out[name][at, :bucket] = getattr(ing, name)[: len(rows)].float().cpu()
         out["boxes_xywh"][:bucket] = ing.boxes_xywh.float().cpu()
         out["prop_valid"][:bucket] = ing.prop_valid.cpu()
         out["iu"][:bucket] = ing.iu.cpu()
@@ -241,18 +256,19 @@ def _select_and_accumulate(ing: Ingredients, b: int, rec: FullEvalBatch, cfg: Pi
         k = int(np.asarray(rec.sentence_valid).sum())
         return pure + k * miss, final + k * miss, pidx, fidx, pious, fious
     # the bucket the sequential runner scored: the same operands give the same bits
-    bucket = bucket_size(torch.from_numpy(ing.prop_valid[b]), n)
+    bucket = bucket_size(ing.prop_valid[b], n)
     at = [int(i) for i in np.nonzero(rec.sentence_valid)[0]]
     tables = {k: getattr(ing, k)[b] for k in _FIELDS}
     for k in ("score", "score_neg", "gem_scores"):
         tables[k] = tables[k][at]
     one = Ingredients(n, *(torch.from_numpy(np.ascontiguousarray(tables[k][..., :bucket, :] if k in ("boxes_xywh", "iu")
                                                                   else tables[k][..., :bucket])) for k in _FIELDS))
-    # select_sentences reads a row's relation flag and has-other-nouns flag only
-    rows = [(None, 0, 0, int(rec.rela_flag[i]), 0.0, bool(rec.has_other[i])) for i in at]
-    picks = select_sentences(cfg, one, rows, k1, k2)
+    # the selection reads a sentence's relation flag and has-other-nouns flag only
+    ints = np.zeros((len(at), 4), np.int64)
+    ints[:, 2], ints[:, 3] = np.asarray(rec.rela_flag)[at], np.asarray(rec.has_other)[at]
+    sel = select_sentences(cfg, one, SentenceInputs(None, torch.from_numpy(ints), None, torch.tensor([k1, k2])))
     iu = ing.iu[b]
-    for si, (pi, fi) in zip(at, picks):
+    for si, pi, fi in zip(at, sel.pure_index.tolist(), sel.final_index.tolist()):
         pidx[si], fidx[si] = pi, fi
         pious[si], fious[si] = iu[pi, 2], iu[fi, 2]
         pure += np.float64([iu[pi, 0], iu[pi, 1], iu[pi, 2], 1.0])

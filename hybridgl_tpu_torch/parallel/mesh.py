@@ -165,7 +165,7 @@ def _single_image_step(sam_params, clip_params, sample: EvalBatch, cfg: Pipeline
     props = generate_proposals(sam_params, image_1024, int(sample.rh), int(sample.rw), h, w, cfg.sam, cfg.amg,
                                cfg.canonical_size)
     image_c = torch.from_numpy(np.asarray(sample.image_canonical)).to(dev)
-    feats = fusion_features(cfg, clip_params, props.masks, image_c, h, w, mesh.mp_shard if mp_axis else None)
+    feats = fusion_features(cfg, clip_params, props.masks, image_c, (h, w), mesh.mp_shard if mp_axis else None)
     toks = torch.from_numpy(np.stack([sample.tokens_sentence, sample.tokens_np])).to(dev)
     tf = encode_text(clip_params["text"], toks, cfg.clip)
     text_ensemble = cfg.guidance.r * tf[0] + (1 - cfg.guidance.r) * tf[1]
@@ -194,7 +194,7 @@ def build_sharded_eval_step(cfg: PipelineConfig, mesh: ProcessMesh, axis: str = 
             acc = acc + torch.stack([i, u, iou, torch.ones_like(i)])
             sels.append(sel)
         acc = mesh.all_reduce_sum(acc, axis)
-        sels = mesh.all_gather(torch.tensor(sels, dtype=torch.int64, device=dev), axis)
+        sels = mesh.all_gather(torch.stack(sels), axis)
         return IoUAccum(*acc), sels
 
     return step

@@ -9,37 +9,49 @@
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from ..kernels.blur import gaussian_blur
 from ..kernels.resize import resize_bilinear
+from ..utils.transfer import upload
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
 CLIP_PIXEL_MEAN = (0.48145466, 0.4578275, 0.40821073)
 
 
+@functools.lru_cache(maxsize=None)
+def constants(device: torch.device):
+    """(ImageNet mean x 255, ImageNet std x 255, raw CLIP pixel mean) on
+    ``device``, made once a device: a stage that uploads them would copy
+    from the host at every image (and could not be captured)."""
+    imagenet = (upload(v, device, torch.float32) * 255.0 for v in (IMAGENET_MEAN, IMAGENET_STD))
+    return (*imagenet, upload(CLIP_PIXEL_MEAN, device, torch.float32))
+
+
 def reflect_fill(img: torch.Tensor, hw) -> torch.Tensor:
     """Mirror the valid (h, w) corner into the padding (reflect-101), so the
-    blur sees cv2's border at the true image edge."""
+    blur sees cv2's border at the true image edge; ``hw`` numbers or device
+    scalars (read by no one on the host)."""
     H, W = img.shape[0], img.shape[1]
-    h, w = int(hw[0]), int(hw[1])
-    i = torch.arange(H, device=img.device)
-    j = torch.arange(W, device=img.device)
-    ri = torch.clamp(torch.where(i < h, i, 2 * h - 2 - i), 0, h - 1)
-    rj = torch.clamp(torch.where(j < w, j, 2 * w - 2 - j), 0, w - 1)
+    dev = img.device
+    h, w = (upload(v, dev, torch.long) for v in (hw[0], hw[1]))
+    i = torch.arange(H, device=dev)
+    j = torch.arange(W, device=dev)
+    ri = torch.minimum(torch.clamp(torch.where(i < h, i, 2 * h - 2 - i), min=0), h - 1)
+    rj = torch.minimum(torch.clamp(torch.where(j < w, j, 2 * w - 2 - j), min=0), w - 1)
     return img[ri][:, rj]
 
 
 def build_crops(image_u8: torch.Tensor, masks: torch.Tensor, hw, crop_size: int = 224, blur_ksize: int = 15):
     """image_u8 [C, C, 3] canonical frame, masks [P, C, C] bool -> (global,
-    local) crops, each [P, crop, crop, 3] f32."""
-    dev = image_u8.device
+    local) crops, each [P, crop, crop, 3] f32; ``hw`` the valid extent
+    (numbers or device scalars)."""
     img = image_u8.float()
     blurred = gaussian_blur(reflect_fill(img, hw), blur_ksize)
-    imagenet_mean = torch.tensor(IMAGENET_MEAN, device=dev) * 255.0
-    imagenet_std = torch.tensor(IMAGENET_STD, device=dev) * 255.0
-    clip_mean = torch.tensor(CLIP_PIXEL_MEAN, device=dev)
+    imagenet_mean, imagenet_std, clip_mean = constants(image_u8.device)
 
     m = masks.float()[..., None]  # [P, C, C, 1]
     # global: sharp foreground + blurred background (cv2 writes the blurred

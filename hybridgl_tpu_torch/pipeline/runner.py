@@ -34,9 +34,21 @@ the stage is queued. The finish side waits once, reads the meta buffer and
 cleans only the live rows; the canonical image is uploaded once, at
 dispatch, and handed on to the feature stage.
 
-All of an image's sentences go through one sentence stage with a leading
-sentence dimension (the reference's ``HYBRIDGL_BATCH_SENTENCES=1`` path). The
-small-region cleanup is the native host pass by default, on the live rows
+The feature and sentence stages (``pipeline/scoring.py``) read nothing back
+either, as the reference's jitted ``feature_stage`` and
+``sentence_stage_accum`` (runner.py:228-359): the image's (h, w), the
+sentences' flags, the clamped k1/k2 (the sticky clamp stays on the host, as
+ints) and the ground truth enter as device tensors, the selections and IoUs
+stay device scalars in each ``SentenceResult`` until
+:func:`materialize_results` reads an image's fields in one copy, and the
+accumulators are updated on the device. On a CUDA device the pipeline's
+``ScoreGraph`` (``pipeline/score_graph.py``) captures the feature stage once a
+proposal bucket and the sentence stage once a (bucket, sentence bucket) and
+replays them; off the card they run eagerly. All of an image's sentences go
+through one sentence stage, padded to a power of two with row 0 repeated
+(the reference's ``_sentences_batched``); the padding adds nothing. The
+proposal bucket comes from the validity the hand-off's meta buffer brought
+to the host. The small-region cleanup is the native host pass by default, on the live rows
 of the hand-off. ``HYBRIDGL_CLEANUP=device`` (the reference's switch, read when the
 pipeline is built; default ``host``) runs the pass on tensors instead
 (kernels/connected.py:cleanup_proposals_jit) where the masks are, with the
@@ -45,7 +57,9 @@ components are wound, on an H100 from a fifth of the host pass's time (clean
 rectangles) to ten times it (speckled blobs; ``PERF.md``), so the host pass
 stays the default.
 ``survival_hook``, where set, replaces the proposal bundle after the proposal
-stage.
+stage: a benchmarking knob, whose bundle's count and validity are read once
+to size its bucket, before the scoring stages, as are those of a bundle a
+caller passes to ``_score_image`` itself.
 """
 
 from __future__ import annotations
@@ -63,19 +77,26 @@ from ..core.config import PipelineConfig
 from ..lang import ExpressionParser, ParsedExpression, get_parser
 
 from ..eval.metrics import IoUAccum, accumulate
-from ..kernels.masks import box_xyxy_to_xywh
-from ..kernels.resize import place_valid_region_antialias, resize_bilinear, valid_mask
-from ..models.clip.fusion import calculate_score, hybrid_forward
-from ..models.clip.text import encode_text
-from ..models.gem.gem import gem_image_features, gem_preprocess
+from ..kernels.resize import valid_mask
 from ..models.sam.amg import Proposals
 from ..models.sam.image_encoder import prepare_sam_params
-from ..utils.buckets import next_pow2
 from ..utils.transfer import upload
-from .guidance import dir_flag_id, gem_mask_scores, normalize_heatmap, rela_flag_id, select_candidates
+from .guidance import dir_flag_id, rela_flag_id
 from .handoff import Handoff, fetch_rows, hand_off, receive, unpack_masks
 from .postprocess import postprocess_small_regions
-from .preprocess import build_crops
+from .score_graph import ScoreGraph
+from .scoring import (  # noqa: F401  (the stage functions' home; the data-parallel step imports them from here)
+    Ingredients,
+    SentenceInputs,
+    bucket_size,
+    feature_stage,
+    fusion_features,
+    select_sentences,
+    sentence_arrays,
+    sentence_ingredients,
+    sentence_inputs,
+    sentence_stage,
+)
 from .stage_graph import StageGraph
 
 
@@ -93,11 +114,15 @@ class ImageSample(NamedTuple):
 
 
 class SentenceResult(NamedTuple):
+    """One sentence's selections and IoUs: device scalars out of the
+    runner (:func:`materialize_results` reads them), Python numbers where
+    no proposal survived."""
+
     sentence: str
-    pure_index: int
-    final_index: int
-    pure_iou: float
-    final_iou: float
+    pure_index: torch.Tensor | int
+    final_index: torch.Tensor | int
+    pure_iou: torch.Tensor | float
+    final_iou: torch.Tensor | float
 
 
 @dataclass
@@ -110,23 +135,6 @@ class PipelineState:
     final: IoUAccum
 
 
-class Ingredients(NamedTuple):
-    """What the selection of one image's sentences needs (the reference's
-    ``parallel/full_eval.py:Ingredients``): score tables over S sentences and P
-    proposal slots, and each proposal's (I, U, IoU) against the ground truth.
-    The sequential runner selects from them at once; the data-parallel step
-    ships them, stacked over a batch of images as numpy arrays (a leading axis
-    B on every field), to the rank that replays the sticky clamp."""
-
-    num: int  # live proposals (after the cleanup)
-    score: torch.Tensor  # [S, P] f32 CLIP scores
-    score_neg: torch.Tensor  # [S, P]
-    gem_scores: torch.Tensor  # [S, P]
-    boxes_xywh: torch.Tensor  # [P, 4]
-    prop_valid: torch.Tensor  # [P] bool
-    iu: torch.Tensor  # [P, 3] f32: (I, U, IoU) of each proposal against the ground truth
-
-
 def cleanup_host(cfg: PipelineConfig, props: Proposals, hw, device, handoff: Optional[Handoff] = None) -> Proposals:
     """The small-region cleanup, the native host pass, on the live rows of
     the bundle's hand-off (``handoff``, made here from ``props`` when not
@@ -134,8 +142,9 @@ def cleanup_host(cfg: PipelineConfig, props: Proposals, hw, device, handoff: Opt
     live one are unpacked into this call's own buffer and cleaned in place.
     When nothing changed, ``props``' tensors come back as they are; else the
     live rows are packed again, uploaded and unpacked on the device, and the
-    rows past the last live one are empty. ``num`` and ``overflow`` come back
-    as ints, from the hand-off's meta buffer."""
+    rows past the last live one are empty, and the hand-off's meta buffer
+    takes the cleaned count and validity. ``num`` and ``overflow`` come back
+    as ints, from the meta buffer."""
     if handoff is None:
         handoff = hand_off(props, pack=True)
     received, valid = receive(handoff)
@@ -154,11 +163,30 @@ def cleanup_host(cfg: PipelineConfig, props: Proposals, hw, device, handoff: Opt
                                              max(amg.box_nms_thresh, amg.crop_nms_thresh), hw=hw, inplace_masks=True)
     if not changed:
         return props
+    # the hand-off's host meta buffer describes the cleaned bundle from here on (its bucket)
+    handoff.meta[0] = out.num
+    handoff.meta[2:] = torch.from_numpy(np.asarray(out.valid, np.int32))
     cleaned = torch.zeros((P, C, C), dtype=torch.bool, device=device)
     if n_live:
         cleaned[:n_live] = unpack_masks(upload(np.packbits(out.masks[:n_live], axis=-1), device), C)
     return Proposals(cleaned, *(upload(np.ascontiguousarray(f), device) for f in out[1:7]), num=out.num,
                      overflow=props.overflow)
+
+
+def meta_bucket(handoff: Handoff) -> int:
+    """The scoring bucket of a received bundle, from the validity in the
+    hand-off's host meta buffer (after the host cleanup, the cleaned one)."""
+    meta = handoff.meta.numpy()
+    return bucket_size(meta[2:] != 0, int(meta[0]))
+
+
+def read_bucket(props: Proposals):
+    """A bundle the hand-off did not bring to the host (the survival hook's,
+    one cleaned on the device, a caller's own): its count and validity read
+    once, outside the scoring stages. -> (the bundle with ``num`` an int,
+    its scoring bucket)."""
+    num, valid = int(props.num), props.valid.cpu().numpy()
+    return props._replace(num=num), bucket_size(valid, num)
 
 
 def cleanup_on_device() -> bool:
@@ -179,105 +207,6 @@ def cleanup_device(cfg: PipelineConfig, props: Proposals, hw, device) -> Proposa
                                  max(amg.box_nms_thresh, amg.crop_nms_thresh))
 
 
-def bucket_size(valid: torch.Tensor, num: int) -> int:
-    """The smallest power-of-two bucket (min 8, at most all slots) covering
-    the highest live index: the cleanup invalidates suppressed duplicates in
-    place, so validity is not always a prefix."""
-    live = torch.nonzero(valid).flatten()
-    extent = int(live.max()) + 1 if live.numel() else num
-    return min(next_pow2(extent, base=8), int(valid.shape[0]))
-
-
-def fusion_features(cfg: PipelineConfig, clip_params, masks: torch.Tensor, image_c: torch.Tensor, h: int, w: int, mp=None):
-    """Crops -> hybrid fusion features [P, E]. With ``mp``
-    (``parallel/mesh.py:ProcessMesh.mp_shard``: ``index``, ``size``,
-    ``all_gather``) each member of a model-parallel group runs the fusion on
-    its P / size proposals and the group gathers the features."""
-    if mp is not None:
-        if masks.shape[0] % mp.size:
-            raise ValueError(f"{masks.shape[0]} proposal slots do not split over {mp.size} model-parallel ranks")
-        shard = masks.shape[0] // mp.size
-        masks = masks[mp.index * shard : (mp.index + 1) * shard]
-    glob, local = build_crops(image_c, masks, (h, w), cfg.crop_size, cfg.blur_ksize)
-    feats = hybrid_forward(
-        clip_params["visual"], local, glob, masks.float(), cfg.clip,
-        fusion_mode=cfg.fusion_mode, masking_block=cfg.guidance.masking_block,
-        compat=cfg.compat, masks_hw=(h, w),
-    )
-    return feats if mp is None else mp.all_gather(feats)
-
-
-def feature_stage(cfg: PipelineConfig, clip_params, props: Proposals, image_c: torch.Tensor, h: int, w: int, mp=None):
-    """Fusion features [P, E] (:func:`fusion_features`) and the normalised
-    GEM patch features of one image."""
-    feats = fusion_features(cfg, clip_params, props.masks, image_c, h, w, mp)
-    # squash-resize the valid region to the GEM input (uint8 rounding as
-    # the reference's PIL intermediate), then normalize
-    gem_u8 = torch.round(
-        resize_bilinear(image_c, (cfg.gem.img_size, cfg.gem.img_size), src_hw=(h, w))
-    ).to(torch.uint8)
-    gem_img = gem_preprocess(gem_u8, cfg.gem.img_size)
-    # GEM patch features are text-independent: once per image
-    gem_pf, _, _ = gem_image_features(clip_params["visual"], gem_img[None], cfg.clip, cfg.gem)
-    gem_pf = gem_pf[0] / torch.clamp(torch.linalg.norm(gem_pf[0], dim=-1, keepdim=True), min=1e-6)
-    return feats, gem_pf
-
-
-def sentence_ingredients(cfg: PipelineConfig, clip_params, props: Proposals, feats, gem_pf, rows, hw, gt) -> Ingredients:
-    """All sentences of an image through one sentence stage with a leading
-    sentence dimension (the reference's ``_sentences_batched``, without its
-    power-of-two sentence buckets: eager PyTorch compiles nothing per shape):
-    the text encoder, both scores, the heatmap's resize, placement and
-    normalisation and the per-mask GEM scores are batched. ``rows`` are
-    ``HybridGLPipeline._row`` tuples. A sentence's scores do not depend on the
-    sentences beside it. The one body of the sequential runner and of the
-    data-parallel step (``parallel/full_eval.py``)."""
-    C = cfg.canonical_size
-    h, w = hw
-    dev = feats.device
-    S = len(rows)
-    toks = upload(np.stack([r[0] for r in rows]), dev)  # [S, 2 + K, L]
-    tf = encode_text(clip_params["text"], toks.reshape(-1, toks.shape[-1]), cfg.clip)
-    tf = tf.reshape(S, toks.shape[1], -1)
-    sent_f, np_f, other_f = tf[:, 0], tf[:, 1], tf[:, 2:]
-    r = cfg.guidance.r
-    ls = clip_params["logit_scale"]
-    score = calculate_score(feats, r * sent_f + (1 - r) * np_f, ls).T  # [S, P]
-    n_others = upload([r_[1] for r_ in rows], dev)
-    k_mask = torch.arange(other_f.shape[1], device=dev)[None, :] < n_others[:, None]
-    neg_sum = torch.where(k_mask[..., None], other_f, 0.0).sum(1)
-    neg_mean = torch.where((n_others > 0)[:, None], neg_sum / torch.clamp(n_others, min=1)[:, None], 0.0)
-    neg_norm = torch.clamp(torch.linalg.norm(neg_mean, dim=-1, keepdim=True), min=1e-6)
-    score_neg = (torch.exp(ls) * (feats / torch.linalg.norm(feats, dim=-1, keepdim=True)) @ (neg_mean / neg_norm).T).T
-
-    g = cfg.gem.img_size // cfg.clip.patch_size
-    npf_n = np_f / torch.clamp(torch.linalg.norm(np_f, dim=-1, keepdim=True), min=1e-6)
-    rel = (gem_pf @ npf_n.T).reshape(g, g, S)  # the sentence axis rides as the channel axis
-    heat448 = resize_bilinear(rel, (cfg.gem.img_size, cfg.gem.img_size))
-    heat = place_valid_region_antialias(heat448, (C, C), (h, w)).movedim(-1, 0)  # [S, C, C]
-    vm = valid_mask((C, C), (h, w), dev)
-    heat = normalize_heatmap(heat, vm, [r_[2] for r_ in rows])
-    black = upload([r_[4] for r_ in rows], dev, torch.float32)
-    gem_scores = gem_mask_scores(heat, props.masks, vm, black)  # [S, P]
-    # every proposal's (I, U, IoU) against the ground truth (mask_iou, for all P at once)
-    i = (props.masks & gt).sum(dim=(-2, -1)).float()
-    u = (props.masks | gt).sum(dim=(-2, -1)).float()
-    iou = torch.where(u == 0, 0.0, i / torch.clamp(u, min=1.0))
-    return Ingredients(int(props.num), score, score_neg, gem_scores, box_xyxy_to_xywh(props.boxes_xyxy), props.valid,
-                       torch.stack([i, u, iou], dim=-1))
-
-
-def select_sentences(cfg: PipelineConfig, ing: Ingredients, rows, k1: int, k2: int):
-    """``select_candidates`` per sentence (it branches on each sentence's
-    flags in Python) -> [(pure_index, final_index)]."""
-    sels = [
-        select_candidates(ing.score[i], ing.score_neg[i], ing.boxes_xywh, ing.gem_scores[i], ing.prop_valid,
-                          rows[i][3], rows[i][5], k1, k2, alpha=cfg.guidance.alpha)
-        for i in range(len(rows))
-    ]
-    return [(sel.pure_index, sel.final_index) for sel in sels]
-
-
 class HybridGLPipeline:
     def __init__(self, cfg: PipelineConfig, sam_params, clip_params, parser: Optional[ExpressionParser] = None, tokenizer=None, device=None):
         if cfg.amg.crop_n_layers > 1:
@@ -289,6 +218,8 @@ class HybridGLPipeline:
         # the proposal stage, captured at the first image on a CUDA device (the reference's jit)
         self.stage = StageGraph(cfg, self.sam_params, self.device)
         self.clip_params = clip_params
+        # the feature and sentence stages, captured once a shape key on a CUDA device
+        self.scorer = ScoreGraph(cfg, clip_params, self.device)
         self.parser = parser or get_parser(rela_right_bug=cfg.compat.rela_right_bug)
         if tokenizer is None:
             from ..models.clip.tokenizer import default_tokenizer
@@ -319,11 +250,12 @@ class HybridGLPipeline:
         return self._propose_with_image(sample)[0]
 
     def _propose_with_image(self, sample: ImageSample):
-        """:meth:`propose`, and the canonical image's device copy that the
-        dispatch uploaded, for the feature stage."""
+        """:meth:`propose`, the canonical image's device copy that the
+        dispatch uploaded, for the feature stage, and the bundle's bucket."""
         with self._span("proposals"):
             handoff, image_c = self._dispatch_proposals(sample)
-        return self._finish_proposals(handoff, (sample.h, sample.w)), image_c
+        props, bucket = self._finish_proposals(handoff, (sample.h, sample.w))
+        return props, image_c, bucket
 
     def _dispatch_proposals(self, sample: ImageSample):
         """Upload the canonical image, launch the proposal stage and queue its
@@ -340,10 +272,11 @@ class HybridGLPipeline:
         the pipeline's captured stage on a CUDA device."""
         return self.stage.launch(sample)
 
-    def _finish_proposals(self, handoff: Handoff, hw) -> Proposals:
+    def _finish_proposals(self, handoff: Handoff, hw):
         """The host side of the proposal stage: one wait for the hand-off and
         its meta buffer, the overflow warning, the small-region cleanup and
-        the survival hook."""
+        the survival hook. -> (the bundle, ``num`` an int, and its scoring
+        bucket, from the meta buffer's validity)."""
         cfg = self.cfg
         props, _ = receive(handoff)
         if props.overflow > 0 and not self._warned_overflow:
@@ -355,25 +288,32 @@ class HybridGLPipeline:
                 stacklevel=2,
             )
             self._warned_overflow = True
+        host_valid = True
         if cfg.amg.min_mask_region_area > 0:
             with self._span("small_region_cleanup"):
                 if props.num > 0:
-                    props = (cleanup_device(cfg, props, hw, self.device) if self._device_cleanup
-                             else self._cleanup_host(props, hw, handoff))
+                    if self._device_cleanup:
+                        props, host_valid = cleanup_device(cfg, props, hw, self.device), False
+                    else:
+                        props = self._cleanup_host(props, hw, handoff)
         if self.survival_hook is not None:
             # benchmarking and testing knob: random weights leave degenerate
             # NMS survival, a hook sets a representative bucket occupancy
-            props = self.survival_hook(props)
-        return props
+            props, host_valid = self.survival_hook(props), False
+        # a bundle the meta buffer does not describe (the survival hook's, or
+        # cleaned on the device, whose validity the reference's runner reads
+        # back too) is read once, here
+        return (props, meta_bucket(handoff)) if host_valid else read_bucket(props)
 
     def _cleanup_host(self, props: Proposals, hw, handoff: Optional[Handoff] = None) -> Proposals:
         return cleanup_host(self.cfg, props, hw, self.device, handoff)
 
     @staticmethod
     def _bucket_props(props: Proposals) -> Proposals:
-        """Slice to the smallest power-of-two bucket (min 8) covering the
-        highest live index. Indices are unchanged."""
-        return HybridGLPipeline._slice_props(props, bucket_size(props.valid, props.num))
+        """Slice a caller's bundle to the smallest power-of-two bucket (min 8)
+        covering the highest live index (its validity read once). Indices are
+        unchanged."""
+        return HybridGLPipeline._slice_props(*read_bucket(props))
 
     @staticmethod
     def _slice_props(props: Proposals, bucket: int) -> Proposals:
@@ -383,24 +323,25 @@ class HybridGLPipeline:
         return props._replace(**{f: getattr(props, f)[:bucket] for f in Proposals._fields[:7]})
 
     # ------------------------------------------------------------- stages
-    def _feature_stage(self, props: Proposals, image_c: torch.Tensor, h: int, w: int):
-        return feature_stage(self.cfg, self.clip_params, props, image_c, h, w)
+    @torch.inference_mode()
+    def _feature_stage(self, props: Proposals, image_c, hw):
+        """The feature stage of a bucketed bundle: (fusion features [B, E],
+        GEM patch features), the score graph's buffers of the bucket."""
+        return self.scorer.features(props, image_c, hw)
 
+    @torch.inference_mode()
     def _sentence_stage(self, sample, props, feats, gem_pf, rows, k1, k2, gt, state):
-        """All sentences of an image: their ingredients in one batched call
-        (:func:`sentence_ingredients`), then the selections and the IoU
-        accumulation, sentence by sentence."""
+        """All sentences of an image in one sentence stage, padded to a power
+        of two (:func:`~hybridgl_tpu_torch.pipeline.scoring.sentence_stage`):
+        the selections, their IoUs and the accumulators on the device. ``gt``
+        the ground truth (host array, device tensor) or None; ``k1``/``k2``
+        the clamped ints."""
         with self._span("sentence_stage"):
-            ing = sentence_ingredients(self.cfg, self.clip_params, props, feats, gem_pf, rows, (sample.h, sample.w), gt)
-            picks = select_sentences(self.cfg, ing, rows, k1, k2)
-        iou = ing.iu[:, 2].tolist()  # one download for every sentence's two IoUs
-        results = []
-        for sentence, (pure_index, final_index) in zip(sample.sentences, picks):
-            if sample.gt_mask is not None:
-                state.pure = accumulate(state.pure, ing.iu[pure_index])
-                state.final = accumulate(state.final, ing.iu[final_index])
-            results.append(SentenceResult(sentence, pure_index, final_index, iou[pure_index], iou[final_index]))
-        return results
+            acc = torch.stack([*state.pure, *state.final]).reshape(2, 4)
+            out = self.scorer.sentences(props, feats, gem_pf, sentence_arrays(rows, gt is not None), (k1, k2), gt, acc)
+        state.pure, state.final = IoUAccum(*out.acc[0]), IoUAccum(*out.acc[1])
+        return [SentenceResult(sentence, out.picks[i, 0], out.picks[i, 1], out.iou[i, 0], out.iou[i, 1])
+                for i, sentence in enumerate(sample.sentences)]
 
     # --------------------------------------------------------------- host
     def _tokenize_parsed(self, parsed: ParsedExpression):
@@ -458,26 +399,30 @@ class HybridGLPipeline:
             yield self._emit(*pending, state, yield_props)
 
     def _emit(self, sample: ImageSample, handoff: Handoff, image_c, state: PipelineState, yield_props: bool):
-        props = self._finish_proposals(handoff, (sample.h, sample.w))
+        props, bucket = self._finish_proposals(handoff, (sample.h, sample.w))
         self.last_proposals = props
-        results = self._score_image(sample, props, state, image_c)
+        results = self._score_image(sample, props, state, image_c, bucket)
         return (sample, results, props) if yield_props else (sample, results)
 
     @torch.inference_mode()
     def run_image(self, sample: ImageSample, state: PipelineState) -> List[SentenceResult]:
         """Process one image; mutates the ``state`` accumulators and clamps."""
-        props, image_c = self._propose_with_image(sample)
+        props, image_c, bucket = self._propose_with_image(sample)
         self.last_proposals = props
-        return self._score_image(sample, props, state, image_c)
+        return self._score_image(sample, props, state, image_c, bucket)
 
     @torch.inference_mode()
     def _score_image(self, sample: ImageSample, props: Proposals, state: PipelineState,
-                     image_c: Optional[torch.Tensor] = None) -> List[SentenceResult]:
-        """Feature and sentence stages for one image's proposal bundle;
-        ``image_c`` is the canonical image on the device, if the dispatch
-        uploaded it."""
-        num_props = int(props.num)
-        C = self.cfg.canonical_size
+                     image_c: Optional[torch.Tensor] = None, bucket: Optional[int] = None) -> List[SentenceResult]:
+        """Feature and sentence stages for one image's proposal bundle, queued
+        and not waited for; ``image_c`` is the canonical image on the device,
+        if the dispatch uploaded it, and ``bucket`` the bundle's scoring
+        bucket from :meth:`_finish_proposals`. A bundle without one (a
+        caller's own) has its count and validity read once here, before the
+        stages."""
+        if bucket is None:
+            props, bucket = read_bucket(props)
+        num_props = props.num
         if num_props == 0:
             # no proposal survived: a miss per sentence (the reference would
             # crash on torch.stack([]))
@@ -490,13 +435,7 @@ class HybridGLPipeline:
                 out.append(SentenceResult(s, -1, -1, 0.0, 0.0))
             return out
 
-        props = self._bucket_props(props)
-        if image_c is None:
-            image_c = upload(sample.image_canonical, self.device)
-        with self._span("crops+fusion"):
-            feats, gem_pf = self._feature_stage(props, image_c, sample.h, sample.w)
-
-        # sticky clamp (reference: Hybridgl_main.py:178-181)
+        # sticky clamp on the host (reference: Hybridgl_main.py:178-181); its values enter the stage as device scalars
         if self.cfg.compat.k_clamp_sticky:
             state.k1 = min(state.k1, num_props)
             state.k2 = min(state.k2, num_props)
@@ -504,24 +443,23 @@ class HybridGLPipeline:
         else:
             k1 = min(self.cfg.guidance.k1, num_props)
             k2 = min(self.cfg.guidance.k2, num_props)
-
-        has_gt = sample.gt_mask is not None
-        gt = (
-            upload(sample.gt_mask, self.device)
-            if has_gt
-            else torch.zeros((C, C), dtype=torch.bool, device=self.device)
-        )
         with self._span("parse+tokenize"):
             rows = [self._row(sentence) for sentence in sample.sentences]
         if not rows:
             return []
-        return self._sentence_stage(sample, props, feats, gem_pf, rows, k1, k2, gt, state)
+        props = self._slice_props(props, bucket)
+        with self._span("crops+fusion"):
+            feats, gem_pf = self._feature_stage(props, sample.image_canonical if image_c is None else image_c,
+                                                (sample.h, sample.w))
+        return self._sentence_stage(sample, props, feats, gem_pf, rows, k1, k2, sample.gt_mask, state)
 
 
 def materialize_results(results: List[SentenceResult]) -> List[SentenceResult]:
-    """Plain Python values in every field (the reference's runner.py:804);
-    the port's results already hold them, so this only normalises types."""
-    return [
-        SentenceResult(r.sentence, int(r.pure_index), int(r.final_index), float(r.pure_iou), float(r.final_iou))
-        for r in results
-    ]
+    """Plain Python values in every field (the reference's runner.py:804),
+    the device scalars of all the results read in one copy: call it at the
+    reporting boundary (once an image), not per field."""
+    scalars = [v for r in results for v in r[1:] if isinstance(v, torch.Tensor)]
+    host = iter(torch.stack([v.double() for v in scalars]).cpu().tolist() if scalars else [])
+    plain = [[next(host) if isinstance(v, torch.Tensor) else v for v in r[1:]] for r in results]
+    return [SentenceResult(r.sentence, int(p), int(f), float(pi), float(fi))
+            for r, (p, f, pi, fi) in zip(results, plain)]

@@ -34,14 +34,16 @@ The warm-up and the capture are set-up, and leave the counters as they found
 them.
 
 Off the card the stage runs eagerly on the same static inputs, as the
-port's plain path does everywhere.
+port's plain path does everywhere. :func:`capture` and :func:`replay` hold
+the warm-up, capture and counting for any stage function; the scoring
+stages' graphs (``pipeline/score_graph.py``) use them too.
 """
 
 from __future__ import annotations
 
 import ctypes
 import time
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -84,6 +86,68 @@ def pool_bytes(graph: torch.cuda.CUDAGraph, device) -> int:
                if seg["device"] == index and tuple(seg["segment_pool_id"]) == pool)
 
 
+class Captured(NamedTuple):
+    """A stage function captured as a CUDA graph, and what its capture cost."""
+
+    graph: torch.cuda.CUDAGraph
+    outputs: object  # the graph's own output buffers, in its private pool
+    warmup_ms: float  # host clock, each
+    capture_ms: float
+    instantiate_ms: float
+    nodes: int
+    pool_bytes: int
+    launches: dict  # {wrapper: launches a replay}
+    tc_launches: dict
+
+    def stats(self) -> dict:
+        return dict(warmup_ms=self.warmup_ms, capture_ms=self.capture_ms, instantiate_ms=self.instantiate_ms,
+                    nodes=self.nodes, pool_bytes=self.pool_bytes,
+                    launches={k: v for k, v in self.launches.items() if v})
+
+
+def capture(fn, device) -> Captured:
+    """Warm ``fn`` (no arguments; it reads and writes tensors that outlive
+    the graph) up eagerly on a side stream, then capture it in a private
+    pool in ``thread_local`` mode and instantiate the graph. A capture that
+    fails raises. The warm-up and the capture leave the kernels' launch
+    counters as they found them; :func:`replay` adds what the capture
+    counted."""
+    counts = _counts()
+    stream = torch.cuda.current_stream(device)
+    side = torch.cuda.Stream(device)
+    side.wait_stream(stream)
+    t0 = time.perf_counter()
+    with torch.cuda.stream(side):
+        fn()
+    stream.wait_stream(side)
+    torch.cuda.synchronize(device)
+    warmup_ms = (time.perf_counter() - t0) * 1e3
+    warm = _counts()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    t0 = time.perf_counter()
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        outputs = fn()
+    capture_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    graph.instantiate()
+    instantiate_ms = (time.perf_counter() - t0) * 1e3
+    captured = _counts()
+    _set_counts(counts)  # the warm-up and the capture are set-up
+    return Captured(graph, outputs, warmup_ms, capture_ms, instantiate_ms, graph_nodes(graph), pool_bytes(graph, device),
+                    {k: captured[k][0] - warm[k][0] for k in captured},
+                    {k: captured[k][1] - warm[k][1] for k in captured})
+
+
+def replay(c: Captured):
+    """Launch a captured graph and add the launches its capture counted: its output buffers."""
+    c.graph.replay()
+    for name, fn in kernel_wrappers().items():
+        fn.launches += c.launches[name]
+        if hasattr(fn, "tc_launches"):
+            fn.tc_launches += c.tc_launches[name]
+    return c.outputs
+
+
 class StageGraph:
     """The proposal stage of one configuration (``cfg``'s SAM and AMG
     settings and canonical size), one set of parameters and one device:
@@ -107,12 +171,7 @@ class StageGraph:
         self.image_1024 = torch.zeros((S, S, 3), dtype=torch.uint8, device=self.device)
         self.image_canonical = torch.zeros((C, C, 3), dtype=torch.uint8, device=self.device) if multicrop else None
         self.geo = torch.zeros((5 if multicrop else 1, 6), dtype=torch.float32, device=self.device)
-        self.graph: Optional[torch.cuda.CUDAGraph] = None
-        self.outputs: Optional[Proposals] = None  # the graph's own output buffers
-        self.captures = 0
-        self.warmup_ms = self.capture_ms = self.instantiate_ms = None
-        self.nodes = self.pool_bytes = None
-        self.launches, self.tc_launches = {}, {}
+        self.captured: Optional[Captured] = None
 
     def launch(self, sample) -> Proposals:
         """The stage of one ``ImageSample`` (its image fields and geometry;
@@ -127,15 +186,21 @@ class StageGraph:
         upload_into(self.geo, geo)
         if self.device.type != "cuda":
             return self.eager()
-        if self.graph is None:
-            self._capture()
-        self.graph.replay()
-        for name, fn in kernel_wrappers().items():
-            fn.launches += self.launches[name]
-            if hasattr(fn, "tc_launches"):
-                fn.tc_launches += self.tc_launches[name]
-        out = self.outputs
+        if self.captured is None:
+            self.captured = capture(self.eager, self.device)
+        out = replay(self.captured)
         return Proposals(*(t.clone() for t in out[:7]), num=out.num.clone(), overflow=out.overflow.clone())
+
+    @property
+    def captures(self) -> int:
+        return int(self.captured is not None)
+
+    def __getattr__(self, name):
+        """The capture's graph, buffers and numbers (``Captured``'s fields): None before it."""
+        if name in Captured._fields:
+            c = self.__dict__.get("captured")
+            return None if c is None else getattr(c, name)
+        raise AttributeError(name)
 
     def eager(self) -> Proposals:
         """The stage run eagerly on the loaded inputs, the kernels counting
@@ -145,38 +210,9 @@ class StageGraph:
         return proposal_stage(self.sam_params, self.image_1024, self.image_canonical, self.geo, self.consts,
                               cfg.sam, cfg.amg, cfg.canonical_size)
 
-    def _capture(self) -> None:
-        """Warm the stage up on a side stream, then capture and instantiate it."""
-        counts = _counts()
-        stream = torch.cuda.current_stream(self.device)
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(stream)
-        t0 = time.perf_counter()
-        with torch.cuda.stream(side):
-            self.eager()
-        stream.wait_stream(side)
-        torch.cuda.synchronize(self.device)
-        self.warmup_ms = (time.perf_counter() - t0) * 1e3
-        warm = _counts()
-        graph = torch.cuda.CUDAGraph(keep_graph=True)
-        t0 = time.perf_counter()
-        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-            outputs = self.eager()
-        self.capture_ms = (time.perf_counter() - t0) * 1e3
-        t0 = time.perf_counter()
-        graph.instantiate()
-        self.instantiate_ms = (time.perf_counter() - t0) * 1e3
-        captured = _counts()
-        self.launches = {k: captured[k][0] - warm[k][0] for k in captured}
-        self.tc_launches = {k: captured[k][1] - warm[k][1] for k in captured}
-        _set_counts(counts)  # the warm-up and the capture are set-up
-        self.graph, self.outputs = graph, outputs
-        self.nodes = graph_nodes(graph)
-        self.pool_bytes = pool_bytes(graph, self.device)
-        self.captures += 1
-
     def stats(self) -> dict:
         """The capture's numbers, for the tools (None before the capture)."""
-        return dict(captures=self.captures, warmup_ms=self.warmup_ms, capture_ms=self.capture_ms,
-                    instantiate_ms=self.instantiate_ms, nodes=self.nodes, pool_bytes=self.pool_bytes,
-                    launches={k: v for k, v in self.launches.items() if v})
+        if self.captured is None:
+            return dict(captures=0, warmup_ms=None, capture_ms=None, instantiate_ms=None, nodes=None,
+                        pool_bytes=None, launches={})
+        return dict(captures=1, **self.captured.stats())

@@ -115,7 +115,7 @@ def _stage_device_ms(pipe, sample) -> tuple[float, dict]:
         props = box["props"]
         image_c = torch.from_numpy(sample.image_canonical).to(pipe.device)
         gt = torch.from_numpy(sample.gt_mask).to(pipe.device)
-        out["feature"] = _device_ms(lambda: box.update(f=pipe._feature_stage(props, image_c, sample.h, sample.w)))
+        out["feature"] = _device_ms(lambda: box.update(f=pipe._feature_stage(props, image_c, (sample.h, sample.w))))
         rows = [pipe._row(s) for s in sample.sentences]
         k1, k2 = min(pipe.cfg.guidance.k1, props.num), min(pipe.cfg.guidance.k2, props.num)
         out["sentence"] = _device_ms(lambda: pipe._sentence_stage(sample, props, *box["f"], rows, k1, k2, gt, pipe.init_state()))

@@ -19,7 +19,10 @@ the proposal dispatch's host ms from the call to its return against the
 device ms it queues, and, where the tree captures its proposal stage as a
 CUDA graph, the capture's numbers (warm-up, capture and instantiate ms,
 nodes, pool bytes) and the stage's kernel time under a replay and an eager
-run (:func:`stage_graph_report`). Both paths
+run (:func:`stage_graph_report`); and the scoring call of a finished bundle:
+its reads and syncs by call site, its host ms to return beside the device ms
+it queues, and, where the tree captures the scoring stages, each graph's
+numbers (:func:`score_graph_report`). Both paths
 are host bound, so a kernel's gain shows in the device time long before it
 shows in ms per image. Uses only the package's public entry points, so the
 same file times an older tree when copied into it. Needs a CUDA card.
@@ -302,6 +305,73 @@ def stage_graph_report(pipe, sample, log=print) -> dict:
     return out
 
 
+def _finished(pipe, sample):
+    """One image's proposal dispatch and finish, the card drained after:
+    (bundle, canonical image on the device, scoring bucket; None on trees
+    whose finish gives the bundle alone)."""
+    handoff, image_c = pipe._dispatch_proposals(sample)
+    out = pipe._finish_proposals(handoff, (sample.h, sample.w))
+    props, bucket = (out, None) if hasattr(out, "masks") else out
+    torch.cuda.synchronize()
+    return props, image_c, bucket
+
+
+def _score(pipe, sample, finished, state):
+    """``_score_image`` of a finished bundle, as ``run_image`` calls it."""
+    props, image_c, bucket = finished
+    return pipe._score_image(sample, props, state, image_c, **({} if bucket is None else dict(bucket=bucket)))
+
+
+def score_ms(pipe, sample, n: int = 5, finished=None):
+    """The scoring call (feature and sentence stages, queued) ``n`` times on
+    one finished bundle, the card drained between calls: ([host ms from the
+    call to its return], [device ms from the first to the last work it
+    queued, CUDA events])."""
+    finished = finished or _finished(pipe, sample)
+    host, device = [], []
+    for _ in range(n):
+        state = pipe.init_state()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        t0 = time.perf_counter()
+        _score(pipe, sample, finished, state)
+        host.append((time.perf_counter() - t0) * 1e3)
+        end.record()
+        torch.cuda.synchronize()
+        device.append(start.elapsed_time(end))
+    return host, device
+
+
+def score_graph_report(pipe, sample, log=print) -> dict:
+    """The scoring call of one finished bundle (``_score_image``, as
+    ``run_image`` makes it): its reads to the host and stream
+    synchronisations by call site, its host ms to return beside the device
+    ms it queues (:func:`score_ms`), and, where the tree captures the
+    scoring stages (``pipe.scorer``, a ``pipeline/score_graph.py:ScoreGraph``),
+    each graph's warm-up, capture and instantiate ms, nodes and pool bytes."""
+    finished = _finished(pipe, sample)
+    fn = lambda: _score(pipe, sample, finished, pipe.init_state())  # noqa: E731
+    fn()  # a warm-up: the first image of a key captures its graphs
+    torch.cuda.synchronize()
+    log("  the scoring call alone (feature + sentence stages of a finished bundle):")
+    reads, syncs = host_reads(fn, log=log), host_syncs(fn, log=log)
+    host, device = score_ms(pipe, sample, finished=finished)
+    log(f"  scoring call: host ms to return {[round(t, 3) for t in host]}, device ms queued "
+        f"{[round(t, 3) for t in device]}; reads {sum(n for _, n, _ in reads)}, syncs {sum(n for _, n in syncs)}")
+    out = dict(reads=reads, syncs=syncs, score_host_ms=host, score_device_ms=device, graphs={})
+    scorer = getattr(pipe, "scorer", None)
+    if scorer is None:
+        log("  no captured scoring stages in this tree")
+        return out
+    out["graphs"] = scorer.stats()
+    for key, st in out["graphs"].items():
+        log(f"  score graph {key}: warm-up {st['warmup_ms']:.1f} ms, capture {st['capture_ms']:.1f} ms, instantiate "
+            f"{st['instantiate_ms']:.1f} ms, {st['nodes']} nodes, pool {st['pool_bytes']} bytes, launches a replay "
+            f"{st['launches']}")
+    return out
+
+
 def busy_share(pipe, samples, pipelined: bool) -> dict:
     """``samples`` through ``run_dataset`` (``pipelined``) or one
     ``run_image`` an image, under torch.profiler (device activity only):
@@ -401,6 +471,7 @@ def main(argv=None) -> int:
             host_reads(lambda: pipe._dispatch_proposals(samples[3]), log=say)
             host_syncs(lambda: pipe._dispatch_proposals(samples[3]), log=say)
             stage_graph_report(pipe, samples[3], log=say)
+            score_graph_report(pipe, samples[3], log=say)
         compare_busy_share(pipe, samples[4:7], log=say)
     return 0
 

@@ -63,7 +63,7 @@ def _stage_fn(stage: str, sam_model: str):
         z = torch.zeros(P, device="cuda")
         return img, Proposals(masks, torch.zeros((P, 4), device="cuda"), z, z, torch.zeros((P, 2), device="cuda"), z, z > -1, P)
 
-    return (lambda x: feature_stage(cfg, clip_params, x[1], x[0], h, w)), [one() for _ in range(CALLS + 1)]
+    return (lambda x: feature_stage(cfg, clip_params, x[1].masks, x[0], (h, w))), [one() for _ in range(CALLS + 1)]
 
 
 def capture(out_dir: str, stage: str, sam_model: str) -> str:

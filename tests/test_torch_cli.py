@@ -82,7 +82,8 @@ def test_run_dataset_matches_run_image(port_pipeline):
     image (as tests/test_run_dataset.py for the reference)."""
     samples = [make_sample(runner, seed) for seed in (0, 1, 2)]
     state_a = port_pipeline.init_state()
-    seq = [(port_pipeline.run_image(s, state_a), port_pipeline.last_proposals) for s in samples]
+    seq = [(runner.materialize_results(port_pipeline.run_image(s, state_a)), port_pipeline.last_proposals)
+           for s in samples]
     state_b = port_pipeline.init_state()
     piped = list(port_pipeline.run_dataset(iter(samples), state_b, yield_props=True))
     assert len(piped) == len(seq) == 3

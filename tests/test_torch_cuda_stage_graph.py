@@ -18,7 +18,7 @@ from hybridgl_tpu_torch.core.params import init_clip, init_sam, tree_map
 from hybridgl_tpu_torch.kernels import launch_counts, reset_launch_counts
 from hybridgl_tpu_torch.lang import HeuristicParser
 from hybridgl_tpu_torch.models.sam import amg
-from hybridgl_tpu_torch.pipeline.runner import HybridGLPipeline, ImageSample
+from hybridgl_tpu_torch.pipeline.runner import HybridGLPipeline, ImageSample, materialize_results
 from hybridgl_tpu_torch.pipeline.stage_graph import StageGraph
 from hybridgl_tpu_torch.tools.dryrun import TinyVocabTokenizer
 
@@ -126,11 +126,11 @@ def test_run_dataset_through_the_graph_equals_run_image(dev, name):
     want_state, got_state = pipe.init_state(), pipe.init_state()
     want = []
     for s in samples:
-        want.append((pipe.run_image(s, want_state), pipe.last_proposals))
+        want.append((materialize_results(pipe.run_image(s, want_state)), pipe.last_proposals))
     got = list(pipe.run_dataset(iter(samples), got_state, yield_props=True))
     assert pipe.stage.captures == 1
     for (_, results, props), (want_results, want_props) in zip(got, want):
-        assert results == want_results
+        assert materialize_results(results) == want_results
         _assert_same_bundle(props, want_props)
     for a, b in ((got_state.pure, want_state.pure), (got_state.final, want_state.final)):
         assert [float(v) for v in a] == [float(v) for v in b]

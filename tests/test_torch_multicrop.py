@@ -109,7 +109,7 @@ def test_run_image_multicrop_matches_jax():
                                         parser=PortHeuristicParser(), tokenizer=WordTokenizer(), device="cpu")
     js, ts = jax_pipe.init_state(), port_pipe.init_state()
     want = jrunner.materialize_results(jax_pipe.run_image(make_sample(jrunner, 5), js))
-    got = port_pipe.run_image(make_sample(runner, 5), ts)
+    got = runner.materialize_results(port_pipe.run_image(make_sample(runner, 5), ts))
     props, want_props = port_pipe.last_proposals, jax_pipe.propose(make_sample(jrunner, 5))
     assert props.num == int(want_props.num) and props.num > 0
     np.testing.assert_array_equal(props.valid.numpy(), np.asarray(want_props.valid))

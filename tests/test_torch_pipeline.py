@@ -103,7 +103,7 @@ def test_run_image_matches_jax(pipelines):
     js, ts = jax_pipe.init_state(), port_pipe.init_state()
     for seed in (0, 1):
         want = jrunner.materialize_results(jax_pipe.run_image(make_sample(jrunner, seed), js))
-        got = port_pipe.run_image(make_sample(runner, seed), ts)
+        got = runner.materialize_results(port_pipe.run_image(make_sample(runner, seed), ts))
         assert [(r.pure_index, r.final_index) for r in got] == [(r.pure_index, r.final_index) for r in want]
         for a, b in zip(got, want):
             assert abs(a.pure_iou - b.pure_iou) <= 1e-4 and abs(a.final_iou - b.final_iou) <= 1e-4
@@ -119,7 +119,7 @@ def test_run_image_l2g_matches_jax():
     js, ts = jax_pipe.init_state(), port_pipe.init_state()
     for seed in (0, 1):
         want = jrunner.materialize_results(jax_pipe.run_image(make_sample(jrunner, seed), js))
-        got = port_pipe.run_image(make_sample(runner, seed), ts)
+        got = runner.materialize_results(port_pipe.run_image(make_sample(runner, seed), ts))
         assert port_pipe.last_proposals.num > 0
         assert [(r.pure_index, r.final_index) for r in got] == [(r.pure_index, r.final_index) for r in want]
         for a, b in zip(got, want):
@@ -184,7 +184,7 @@ def test_score_image_matches_jax_on_synthetic_proposals(pipelines):
     want = jrunner.materialize_results(
         jax_pipe._score_image(sample_j, synthetic_props(jamg, jax.numpy.asarray), js)
     )
-    got = port_pipe._score_image(sample_t, synthetic_props(tamg, torch.from_numpy), ts)
+    got = runner.materialize_results(port_pipe._score_image(sample_t, synthetic_props(tamg, torch.from_numpy), ts))
     assert [(r.pure_index, r.final_index) for r in got] == [(r.pure_index, r.final_index) for r in want]
     assert len({r.final_index for r in got}) > 1  # the bundle is not degenerate
     for a, b in zip(got, want):

@@ -100,8 +100,9 @@ def test_batched_sentences_run_image_matches_the_loop(pipelines):
     want = []
     for seed in (0, 1):
         sample = make_sample(runner, seed)
-        want.append([r for s in sample.sentences for r in port_pipe.run_image(sample._replace(sentences=[s]), a)])
-    got = [port_pipe.run_image(make_sample(runner, seed), b) for seed in (0, 1)]
+        want.append([r for s in sample.sentences
+                     for r in runner.materialize_results(port_pipe.run_image(sample._replace(sentences=[s]), a))])
+    got = [runner.materialize_results(port_pipe.run_image(make_sample(runner, seed), b)) for seed in (0, 1)]
     for g, w in zip(got, want):
         assert picks(g) == picks(w) and [r.sentence for r in g] == [r.sentence for r in w]
     np.testing.assert_allclose(sums(b), sums(a), rtol=1e-6, atol=1e-5)
@@ -181,13 +182,13 @@ def test_survival_hook_replaces_the_bundle_as_in_jax(pipelines):
         port_pipe.survival_hook = hook
         jax_pipe.survival_hook = lambda props: synthetic_props(jamg, jax.numpy.asarray)
         state = port_pipe.init_state()
-        got = port_pipe.run_image(sample, state)
+        got = runner.materialize_results(port_pipe.run_image(sample, state))
         assert len(seen) == 1 and seen[0] > 0 and port_pipe.last_proposals.num == 6
         agree(got, want, state, want_state)
         state_d = port_pipe.init_state()
         (_, piped), = list(port_pipe.run_dataset(iter([sample]), state_d))
         assert len(seen) == 2
-        agree(piped, want, state_d, want_state)
+        agree(runner.materialize_results(piped), want, state_d, want_state)
         js = jax_pipe.init_state()
         ref = jrunner.materialize_results(
             jax_pipe.run_image(make_sample(jrunner, 3)._replace(sentences=SENTENCES), js))
@@ -252,8 +253,8 @@ def test_device_cleanup_matches_the_host_pass_and_jax(cleanup_pipelines, seed):
     assert torch.equal(got.masks, want.masks & want.valid[:, None, None])
     np.testing.assert_array_equal(got.masks.numpy(), np.asarray(ref.masks))
     a, b, js = host.init_state(), host.init_state(), jax_device.init_state()
-    r_host = host.run_image(sample, a)
-    r_dev = host._score_image(sample, got, b)
+    r_host = runner.materialize_results(host.run_image(sample, a))
+    r_dev = runner.materialize_results(host._score_image(sample, got, b))
     r_jax = jrunner.materialize_results(jax_device.run_image(make_sample(jrunner, seed), js))
     agree(r_dev, r_host, b, a)
     agree(r_dev, r_jax, b, js)
@@ -327,7 +328,8 @@ def test_device_cleanup_switch_in_run_image(cleanup_pipelines, monkeypatch, seed
     monkeypatch.setattr(pipe, "_cleanup_host", lambda *a: pytest.fail("the runner took the host pass"))
     sample = make_sample(runner, seed)
     a, b, js = host.init_state(), pipe.init_state(), jax_device.init_state()
-    r_host, r_dev = host.run_image(sample, a), pipe.run_image(sample, b)
+    r_host = runner.materialize_results(host.run_image(sample, a))
+    r_dev = runner.materialize_results(pipe.run_image(sample, b))
     r_jax = jrunner.materialize_results(jax_device.run_image(make_sample(jrunner, seed), js))
     assert pipe.last_proposals.num == host.last_proposals.num
     assert torch.equal(pipe.last_proposals.valid, host.last_proposals.valid)
@@ -351,7 +353,7 @@ def test_device_cleanup_switch_on_stamped_survivors(cleanup_pipelines, monkeypat
     for name, p in (("host", host), ("device", pipe)):
         monkeypatch.setattr(p, "_launch_proposals", stamp)
         state = p.init_state()
-        out[name] = (p.run_image(sample, state), state, p.last_proposals)
+        out[name] = (runner.materialize_results(p.run_image(sample, state)), state, p.last_proposals)
     (r_host, s_host, p_host), (r_dev, s_dev, p_dev) = out["host"], out["device"]
     raw = stamp(None)
     assert not torch.equal(p_host.masks & p_host.valid[:, None, None], raw.masks), "the cleanup changed nothing"

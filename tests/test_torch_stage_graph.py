@@ -252,13 +252,13 @@ def test_run_dataset_equals_run_image_over_mixed_sizes(amg_cfg):
     want_state, got_state = pipe.init_state(), pipe.init_state()
     want = []
     for s in samples:
-        results = pipe.run_image(s, want_state)
+        results = runner.materialize_results(pipe.run_image(s, want_state))
         want.append((results, pipe.last_proposals))
     got = list(pipe.run_dataset(iter(samples), got_state, yield_props=True))
     assert [s for s, _, _ in got] == samples
     assert any(int(p.num) > 0 for _, p in want)
     for (_, results, props), (want_results, want_props) in zip(got, want):
-        assert results == want_results
+        assert runner.materialize_results(results) == want_results
         assert int(props.num) == int(want_props.num)
         for name in amg.Proposals._fields[:7]:
             assert torch.equal(getattr(props, name), getattr(want_props, name)), name
