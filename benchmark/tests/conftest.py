@@ -1,0 +1,12 @@
+"""CPU tests of the benchmark harness. Card tests are marked ``cuda`` and
+skip without a card (decided inside the test, never at import)."""
+
+import os
+import sys
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+sys.path[:0] = [os.path.dirname(HERE), os.path.dirname(os.path.dirname(HERE)), HERE]
+
+
+def pytest_configure(config):
+    config.addinivalue_line("markers", "cuda: needs a CUDA card (skips without one)")
