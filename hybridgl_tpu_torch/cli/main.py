@@ -14,8 +14,10 @@ than falling back. Parameters are cast to ``PipelineConfig.compute_dtype``
 (bf16 by default). Checkpoints are the converted ``.npz`` archives or the
 published torch ``.pth``/``.pt`` files (converted on the fly by
 ``core/convert.py``); an orbax directory is refused. ``--profile`` prints the
-per-stage wall times of ``utils/profiling.py:StageTimer``, then the top
-operators of torch.profiler.
+per-stage host times of ``utils/profiling.py:StageTimer`` (and on the card
+each span's stream and gap ms, read without a synchronisation), then the top
+operators of torch.profiler; ``--trace_dir`` writes the profiler's chrome
+trace, the stage spans named in it.
 
 ``--data_parallel`` shards the images over one process per device
 (``parallel/full_eval.py`` over ``torch.distributed``) and gives the
@@ -84,8 +86,8 @@ def default_argument_parser(epilog=None) -> argparse.ArgumentParser:
     p.add_argument("--parity_log", default="", help="write per-ref selection log here")
     p.add_argument("--progress_file", default="", help="checkpoint/resume eval progress")
     p.add_argument("--no-bug-compat", action="store_true", help="disable reference quirk reproduction")
-    p.add_argument("--profile", action="store_true", help="print wall time per pipeline stage (device synchronised after each), then the top operators")
-    p.add_argument("--trace_dir", default="", help="write a torch.profiler chrome trace here")
+    p.add_argument("--profile", action="store_true", help="print host time per pipeline stage (and on the card its stream and gap time), then the top operators")
+    p.add_argument("--trace_dir", default="", help="write a torch.profiler chrome trace, the stages named, here")
     p.add_argument("--data_parallel", action="store_true",
                    help="shard the eval over all local devices (one process each; see the module docstring)")
     # the port's addition
@@ -201,10 +203,10 @@ def main(argv=None) -> None:
     # name the active expression parser: a silent heuristic fallback would
     # change selections against the reference
     print(f"expression parser: {type(pipe.parser).__name__}", flush=True)
-    if args.profile:
+    if args.profile or args.trace_dir:
         from ..utils.profiling import StageTimer
 
-        pipe.timer = StageTimer(block=True, device=device)
+        pipe.timer = StageTimer(block=False, device=device)  # names the stages in the trace; no sync a span
 
     state = pipe.init_state()
     progress = ProgressCheckpoint(args.progress_file or None)

@@ -60,6 +60,10 @@ stays the default.
 stage: a benchmarking knob, whose bundle's count and validity are read once
 to size its bucket, before the scoring stages, as are those of a bundle a
 caller passes to ``_score_image`` itself.
+``timer``, where set (``utils/profiling.py:StageTimer``), times the reference's
+stage spans, and a ``host_wait`` span around each place where the host waits
+on the device: the hand-off's wait, the rows past its prefetched head, and a
+bundle whose count and validity are read from the device.
 """
 
 from __future__ import annotations
@@ -135,11 +139,13 @@ class PipelineState:
     final: IoUAccum
 
 
-def cleanup_host(cfg: PipelineConfig, props: Proposals, hw, device, handoff: Optional[Handoff] = None) -> Proposals:
+def cleanup_host(cfg: PipelineConfig, props: Proposals, hw, device, handoff: Optional[Handoff] = None,
+                 wait=contextlib.nullcontext) -> Proposals:
     """The small-region cleanup, the native host pass, on the live rows of
     the bundle's hand-off (``handoff``, made here from ``props`` when not
     given; the reference's runner.py:424-486): the packed rows up to the last
     live one are unpacked into this call's own buffer and cleaned in place.
+    ``wait()`` encloses the host's wait for rows past the prefetched head.
     When nothing changed, ``props``' tensors come back as they are; else the
     live rows are packed again, uploaded and unpacked on the device, and the
     rows past the last live one are empty, and the hand-off's meta buffer
@@ -154,7 +160,9 @@ def cleanup_host(cfg: PipelineConfig, props: Proposals, hw, device, handoff: Opt
     n_live = int(live[-1]) + 1 if live.size else 0
     masks = np.zeros((P, C, C), np.uint8)
     if n_live:
-        masks[:n_live] = np.unpackbits(fetch_rows(handoff, n_live), axis=-1, count=C)
+        with wait() if n_live > handoff.head.shape[0] else contextlib.nullcontext():  # rows past the head
+            rows = fetch_rows(handoff, n_live)
+        masks[:n_live] = np.unpackbits(rows, axis=-1, count=C)
     a = handoff.aux.numpy()
     host = Proposals(masks.view(np.bool_), a[: 4 * P].reshape(P, 4), a[4 * P : 5 * P], a[5 * P : 6 * P],
                      a[6 * P : 8 * P].reshape(P, 2), a[8 * P :], valid, num=props.num, overflow=props.overflow)
@@ -229,7 +237,7 @@ class HybridGLPipeline:
         self._sentence_rows = {}  # sentence -> parsed/tokenized row cache
         self.last_proposals: Optional[Proposals] = None  # run_image's bundle, for inspection
         self._warned_overflow = False
-        self.timer = None  # optional utils.profiling.StageTimer: per-stage wall times
+        self.timer = None  # optional utils.profiling.StageTimer: per-stage wall times (and stream times on the card)
         self.survival_hook = None  # optional Proposals -> Proposals override after the proposal stage
         self._device_cleanup = cleanup_on_device()  # HYBRIDGL_CLEANUP=device, read once as the reference does
 
@@ -278,7 +286,8 @@ class HybridGLPipeline:
         the survival hook. -> (the bundle, ``num`` an int, and its scoring
         bucket, from the meta buffer's validity)."""
         cfg = self.cfg
-        props, _ = receive(handoff)
+        with self._span("host_wait"):
+            props, _ = receive(handoff)
         if props.overflow > 0 and not self._warned_overflow:
             # the reference keeps every NMS survivor; a full bucket drops some
             warnings.warn(
@@ -295,7 +304,7 @@ class HybridGLPipeline:
                     if self._device_cleanup:
                         props, host_valid = cleanup_device(cfg, props, hw, self.device), False
                     else:
-                        props = self._cleanup_host(props, hw, handoff)
+                        props = self._cleanup_host(props, hw, handoff, lambda: self._span("host_wait"))
         if self.survival_hook is not None:
             # benchmarking and testing knob: random weights leave degenerate
             # NMS survival, a hook sets a representative bucket occupancy
@@ -303,10 +312,19 @@ class HybridGLPipeline:
         # a bundle the meta buffer does not describe (the survival hook's, or
         # cleaned on the device, whose validity the reference's runner reads
         # back too) is read once, here
-        return (props, meta_bucket(handoff)) if host_valid else read_bucket(props)
+        return (props, meta_bucket(handoff)) if host_valid else self._read_bucket(props)
 
-    def _cleanup_host(self, props: Proposals, hw, handoff: Optional[Handoff] = None) -> Proposals:
-        return cleanup_host(self.cfg, props, hw, self.device, handoff)
+    def _cleanup_host(self, props: Proposals, hw, handoff: Optional[Handoff] = None,
+                      wait=contextlib.nullcontext) -> Proposals:
+        return cleanup_host(self.cfg, props, hw, self.device, handoff, wait)
+
+    def _read_bucket(self, props: Proposals):
+        """:func:`read_bucket`, in a ``host_wait`` span where it reads a tensor
+        on the pipeline's device (a host ``num`` and ``valid`` are no wait)."""
+        on_device = any(isinstance(v, torch.Tensor) and v.device.type == self.device.type
+                        for v in (props.num, props.valid))
+        with self._span("host_wait") if on_device else contextlib.nullcontext():
+            return read_bucket(props)
 
     @staticmethod
     def _bucket_props(props: Proposals) -> Proposals:
@@ -421,7 +439,7 @@ class HybridGLPipeline:
         caller's own) has its count and validity read once here, before the
         stages."""
         if bucket is None:
-            props, bucket = read_bucket(props)
+            props, bucket = self._read_bucket(props)
         num_props = props.num
         if num_props == 0:
             # no proposal survived: a miss per sentence (the reference would

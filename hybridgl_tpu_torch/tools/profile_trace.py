@@ -7,10 +7,14 @@ reference's tools/profile_trace.py).
 ``--out`` runs the stage three times under torch.profiler after a warm-up
 (full width, random bf16 weights from seed 0, the AMG's quality thresholds
 zeroed) and writes ``trace.json`` (a chrome trace) there; it needs a CUDA
-card. ``--stage image`` is one whole ``run_image``
-(``tools/device_time.py:profile_image``, which also prints its ranking).
-``--parse`` reads a written trace (no card needed) and prints the device time
-a call by category (kernels, copies) and by operation name.
+card. ``--stage image`` is one whole ``run_image`` a call with the pipeline's
+``StageTimer`` on, so the trace names its spans (it also prints the timer's
+summary). ``--parse`` reads a written trace (no card needed) and prints the
+device time a call by category (kernels, copies), by operation name, and by
+program span: each device item goes to the innermost span open around the
+runtime call that launched it (the trace's correlation id; a kernel of a
+replayed CUDA graph to its ``cudaGraphLaunch``), with each span's top
+operations.
 """
 
 from __future__ import annotations
@@ -95,28 +99,71 @@ def capture(out_dir: str, stage: str, sam_model: str) -> str:
     with torch.inference_mode():
         fn(inputs[0])  # warm-up
         torch.cuda.synchronize()
+        if stage == "image":
+            from ..utils.profiling import StageTimer
+
+            pipe.timer = StageTimer(block=False, device="cuda")
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for x in inputs[1:]:
                 fn(x)
             torch.cuda.synchronize()
+    if stage == "image":
+        print(pipe.timer.summary(), flush=True)
     prof.export_chrome_trace(path)
     print(f"trace: {path} ({stage}, {CALLS} calls)", flush=True)
     return path
 
 
+NO_SPAN = "(no span)"
+
+
+def launch_spans(events) -> dict:
+    """{correlation id: the program span path (``parent/name``) open around
+    the runtime call with that id, innermost last, or ``NO_SPAN``}. Spans are
+    the trace's ``user_annotation`` ranges on the call's thread; a name
+    opened twice in a row (a caller's range around the program's own) is
+    one step of the path."""
+    by_thread = collections.defaultdict(list)
+    for ev in events:
+        if ev.get("ph") != "X":
+            continue
+        if ev.get("cat") == "user_annotation":
+            by_thread[(ev.get("pid"), ev.get("tid"))].append((ev["ts"], 0, ev["ts"] + ev["dur"], ev["name"]))
+        elif ev.get("cat") in ("cuda_runtime", "cuda_driver") and "correlation" in ev.get("args", {}):
+            by_thread[(ev.get("pid"), ev.get("tid"))].append((ev["ts"], 1, ev["args"]["correlation"], None))
+    out = {}
+    for items in by_thread.values():
+        items.sort(key=lambda it: (it[0], it[1], -it[2]))  # a span before a call at its start, outer spans first
+        stack = []  # (end, name) of the open spans
+        for ts, kind, value, name in items:
+            while stack and stack[-1][0] <= ts:
+                stack.pop()
+            if kind == 0:
+                stack.append((value, name))
+                continue
+            path = [n for i, (_, n) in enumerate(stack) if i == 0 or stack[i - 1][1] != n]
+            out[value] = "/".join(path) if path else NO_SPAN
+    return out
+
+
 def parse(trace_dir: str, top: int = 20, calls: int = CALLS) -> dict:
-    """Device time a call by category and by operation of a written trace."""
+    """Device time a call by category, by operation and by program span of a written trace."""
     path = trace_dir if trace_dir.endswith(".json") else os.path.join(trace_dir, "trace.json")
     if not os.path.exists(path):
         raise SystemExit(f"no trace.json under {trace_dir}")
     with open(path) as f:
         events = json.load(f)["traceEvents"]
+    spans = launch_spans(events)
     cat, ops = collections.Counter(), collections.Counter()
+    by_span, span_ops = collections.Counter(), collections.defaultdict(collections.Counter)
     for ev in events:
         if ev.get("ph") == "X" and ev.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"):
             ms = ev["dur"] / 1e3
             cat[ev["cat"]] += ms
             ops[ev["name"][:90]] += ms
+            span = spans.get(ev.get("args", {}).get("correlation"), NO_SPAN)
+            by_span[span] += ms
+            span_ops[span][ev["name"][:90]] += ms
     total = sum(cat.values())
     print(f"== device: {total / calls:.1f} ms/call over {calls} calls")
     print("-- by category:")
@@ -125,7 +172,14 @@ def parse(trace_dir: str, top: int = 20, calls: int = CALLS) -> dict:
     print("-- top operations:")
     for k, v in ops.most_common(top):
         print(f"  {v / calls:8.2f} ms/call  {k}")
-    return {"total_ms_per_call": total / calls, "by_category": dict(cat), "by_operation": dict(ops)}
+    spanned = total - by_span.get(NO_SPAN, 0.0)
+    print(f"-- by program span ({100 * spanned / (total or 1e-9):.1f}% of the device time under a span):")
+    for k, v in by_span.most_common():
+        print(f"  {v / calls:8.2f} ms/call  {k}")
+        for name, t in span_ops[k].most_common(5):
+            print(f"      {t / calls:8.2f} ms/call  {name}")
+    return {"total_ms_per_call": total / calls, "by_category": dict(cat), "by_operation": dict(ops),
+            "by_span": dict(by_span), "by_span_operation": {k: dict(v) for k, v in span_ops.items()}}
 
 
 def main(argv=None) -> int:

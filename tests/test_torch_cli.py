@@ -154,7 +154,7 @@ def tiny_cli_args(refer_root, tmp_path, *extra):
 def test_cli_end_to_end(refer_root, tmp_path, monkeypatch):
     """The port's CLI on CPU runs the synthetic set to the end: both result
     rows, one parity record per sentence, the progress file, the overlays
-    and a profiler trace."""
+    and a profiler trace that names the stage spans."""
     monkeypatch.chdir(tmp_path)
     parity, progress = str(tmp_path / "parity.json"), str(tmp_path / "progress.json")
     cli_main(tiny_cli_args(refer_root, tmp_path, "--parity_log", parity, "--progress_file", progress,
@@ -166,7 +166,8 @@ def test_cli_end_to_end(refer_root, tmp_path, monkeypatch):
         log = json.load(f)
     assert [r["sentence"] for r in log["records"]] == ["the left square"]
     assert log["records"][0]["ref_id"] == 101
-    assert os.path.exists(tmp_path / "trace" / "trace.json")
+    trace = (tmp_path / "trace" / "trace.json").read_text()
+    assert all(f'"{name}"' in trace for name in ("proposals_dispatch", "host_wait", "crops+fusion", "sentence_stage"))
     if log["records"][0]["final_index"] >= 0:
         assert len(os.listdir(tmp_path / "logs" / "results_viz")) == 1
 

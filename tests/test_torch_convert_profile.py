@@ -18,7 +18,7 @@ from hybridgl_tpu.core import convert as jax_convert
 from hybridgl_tpu.utils.profiling import StageTimer as JaxStageTimer
 from hybridgl_tpu_torch.core import checkpoint, convert
 from hybridgl_tpu_torch.core.params import from_numpy_tree, init_clip, init_sam
-from hybridgl_tpu_torch.utils.profiling import StageTimer, capture_trace, trace_span
+from hybridgl_tpu_torch.utils.profiling import StageTimer
 
 from torch_port_config import to_port
 from torch_ref import make_tiny_clip
@@ -172,6 +172,28 @@ def test_stage_timer_summary_equals_reference():
     assert StageTimer().summary() == JaxStageTimer().summary()  # the empty table: the header alone
 
 
+def test_stage_timer_summary_keeps_reference_rows_beside_stream_times():
+    """Spans timed on the stream leave the host table the reference's, line for
+    line, and add a table of stream and gap ms a span after it."""
+    got, want = StageTimer(), JaxStageTimer()
+    for name, total, count in (("proposals_dispatch", 0.25, 4), ("host_wait", 0.001, 4), ("crops+fusion", 0.125, 4)):
+        for t in (got, want):
+            t.totals[name] += total
+            t.counts[name] += count
+    for key, total, count in (("proposals_dispatch@device", 0.16, 4), ("proposals_dispatch@gap", 0.02, 3),
+                              ("crops+fusion@device", 0.12, 4), ("crops+fusion@gap", 0.0004, 4),
+                              ("small_region_cleanup/host_wait@device", 0.00002, 1)):
+        got.totals[key] += total
+        got.counts[key] += count
+    lines, ref = got.summary().splitlines(), want.summary().splitlines()
+    assert lines[: len(ref)] == ref
+    stream = lines[len(ref):]
+    assert stream[0].split() == ["stage", "on", "the", "stream", "calls", "stream_ms", "gap_ms"]
+    assert stream[1].split() == ["proposals_dispatch", "4", "40.00", "6.67"]
+    assert stream[2].split() == ["crops+fusion", "4", "30.00", "0.10"]
+    assert stream[3].split() == ["small_region_cleanup/host_wait", "1", "0.02"]  # nested: no gap
+
+
 @pytest.mark.parametrize("block", [False, True])
 def test_stage_timer_span_accumulates(block):
     """On the CPU block=True has nothing to wait for and must not raise."""
@@ -184,19 +206,11 @@ def test_stage_timer_span_accumulates(block):
     assert t.counts == {"a": 3, "b": 1} and t.totals["a"] >= 0.0
 
 
-def test_trace_span_and_capture_trace(tmp_path):
-    with capture_trace(None):  # no directory: nothing written
-        pass
-    with capture_trace(str(tmp_path / "trace")):
-        with trace_span("stage_under_test"):
-            torch.ones(4).sum()
-    assert "stage_under_test" in (tmp_path / "trace" / "trace.json").read_text()
-
-
 @pytest.mark.parametrize("entry", ["run_image", "run_dataset"])
 def test_pipeline_timer_records_reference_stage_names(entry):
     """A tiny-config run with a timer records the reference's stage names for
-    that entry point (hybridgl_tpu/pipeline/runner.py), and none without one."""
+    that entry point (hybridgl_tpu/pipeline/runner.py), and none without one,
+    and the port's ``host_wait``: the hand-off's one wait an image."""
     from hybridgl_tpu_torch.core.config import tiny_smoke_config
     from hybridgl_tpu_torch.pipeline.runner import HybridGLPipeline, ImageSample
 
@@ -224,4 +238,5 @@ def test_pipeline_timer_records_reference_stage_names(entry):
     assert dict(pipe.timer.counts) == {
         first: n, "small_region_cleanup": n, "crops+fusion": n, "parse+tokenize": n,
         "sentence_stage": n,  # both sentences of an image go through one batched stage
+        "host_wait": n,
     }
