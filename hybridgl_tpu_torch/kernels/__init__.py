@@ -3,8 +3,9 @@
 ``flash_attention``, ``clip_attention``, ``pass1_stats``, ``decoder_attn``,
 ``decoder_attn_t2i``, ``decoder_pass`` and ``upscale_hyper`` wrap the
 hand-written CUDA kernels in ``csrc/`` (built by ``_build``) that replace the
-ten TPU kernels, and ``nms`` wraps the port's own NMS kernel (the reference's
-``nms`` is XLA): each wrapper calls its registered operator,
+ten TPU kernels, ``nms`` wraps the port's own NMS kernel (the reference's
+``nms`` is XLA) and ``clip_glue`` the port's fused glue of the CLIP block
+(XLA's fusions in the reference): each wrapper calls its registered operator,
 ``torch.ops.hybridgl.<reference function's name>`` (``_ops``), whose CUDA
 implementation launches the kernel and whose CPU one runs the plain version.
 The other modules are the plain tensor primitives the reference wrote as
@@ -21,9 +22,15 @@ tensor-core one (``wrapper.tc_launches``).
 from __future__ import annotations
 
 
+# the fused glue of the CLIP block (``clip_glue``), by operator name
+GLUE = ("layer_norm", "residual_add", "residual_layer_norm", "inject_layer_norm", "qkv_heads", "merge_heads",
+        "bias_quick_gelu")
+
+
 def kernel_wrappers():
     """{name: wrapper} for every CUDA kernel of the port, by the name of its
-    operator; importing them registers the eleven operators."""
+    operator; importing them registers the eighteen operators."""
+    from . import clip_glue
     from .clip_attention import clip_attention
     from .decoder_attn import i2t_ln_update
     from .decoder_attn_t2i import t2i_ctx
@@ -45,6 +52,7 @@ def kernel_wrappers():
         "flash_attention_rel_pos": flash_attention_rel_pos,
         "pass1_stats": pass1_stats,
         "nms": nms,
+        **{name: getattr(clip_glue, name) for name in GLUE},
     }
 
 

@@ -57,6 +57,10 @@ _SIGNATURES = {
     "hgl_upscale_hyper_tc_smem": [],
     "hgl_nms": [_vp, _vp, _i, _f, _vp, _vp, _vp, _vp],
     "hgl_nms_max_n": [],
+    "hgl_clip_rows": [_i, _i, _vp, _i, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _f, _vp],
+    "hgl_clip_qkv_heads": [_i] + [_vp] * 5 + [_i] * 4 + [_vp],
+    "hgl_clip_merge_heads": [_i, _vp, _vp] + [_i] * 4 + [_vp],
+    "hgl_clip_bias_quick_gelu": [_i] + [_vp] * 3 + [_i] * 2 + [_vp],
 }
 
 

@@ -28,8 +28,9 @@ import torch
 from ...core.config import ClipConfig, CompatConfig
 
 from ...kernels.resize import resize_bilinear
-from .layers import allowed_mask_to_bias, cls_bias_to_attn_bias
-from .vit import vit_block, vit_head, vit_stem
+from ...kernels import clip_glue
+from .layers import allowed_mask_to_bias, block_step, cls_bias_to_attn_bias
+from .vit import vit_block, vit_head, vit_run, vit_stem
 
 
 def last_layer_index(cfg: ClipConfig) -> int:
@@ -62,9 +63,7 @@ def make_cls_bias(masks_grid: torch.Tensor) -> torch.Tensor:
 
 def token_mask(x: torch.Tensor, masks_grid: torch.Tensor) -> torch.Tensor:
     """Multiply patch tokens by the fractional proposal mask, keep CLS."""
-    P = x.shape[0]
-    m = masks_grid.reshape(P, -1, 1).to(x.dtype)
-    return torch.cat([x[:, :1, :], x[:, 1:, :] * m], dim=1)
+    return clip_glue.reference_token_mask(x, masks_grid)
 
 
 def hybrid_forward(p_visual, local_imgs, global_imgs, pred_masks, cfg: ClipConfig, fusion_mode: str = "G2L", masking_block: int = 9, compat: CompatConfig = CompatConfig(), masks_hw=None):
@@ -78,9 +77,7 @@ def hybrid_forward(p_visual, local_imgs, global_imgs, pred_masks, cfg: ClipConfi
     blocks = p_visual["blocks"]
 
     def run(x, start, stop, bias=None):
-        for i in range(start, stop):
-            x = vit_block(blocks[i], x, cfg, cls_bias=bias)
-        return x
+        return vit_run(blocks, x, cfg, start, stop, cls_bias=bias, ln_out=False)[0]
 
     if fusion_mode == "crop":
         return vit_head(p_visual, run(vit_stem(p_visual, local_imgs, cfg), 0, cfg.vision_layers), cfg)
@@ -102,6 +99,8 @@ def hybrid_forward(p_visual, local_imgs, global_imgs, pred_masks, cfg: ClipConfi
     # two-stream modes: shared trunk on the fused 2P batch
     x2 = vit_stem(p_visual, global_imgs, cfg)
     P = x.shape[0]
+    if fusion_mode == "G2L":
+        return vit_head(p_visual, _g2l_tail(blocks, x, x2, masks_grid, bias, cfg, mb, last), cfg)
     xx = run(torch.cat([x, x2], dim=0), 0, mb)
     x, x2 = xx[:P], xx[P:]
     xh_local, xh_global = x, x2  # G2L&L2G's hybrid streams
@@ -109,8 +108,6 @@ def hybrid_forward(p_visual, local_imgs, global_imgs, pred_masks, cfg: ClipConfi
         blk = blocks[i]
         if fusion_mode == "L2G":
             x, x2 = vit_block(blk, x, cfg), vit_block(blk, x + 2.0 * x2, cfg, cls_bias=bias)
-        elif fusion_mode == "G2L":
-            x, x2 = vit_block(blk, 2.0 * token_mask(x2, masks_grid) + x, cfg), vit_block(blk, x2, cfg, cls_bias=bias)
         else:  # G2L&L2G
             x_ori_global = token_mask(x2, masks_grid)
             x, x2, xh_local, xh_global = (
@@ -121,9 +118,28 @@ def hybrid_forward(p_visual, local_imgs, global_imgs, pred_masks, cfg: ClipConfi
             )
     if fusion_mode == "L2G":
         return vit_head(p_visual, x2, cfg)
-    if fusion_mode == "G2L":
-        return vit_head(p_visual, x, cfg)
     return vit_head(p_visual, xh_local, cfg) + vit_head(p_visual, xh_global, cfg)
+
+
+def _g2l_tail(blocks, x, x2, masks_grid, bias, cfg: ClipConfig, mb: int, last: int):
+    """G2L's local stream after block ``last`` + 1 (backbone.py:227-260): the
+    trunk on the fused 2P batch, then at each tail block the token-masked
+    global stream injected into the local one (``2 token_mask(x2, m) + x``),
+    written with the block's ln_1 by one kernel. The global stream's own
+    LayerNorms come from the kernel that writes it. Its last block feeds
+    nothing, and runs all the same, as the reference's does."""
+    P = x.shape[0]
+    xx, aa = vit_run(blocks, torch.cat([x, x2], dim=0), cfg, 0, mb)
+    x, x2 = xx[:P], xx[P:]
+    a2 = aa[P:] if aa is not None else None
+    for i in range(mb, last + 2):
+        blk = blocks[i]
+        ln1 = blk["ln_1"]
+        x_in, a_in = clip_glue.inject_layer_norm(x, x2, masks_grid, ln1["scale"], ln1["bias"])
+        nxt = blocks[i + 1]["ln_1"] if i < last + 1 else None
+        x, _ = block_step(blk, x_in, cfg.vision_heads, ln_in=a_in)
+        x2, a2 = block_step(blk, x2, cfg.vision_heads, cls_bias=bias, ln_in=a2, ln_next=nxt)
+    return x
 
 
 def calculate_score(image_features, text_features, logit_scale) -> torch.Tensor:

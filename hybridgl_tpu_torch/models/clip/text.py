@@ -7,7 +7,7 @@ import torch
 
 from ...core.config import ClipConfig
 
-from .layers import layer_norm, residual_attention_block
+from .layers import block_step, layer_norm
 
 
 def causal_bias(context_length: int, device="cpu") -> torch.Tensor:
@@ -26,9 +26,11 @@ def encode_text(p, tokens: torch.Tensor, cfg: ClipConfig) -> torch.Tensor:
     # tokenizer meets this (cli/main.py's test-tiny smoke config)
     x = emb[tokens.long().clamp(max=emb.shape[0] - 1)] + p["positional_embedding"].to(emb.dtype)
     bias = causal_bias(cfg.context_length, tokens.device)
-    for blk in p["blocks"]:
-        x = residual_attention_block(blk, x, cfg.text_heads, bias)
-    x = layer_norm(p["ln_final"], x)
+    blocks, a = p["blocks"], None
+    for i, blk in enumerate(blocks):  # each block hands the next its ln_1, the last ln_final
+        nxt = blocks[i + 1]["ln_1"] if i + 1 < len(blocks) else p["ln_final"]
+        x, a = block_step(blk, x, cfg.text_heads, bias, ln_in=a, ln_next=nxt)
+    x = layer_norm(p["ln_final"], x) if a is None else a
     pool = tokens.argmax(dim=-1)
     x = x[torch.arange(x.shape[0], device=x.device), pool]
     return (x @ p["text_projection"].to(x.dtype)).float()

@@ -11,7 +11,7 @@ import torch
 
 from ...core.config import ClipConfig
 
-from .layers import layer_norm, residual_attention_block
+from .layers import block_step, layer_norm, residual_attention_block
 
 
 def vit_stem(p, images: torch.Tensor, cfg: ClipConfig) -> torch.Tensor:
@@ -33,12 +33,22 @@ def vit_block(p_block, x, cfg: ClipConfig, attn_bias=None, cls_bias=None):
     return residual_attention_block(p_block, x, cfg.vision_heads, attn_bias, cls_bias)
 
 
+def vit_run(blocks, x, cfg: ClipConfig, start: int, stop: int, cls_bias=None, ln_in=None, ln_out: bool = True):
+    """Blocks [start, stop), each handing the next its ln_1(x) from the
+    kernel that writes x. ``ln_in``: block ``start``'s ln_1(x), where the
+    caller has it. Returns (x, a): a = block ``stop``'s ln_1(x) with
+    ``ln_out`` where there is such a block, else None."""
+    a = ln_in
+    for i in range(start, stop):
+        nxt = blocks[i + 1]["ln_1"] if i + 1 < len(blocks) and (ln_out or i + 1 < stop) else None
+        x, a = block_step(blocks[i], x, cfg.vision_heads, cls_bias=cls_bias, ln_in=a, ln_next=nxt)
+    return x, a
+
+
 def vit_blocks(p, x, cfg: ClipConfig, start: int = 0, stop=None):
     """Blocks [start, stop) (all by default) without an attention bias."""
     stop = cfg.vision_layers if stop is None else stop
-    for i in range(start, stop):
-        x = vit_block(p["blocks"][i], x, cfg)
-    return x
+    return vit_run(p["blocks"], x, cfg, start, stop, ln_out=False)[0]
 
 
 def vit_head(p, x, cfg: ClipConfig, cls_only: bool = True) -> torch.Tensor:

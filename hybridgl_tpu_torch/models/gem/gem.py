@@ -19,7 +19,7 @@ from ...core.config import ClipConfig, GemConfig
 from ...core.dtypes import score_dtype, softmax_scores
 from ...kernels.resize import resize_bilinear
 from ...utils.transfer import upload
-from ..clip.layers import layer_norm, linear, quick_gelu
+from ..clip.layers import layer_norm, mlp_residual, residual_layer_norm
 
 GEM_NORM_MEAN = (0.48145466, 0.4578275, 0.40821073)
 GEM_NORM_STD = (0.26862954, 0.26130258, 0.27577711)
@@ -95,19 +95,19 @@ def gem_image_features(p_visual, images: torch.Tensor, clip_cfg: ClipConfig, gem
     x = layer_norm(p_visual["ln_pre"], x)
 
     gem_start = clip_cfg.vision_layers - gem_cfg.depth
-    x_gem = None
-    for i, blk in enumerate(p_visual["blocks"]):
+    blocks = p_visual["blocks"]
+    x_gem = a = None  # a: the block's ln_1(x), from the kernel that wrote x
+    for i, blk in enumerate(blocks):
         if i >= gem_start and x_gem is None:
             x_gem = x
-        q, k, v = _qkv(blk["attn"], layer_norm(blk["ln_1"], x), H)
+        q, k, v = _qkv(blk["attn"], layer_norm(blk["ln_1"], x) if a is None else a, H)
         out_w, out_b = blk["attn"]["out_w"].to(dt), blk["attn"]["out_b"].to(dt)
         if i >= gem_start:
             ss = _merge_heads(self_self_attention(q, k, v, temp, gem_cfg.ss_attn_iters))
-            x_gem = x_gem + (ss @ out_w + out_b)  # gem stream: attention only, no MLP
-        o = _merge_heads(_std_attention(q * scale, k, v, 1.0)) @ out_w + out_b
-        x = x + o
-        h = quick_gelu(linear(blk["mlp_fc"], layer_norm(blk["ln_2"], x)))
-        x = x + linear(blk["mlp_proj"], h)
+            x_gem, _ = residual_layer_norm(x_gem, ss @ out_w, out_b, None)  # gem stream: attention only, no MLP
+        o = _merge_heads(_std_attention(q * scale, k, v, 1.0)) @ out_w
+        x, a = residual_layer_norm(x, o, out_b, blk["ln_2"])
+        x, a = mlp_residual(blk, x, a, blocks[i + 1]["ln_1"] if i + 1 < len(blocks) else None)
 
     proj = p_visual["proj"].to(dt)
     gem_feats = layer_norm(p_visual["ln_post"], x_gem) @ proj

@@ -30,9 +30,10 @@ instantiation); a capture that fails raises, and nothing falls back to
 eager on the card. Each graph has its own pool, so a replay of one key
 cannot overwrite another key's buffers; the sentence stage's outputs are
 copied out of its pool, since the runner keeps them past the next replay.
-The kernel launch counters (K6 in the feature stage) add what the capture
-counted at each replay. Off the card the same stage functions run eagerly
-on the same static inputs.
+The kernel launch counters (K6 and the CLIP block's fused glue in the
+feature stage, the glue in the sentence stage's text tower) add what the
+capture counted at each replay. Off the card the same stage functions run
+eagerly on the same static inputs.
 """
 
 from __future__ import annotations

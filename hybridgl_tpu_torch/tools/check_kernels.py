@@ -28,8 +28,11 @@ materialised as ``attn_mask``). That call is a yardstick only: nothing else
 in the port calls it. The port's own NMS kernel (``csrc/nms.cu``; the
 reference's NMS is XLA) is checked the same way on f32 boxes, its bound
 counted against the CUDA cores' f32 rate (no PyTorch call computes greedy
-NMS). The run ends with ``ALL PASS`` or ``FAILURES``; the exit code is 0
-only if every kernel passed.
+NMS). The port's fused glue of the CLIP block (``csrc/clip_glue.cu``; XLA
+fuses it in the reference) is timed at ViT-B/16's trunk at proposal
+buckets 32 and 64, its bound by bytes, and checked at the main path's
+other rows (bucket 8, GEM, the text tower). The run ends with ``ALL PASS`` or
+``FAILURES``; the exit code is 0 only if every kernel passed.
 
     python -m hybridgl_tpu_torch.tools.check_kernels [name ...]   (default: all)
 
@@ -63,6 +66,7 @@ import sys
 
 import torch
 
+from ..kernels import GLUE
 from ..utils.flops import PEAK_FLOPS_BY_DEVICE
 
 # name -> (CUDA source of the kernel the main path launches, the TPU kernel it replaces)
@@ -79,7 +83,14 @@ KERNELS = {
     "pass1_stats": ("hybridgl_tpu_torch/csrc/pass1_stats_wgmma.cu", "hybridgl_tpu/kernels/pass1_stats.py:152"),
     # the port's own kernel: the reference's nms is an XLA program (the IoU matrix and a fori_loop sweep)
     "nms": ("hybridgl_tpu_torch/csrc/nms.cu", "hybridgl_tpu/kernels/nms.py:31"),
+    # the port's own: the CLIP block's glue, which XLA fuses in the reference
+    **{name: ("hybridgl_tpu_torch/csrc/clip_glue.cu", "none: XLA's fusions in hybridgl_tpu/models/clip/layers.py")
+       for name in GLUE},
 }
+# the glue's operands: x and the GEMM outputs (esize each), the LayerNorm params (pe), the
+# bias of width D (or F, 3D); (reads, writes) of [T, D] rows, and the ops a value
+_GLUE_ROWS = {"layer_norm": (1, 1, 8), "residual_add": (2, 1, 2), "residual_layer_norm": (2, 2, 10),
+              "inject_layer_norm": (2, 2, 12), "merge_heads": (1, 1, 0)}
 
 
 # published peaks of one H100 SXM: dense bf16 on the tensor cores (the
@@ -133,6 +144,17 @@ def kernel_work(name: str, **d) -> tuple[int, int]:
         ops = B * S * (2 * C * 4 * c4 + 4 * 2 * c4 * 4 * c8 + 16 * 2 * c8 * m)
         e = d.get("esize", 2)  # src, the deconv weights and the hyper rows come in the stream dtype
         return ops, (B * S * C + C * 4 * c4 + c4 * 4 * c8 + B * m * c8) * e + B * m * 16 * S * 4
+    if name in _GLUE_ROWS:  # T rows of D; the LayerNorm params and the bias once; G2L's [P, L - 1] f32 masks
+        T, D, e = d["T"], d["D"], d.get("esize", 2)
+        reads, writes, ops = _GLUE_ROWS[name]
+        small = (2 * D * d.get("pe", 2) if "layer_norm" in name else 0) + (D * e if name.startswith("residual") else 0)
+        return ops * T * D, (reads + writes) * T * D * e + small + d.get("masks", 0) * 4
+    if name == "qkv_heads":  # [T, 3D] in, its bias, q, k and v out
+        T, D, e = d["T"], d["D"], d.get("esize", 2)
+        return 3 * T * D, 2 * 3 * T * D * e + 3 * D * e
+    if name == "bias_quick_gelu":  # [T, F] in and out, the bias; ~6 operations a value
+        T, F, e = d["T"], d["F"], d.get("esize", 2)
+        return 6 * T * F, 2 * T * F * e + F * e
     if name == "nms":  # ~15 f32 operations an IoU of the upper triangle; boxes, valid, the mask, keep, the count
         N, W = d["N"], -(-d["N"] // 64)
         written = sum(min(64, N - 64 * rb) * (W - rb) for rb in range(W))  # the upper triangle's words
@@ -657,6 +679,90 @@ def _nms(run: _Run):
         torch.cuda.empty_cache()
 
 
+def glue_matches(name: str, got, want) -> bool:
+    """The fused glue's bar against its plain version: equal bit for bit,
+    except a LayerNorm's output (summed in a warp's order, not PyTorch's),
+    which lies within one rounding step of the plain output in bf16 (the
+    step at the larger of the two magnitudes, at least 2^-8's) and within
+    1e-5 + 1e-5 |plain| in f32."""
+    if "layer_norm" not in name or got.dtype not in (torch.bfloat16, torch.float32):
+        return got.dtype == want.dtype and got.shape == want.shape and torch.equal(got, want)
+    g, w = got.float(), want.float()
+    d = (g - w).abs()
+    if got.dtype == torch.float32:
+        return got.shape == want.shape and bool((d <= 1e-5 + 1e-5 * w.abs()).all())
+    step = torch.exp2(torch.floor(torch.log2(torch.maximum(g.abs(), w.abs()).clamp(min=2.0**-8))) - 7)
+    return got.shape == want.shape and bool((d <= step).all())
+
+
+def _glue_cases(run: _Run, streams: int, L: int, D: int, H: int):
+    """(name, kernel, plain, kernel_work arguments, library) of each glue
+    operator on ``streams`` rows of L tokens of width D, bf16 with bf16
+    LayerNorm params as the main path runs it; the LayerNorm also on the
+    streams' CLS rows (a strided view, as ln_post reads them)."""
+    from ..kernels import clip_glue as cg
+
+    r = lambda *shape, std=1.0: run.randn(*shape, std=std)  # noqa: E731
+    T = streams * L
+    x, y, x2 = r(streams, L, D), r(streams, L, D, std=2.0), r(streams, L, D)
+    b, scale, bias = r(D, std=0.5), (1.0 + r(D, std=0.1).float()).to(torch.bfloat16), r(D, std=0.1)
+    m = torch.rand((streams, L - 1), generator=run.gen, device=run.dev)
+    m[m < 0.4] = 0.0
+    qkv, b3 = r(streams, L, 3 * D), r(3 * D, std=0.5)
+    ctx = r(streams * H, L, D // H)
+    h, b4 = r(streams, L, 4 * D, std=3.0), r(4 * D, std=0.5)
+    cls = x[:, 0, :]
+    rows = dict(T=T, D=D, esize=2, pe=2)
+    return [
+        ("layer_norm", lambda: cg.layer_norm(x, scale, bias), lambda: cg.reference_layer_norm(x, scale, bias), rows,
+         lambda: torch.nn.functional.layer_norm(x, (D,), scale, bias, 1e-5)),
+        ("residual_add", lambda: cg.residual_add(x, y, b), lambda: cg.reference_residual_add(x, y, b), rows, None),
+        ("residual_layer_norm", lambda: cg.residual_layer_norm(x, y, b, scale, bias),
+         lambda: cg.reference_residual_layer_norm(x, y, b, scale, bias), rows, None),
+        ("inject_layer_norm", lambda: cg.inject_layer_norm(x, x2, m, scale, bias),
+         lambda: cg.reference_inject_layer_norm(x, x2, m, scale, bias), dict(rows, masks=m.numel()), None),
+        ("qkv_heads", lambda: cg.qkv_heads(qkv, b3, H), lambda: cg.reference_qkv_heads(qkv, b3, H),
+         dict(T=T, D=D, esize=2), None),
+        ("merge_heads", lambda: cg.merge_heads(ctx, streams), lambda: cg.reference_merge_heads(ctx, streams),
+         dict(T=T, D=D, esize=2), None),
+        ("bias_quick_gelu", lambda: cg.bias_quick_gelu(h, b4), lambda: cg.reference_bias_quick_gelu(h, b4),
+         dict(T=T, F=4 * D, esize=2), None),
+        ("layer_norm", lambda: cg.layer_norm(cls, scale, bias), lambda: cg.reference_layer_norm(cls, scale, bias),
+         None, None),
+    ]
+
+
+def _glue(run: _Run):
+    """The CLIP block's fused glue against its plain version (bias add,
+    residual, injection, head split, merge and QuickGELU equal bit for bit,
+    LayerNorm within one rounding step: :func:`glue_matches`), timed at
+    ViT-B/16's trunk at proposal buckets 32 and 64 (64 and 128 streams of
+    197 tokens, D = 768, 12 heads, MLP 3072), and checked untimed at the
+    other rows the main path gives it: the trunk at bucket 8 (ln_post on 8
+    CLS rows), GEM's 785 tokens and the text tower's 77-token rows of 512
+    (8 heads, MLP 2048; 16 sentence streams). The library yardstick of the
+    LayerNorm is one ``F.layer_norm``."""
+    shapes = [(64, 197, 768, 12, "bucket 32", True), (128, 197, 768, 12, "bucket 64", True),
+              (8, 197, 768, 12, "bucket 8", False), (1, 785, 768, 12, "GEM", False),
+              (16, 77, 512, 8, "text tower", False)]
+    for streams, L, D, H, tag, timed in shapes:
+        for name, kernel, plain, work, library in _glue_cases(run, streams, L, D, H):
+            got, want = kernel(), plain()
+            torch.cuda.synchronize()
+            got, want = ([t] if isinstance(t, torch.Tensor) else list(t) for t in (got, want))
+            ok = all(glue_matches(name, g, w) for g, w in zip(got, want, strict=True))
+            err = max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want))
+            moved = sum(int((g != w).sum()) for g, w in zip(got, want))
+            label = f"{name} (T = {streams * L} of {D}, {tag}{'' if work else ', CLS rows'})"
+            run.verdict(label, ok, f"outputs that differ {moved} of {sum(g.numel() for g in got)}, max|d| {err:.3e}")
+            if timed and work is not None:
+                run.record(name, ok, err, kernel, plain, f"[{streams}, {L}, {D}] bf16", work, library=library)
+            else:
+                run.results[name]["ok"] = run.results[name]["ok"] and ok
+                run.results[name]["max_abs_err"] = max(run.results[name]["max_abs_err"], err)
+        torch.cuda.empty_cache()
+
+
 # what run_checks reports for each kernel (library_ms is None where no
 # single PyTorch call computes the kernel's function)
 RESULT_KEYS = ("ok", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -668,11 +774,12 @@ _GROUPS = (
     (("pass1_stats_half", "pass1_stats"), _pass1),
     (("i2t_ln_then_t2i", "i2t_ln_update", "t2i_ctx", "upscale_hyper_blocked"), _decoder),
     (("nms",), _nms),
+    (GLUE, _glue),
 )
 
 
 def run_checks(names=None, log=print) -> dict:
-    """Check the named kernels (default: all eleven) on the card.
+    """Check the named kernels (default: all eighteen) on the card.
 
     Returns {name: dict of RESULT_KEYS}; raises where no CUDA card is
     present."""

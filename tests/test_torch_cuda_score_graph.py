@@ -6,14 +6,17 @@ features, GEM patch features, scores, picks, IoUs, accumulators) with the
 eager run's launch counts; one capture a key across image sizes and flags;
 and ``_score_image`` without a stream synchronisation under
 ``torch.cuda.set_sync_debug_mode("error")``. The small f32 configuration of
-``tests/test_torch_cuda_stage_graph.py`` (test-tiny CLIP, canonical 128).
+``tests/test_torch_cuda_stage_graph.py`` (test-tiny CLIP, canonical 128),
+and the same with the CLIP weights in bf16; in both every glue operator of
+the CLIP blocks (``kernels/clip_glue.py``) launches its kernel.
 Marked ``cuda``; each test skips where no CUDA card is present."""
 
 import numpy as np
 import pytest
 import torch
 
-from hybridgl_tpu_torch.kernels import launch_counts, reset_launch_counts
+from hybridgl_tpu_torch.core.params import cast_tree
+from hybridgl_tpu_torch.kernels import GLUE, launch_counts, reset_launch_counts
 from hybridgl_tpu_torch.lang import HeuristicParser
 from hybridgl_tpu_torch.models.sam.amg import Proposals
 from hybridgl_tpu_torch.pipeline.runner import HybridGLPipeline, materialize_results
@@ -34,9 +37,10 @@ def dev():
     return torch.device("cuda")
 
 
-def _pipeline(dev):
+def _pipeline(dev, clip_dtype=torch.float32):
     sam_p, clip_p = _params(dev)
-    return HybridGLPipeline(_config(SINGLE), sam_p, clip_p, HeuristicParser(), TinyVocabTokenizer(), device=dev)
+    return HybridGLPipeline(_config(SINGLE), sam_p, cast_tree(clip_p, clip_dtype), HeuristicParser(),
+                            TinyVocabTokenizer(), device=dev)
 
 
 def _bundle(dev, h, w, P=8, live=6, seed=0):
@@ -56,9 +60,10 @@ def _bundle(dev, h, w, P=8, live=6, seed=0):
                      t(valid), num=live, overflow=0)
 
 
+@pytest.mark.parametrize("clip_dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16_clip"])
 @pytest.mark.parametrize("n_sentences", [1, 3], ids=["short_key", "ragged_key"])
-def test_replay_equals_eager_bit_for_bit(dev, n_sentences):
-    pipe = _pipeline(dev)
+def test_replay_equals_eager_bit_for_bit(dev, n_sentences, clip_dtype):
+    pipe = _pipeline(dev, clip_dtype)
     scorer = pipe.scorer
     for seed, (h, w) in enumerate(SIZES):
         sample = _sample(seed, h, w)._replace(sentences=SENTENCES[:n_sentences])
@@ -74,6 +79,7 @@ def test_replay_equals_eager_bit_for_bit(dev, n_sentences):
         eager = launch_counts()
         torch.cuda.synchronize()
         assert replayed == eager and replayed["clip_attention"] > 0
+        assert all(replayed[k] > 0 for k in GLUE)
         assert torch.equal(feats, e_feats) and torch.equal(gem_pf, e_gem)
         for name, a, b in zip(out._fields, out, e_out):
             assert torch.equal(a, b), name
@@ -85,6 +91,8 @@ def test_replay_equals_eager_bit_for_bit(dev, n_sentences):
     assert dict(scorer.captures) == {"features 8": 1, f"sentences 8 x {S_b}": 1}
     st = scorer.stats()
     assert all(v["nodes"] > 0 and v["pool_bytes"] > 0 and v["capture_ms"] > 0 for v in st.values())
+    # the glue's launches shown in every key's stats
+    assert all(v["launches"].get("residual_layer_norm", 0) > 0 for v in st.values())
 
 
 def test_sentence_outputs_outlive_the_next_replay(dev):

@@ -82,12 +82,22 @@ def eager(name, cfg):
     return export_serving.HybridFusion(cfg.clip, cfg.fusion_mode, export_serving.fusion_masking_block(cfg))
 
 
+# G2L at masking block 1 of 3 layers: block 0 on the fused 2P batch, then two
+# streams through blocks 1 and 2, each block call one K6 with its head split
+# and merge and one bias + QuickGELU (the chip smoke test's K6 count, 15 at
+# ViT-B/16). LayerNorm alone: the two stems' ln_pre, block 0's ln_1, ln_post.
+# The rest is written with the residual that it normalises: each block's
+# ln_2, the trunk's and the global stream's next ln_1 (2 + 4 + 1), and
+# G2L's injection with the local stream's ln_1 (2); a residual alone ends
+# the local stream's blocks and the global stream's last (3).
+FUSION_NODES = {"clip_attention": 5, "qkv_heads": 5, "merge_heads": 5, "bias_quick_gelu": 5, "layer_norm": 4,
+                "residual_layer_norm": 7, "inject_layer_norm": 2, "residual_add": 3}
+
+
 @pytest.mark.parametrize("name,nodes", [("sam_encoder", {"flash_windowed_fused": 1, "flash_attention_fused": 1}),
-                                        ("hybrid_fusion", {"clip_attention": 5})])
+                                        ("hybrid_fusion", FUSION_NODES)])
 def test_graph_holds_the_kernel_operators(exported, name, nodes):
-    """Encoder: one windowed and one global block; G2L at masking block 1 of
-    3 layers: block 0 on the fused 2P batch, then two streams through blocks
-    1 and 2 (the chip smoke test's K6 count, 15 at ViT-B/16)."""
+    """Encoder: one windowed and one global block; the fusion: ``FUSION_NODES``."""
     _, _, _, programs, _ = exported
     assert export_serving.kernel_nodes(programs[name]) == nodes
     targets = {str(n.target) for n in programs[name].graph.nodes if n.op == "call_function"}
@@ -126,7 +136,7 @@ import torch
 from hybridgl_tpu_torch.tools.export_serving import kernel_nodes, load_exported
 enc, fus = load_exported({paths["sam_encoder"]!r}), load_exported({paths["hybrid_fusion"]!r})
 assert kernel_nodes(enc) == {{"flash_windowed_fused": 1, "flash_attention_fused": 1}}, kernel_nodes(enc)
-assert kernel_nodes(fus) == {{"clip_attention": 5}}, kernel_nodes(fus)
+assert kernel_nodes(fus) == {FUSION_NODES!r}, kernel_nodes(fus)
 torch.save(fus.module()(*torch.load({str(tmp_path / "args.pt")!r})), {str(tmp_path / "out.pt")!r})
 assert not {{"jax", "jaxlib", "hybridgl_tpu"}} & set(sys.modules)
 '''

@@ -176,6 +176,7 @@ def test_kernel_work_matches_hand_worked_figures(name, shape, ops, nbytes, ms, b
 def test_kernel_work_covers_every_kernel():
     """Every kernel of the table has a work model; the decoder and pass-1
     figures land where a hand count puts them."""
+    from hybridgl_tpu_torch.kernels import GLUE
     from hybridgl_tpu_torch.tools.check_kernels import KERNELS, kernel_work
 
     shapes = {
@@ -190,10 +191,18 @@ def test_kernel_work_covers_every_kernel():
         "t2i_ctx": dict(B=128, S=4096, C=256, Cq=256, GT=64),
         "upscale_hyper_blocked": dict(B=64, S=4096, C=256, c4=64, c8=32, m=3),
         "nms": dict(N=128, read_words=138),
+        **{name: dict(T=64 * 197, D=768, esize=2) for name in GLUE},
+        "bias_quick_gelu": dict(T=64 * 197, F=3072, esize=2),
     }
     assert set(shapes) == set(KERNELS)
     work = {name: kernel_work(name, **shape) for name, shape in shapes.items()}
-    assert all(ops > 0 and nbytes > 0 for ops, nbytes in work.values())
+    assert all(ops > 0 and nbytes > 0 for name, (ops, nbytes) in work.items() if name != "merge_heads")
+    # the glue moves bytes: a block's at bucket 32, ~0.47 GB (twice the rows of
+    # D through the two residual + LayerNorm kernels, three times the rows of
+    # D in and out of the head split, once in and out of the merge, four
+    # times the rows of D in and out of the QuickGELU)
+    block = sum(work[k][1] for k in ("qkv_heads", "merge_heads", "bias_quick_gelu")) + 2 * work["residual_layer_norm"][1]
+    assert 0.46e9 < block < 0.47e9
     assert work["flash_attention_rel_pos"] == work["flash_attention_fused"]
     # K3 pass B: four [S, 64] x [64 or 256, 256] products per prompt, ~34 GFLOP;
     # the per-prompt keys in and out (268 MB) dominate its 285 MB

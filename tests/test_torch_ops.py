@@ -1,4 +1,5 @@
-"""The ten kernels and the port's NMS kernel as registered PyTorch operators,
+"""The ten kernels, the port's NMS kernel and the CLIP block's fused glue as
+registered PyTorch operators,
 ``torch.ops.hybridgl.*`` (``hybridgl_tpu_torch/kernels/_ops.py``), on the CPU: for each operator
 ``torch.library.opcheck`` (``test_schema``: the schema's aliasing and
 mutation claims hold; ``test_faketensor``: the fake implementation gives the
@@ -7,8 +8,8 @@ real outputs' shapes, strides and dtypes; ``test_autograd_registration``;
 symbolic shapes, where its fake implementation can take them), the operator
 equal bit for bit to its plain version and to its public wrapper, and the
 fake outputs' shapes and dtypes against the real ones. Small shapes, inputs
-from a numpy seed; the four attention operators also in bf16 (pass 1 runs in
-its bf16 stats dtype).
+from a numpy seed; the four attention operators and the seven glue operators
+also in bf16 (pass 1 runs in its bf16 stats dtype).
 """
 
 import numpy as np
@@ -16,7 +17,7 @@ import pytest
 import torch
 from torch._subclasses.fake_tensor import FakeTensorMode
 
-from hybridgl_tpu_torch.kernels import kernel_wrappers
+from hybridgl_tpu_torch.kernels import GLUE, clip_glue, kernel_wrappers
 from hybridgl_tpu_torch.kernels.clip_attention import clip_attention, reference_clip_attention
 from hybridgl_tpu_torch.kernels.decoder_attn import i2t_ln_update, reference_i2t_ln_update
 from hybridgl_tpu_torch.kernels.decoder_attn_t2i import reference_t2i_ctx, t2i_ctx
@@ -39,7 +40,7 @@ from hybridgl_tpu_torch.kernels.upscale_hyper import reference_upscale_hyper, up
 OPS = torch.ops.hybridgl
 NAMES = ["flash_windowed_fused", "flash_attention_fused", "flash_attention_rel_pos", "clip_attention",
          "pass1_stats_half", "pass1_stats", "i2t_ln_then_t2i", "i2t_ln_update", "t2i_ctx", "upscale_hyper_blocked",
-         "nms"]
+         "nms", *GLUE]
 # K4's fake output side is isqrt(g * g): a symbolic size has no integer square root
 NOT_SYMBOLIC = {"upscale_hyper_blocked"}
 WINDOW = torch.tensor([2.0, 3.0, 10.0, 12.0])  # the operators take the window as a [4] f32 tensor
@@ -100,6 +101,8 @@ def case(name, dtype=torch.float32, seed=0):
         ops, qw = _decoder(rng, Cq=16), _t(rng, 2, 32, 16, std=0.3)
         args = (qside, base, pe, *ops, qw, 2, 8, True)
         return args, lambda: reference_i2t_ln_then_t2i(*args), lambda: i2t_ln_then_t2i(*args)
+    if name in GLUE:
+        return glue_case(name, rng, dtype)
     if name == "nms":  # boxes in descending-score order, the padding last: the wrapper's sort is the identity
         xy = rng.random((40, 2)).astype(np.float32) * 40
         boxes = torch.from_numpy(np.concatenate([xy, xy + 4 + rng.random((40, 2)).astype(np.float32) * 20], 1))
@@ -119,6 +122,21 @@ def case(name, dtype=torch.float32, seed=0):
     return args, lambda: reference_upscale_hyper(*args), lambda: upscale_hyper(*args)
 
 
+def glue_case(name, rng, dtype, N=2, L=5, D=16, H=2):
+    """A glue operator's arguments, plain version and wrapper: tokens [N, L, D],
+    LayerNorm params in f32, biases in the activation dtype."""
+    x, y, x2 = (_t(rng, N, L, D, dtype=dtype) for _ in range(3))
+    b = _t(rng, D, dtype=dtype)
+    ln = (1.0 + _t(rng, D, std=0.1), _t(rng, D, std=0.1))
+    args = {"layer_norm": (x, *ln, 1e-5), "residual_add": (x, y, b), "residual_layer_norm": (x, y, b, *ln, 1e-5),
+            "inject_layer_norm": (x, x2, torch.from_numpy(rng.random((N, L - 1)).astype(np.float32)), *ln, 1e-5),
+            "qkv_heads": (_t(rng, N, L, 3 * D, dtype=dtype), _t(rng, 3 * D, dtype=dtype), H),
+            "merge_heads": (_t(rng, N * H, L, D // H, dtype=dtype), N),
+            "bias_quick_gelu": (_t(rng, N, L, 4 * D, dtype=dtype, std=2.0), _t(rng, 4 * D, dtype=dtype))}[name]
+    return (args, lambda: getattr(clip_glue, f"reference_{name}")(*args),
+            lambda: getattr(clip_glue, name)(*args))
+
+
 def flat(out):
     return [out] if isinstance(out, torch.Tensor) else list(out)
 
@@ -129,8 +147,8 @@ def pass1_outputs(stab, flags):
 
 
 def test_the_ten_operators_are_registered_under_the_reference_names():
-    # the ten TPU kernels' operators and the port's own NMS kernel's
-    assert set(NAMES) == set(kernel_wrappers()) and len(NAMES) == 11
+    # the ten TPU kernels' operators, the port's own NMS kernel's and the seven of the CLIP block's glue
+    assert set(NAMES) == set(kernel_wrappers()) and len(NAMES) == 18
     for name in NAMES:
         assert getattr(OPS, name).default.name() == f"hybridgl::{name}"
 
@@ -146,7 +164,7 @@ def test_opcheck(name):
 
 
 @pytest.mark.parametrize("name,dtype", [(n, torch.float32) for n in NAMES] + [
-    (n, torch.bfloat16) for n in NAMES[:4]])
+    (n, torch.bfloat16) for n in NAMES[:4] + list(GLUE)])
 def test_operator_equals_its_plain_version_and_its_wrapper(name, dtype):
     args, plain, wrapper = case(name, dtype)
     got = flat(getattr(OPS, name)(*args))
