@@ -44,7 +44,10 @@ Phases (every phase asserts; any failure exits non-zero):
      kernels (K3-K8) took its tensor-core one;
   6. PhraseCut pipeline: the same at AMG_PHRASECUT (pps 64, one crop layer,
      P = 128, canonical 1024), one warm-up and one measured image, NMS on
-     the card six times an image (five crops, then across crops); then, on
+     the card six times an image (five crops, then across crops); the
+     RefCOCO path once more with CLIP ViT-L/14@336 as the scorer (crops of
+     336, G2L from block 21: K6 at 577 tokens exactly 27 times an image, all
+     on the tensor cores, and its glue's launches exact); then, on
      each path, one more image timed (ms/img, peak device memory), one under
      torch.profiler (every copy by kind, pageable and pinned DtoH among them:
      count, bytes, device ms), one under a dispatch mode (the reads to the
@@ -175,7 +178,7 @@ KERNEL_CHECK_ONLY = ("flash_attention_rel_pos", "pass1_stats")
 # stream's next ln_1: 18 + 6 + 2), G2L's injection with the local ln_1 (3),
 # and a residual alone at the end of the local blocks and the global last (4)
 G2L_NODES = {"clip_attention": 15, "qkv_heads": 15, "merge_heads": 15, "bias_quick_gelu": 15, "layer_norm": 4,
-             "residual_layer_norm": 26, "inject_layer_norm": 3, "residual_add": 4}
+             "residual_layer_norm": 26, "inject_layer_norm": 3, "residual_add": 4}  # = g2l_launches(12, 9)
 # the CLIP block's fused glue an image, exactly (kernels/clip_glue.py; the
 # feature graph once, the sentence graph once): the G2L forward above; GEM's
 # 12 blocks (gem/gem.py: ln_pre and block 0's ln_1 alone, each block's ln_2
@@ -187,6 +190,9 @@ GEM_GLUE = {"layer_norm": 4, "residual_layer_norm": 23, "residual_add": 8, "bias
 TEXT_GLUE = {"layer_norm": 1, "residual_layer_norm": 24, "bias_quick_gelu": 12}
 GLUE_LAUNCHES_PER_IMAGE = {k: G2L_NODES[k] + GEM_GLUE.get(k, 0) + TEXT_GLUE.get(k, 0) for k in G2L_NODES
                            if k != "clip_attention"}
+# the same counts at any tower (tools/check_kernels.py:clip_launches_per_image): CLIP ViT-L/14@336 with
+# G2L from block 21 of 24, GEM depth 7, a 12-layer text tower launches K6 27 times an image (21 + 2 x 3)
+VIT_L14_336 = ("ViT-L/14@336", 24, 21, 7, 12)
 # per-image launches on the RefCOCO path (one launch per call): 28 windowed
 # and 4 global SAM blocks, one pass-1 chunk of 64 points (two K3 layer
 # passes, one K4 tail), 9 trunk + 3 x 2 G2L stream CLIP blocks
@@ -437,23 +443,46 @@ def full_width_weights():
     return sam_p, clip_p
 
 
-def phase_pipeline(tag, amg, canonical, n_images, min_launches, weights):
-    """One main path at full width: SAM ViT-H + CLIP ViT-B/16, bf16, the
-    given AMG with the quality thresholds zeroed as the reference bench does
-    (random weights pass none of them), synthetic 480x640 images in the
-    canonical frame; one warm-up image, then ``n_images`` measured."""
+def clip_weights(clip_model):
+    """Random CLIP weights of ``clip_model`` from seed 1, bf16, on the card."""
+    import torch
+
+    from hybridgl_tpu_torch.core.config import clip_preset
+    from hybridgl_tpu_torch.core.params import cast_tree, init_clip, param_count
+
+    clip_p = cast_tree(init_clip(torch.Generator(device="cuda").manual_seed(1), clip_preset(clip_model)), torch.bfloat16)
+    log(f"weights: random CLIP {clip_model} {param_count(clip_p) / 1e6:.1f}M params (bf16)")
+    return clip_p
+
+
+def phase_pipeline(tag, amg, canonical, n_images, min_launches, weights, clip_model="ViT-B/16"):
+    """One main path at full width: SAM ViT-H + CLIP ``clip_model`` (its crop
+    size and masking block as the CLI derives them), bf16, the given AMG with
+    the quality thresholds zeroed as the reference bench does (random weights
+    pass none of them), synthetic 480x640 images in the canonical frame; one
+    warm-up image, then ``n_images`` measured. The CLIP glue's launches an
+    image are exact (``tools/check_kernels.py:clip_launches_per_image``), and
+    K6's too past ViT-B/16."""
     import dataclasses
 
     import numpy as np
     import torch
 
-    from hybridgl_tpu_torch.core.config import PipelineConfig
+    from hybridgl_tpu_torch.cli.main import tower_defaults
+    from hybridgl_tpu_torch.core.config import GuidanceConfig, PipelineConfig, clip_preset
     from hybridgl_tpu_torch.lang import HeuristicParser
     from hybridgl_tpu_torch.kernels import launch_counts, tc_launch_counts
     from hybridgl_tpu_torch.pipeline.runner import HybridGLPipeline
+    from hybridgl_tpu_torch.tools.check_kernels import clip_launches_per_image
 
-    cfg = PipelineConfig(sam_model="vit_h", clip_model="ViT-B/16", fusion_mode="G2L", canonical_size=canonical,
+    tower = tower_defaults(clip_preset(clip_model))
+    cfg = PipelineConfig(sam_model="vit_h", clip_model=clip_model, fusion_mode="G2L", canonical_size=canonical,
+                         crop_size=tower["crop_size"], guidance=GuidanceConfig(masking_block=tower["masking_block"]),
                          amg=dataclasses.replace(amg, pred_iou_thresh=0.0, stability_score_thresh=0.0))
+    exact = clip_launches_per_image(cfg.clip.vision_layers, cfg.guidance.masking_block, cfg.gem.depth,
+                                    cfg.clip.text_layers)
+    if clip_model == "ViT-B/16":
+        exact.pop("clip_attention")
     pipe = HybridGLPipeline(cfg, *weights, HeuristicParser(), _tokenizer(), device=torch.device("cuda"))
     rng = np.random.default_rng(0)
     samples = [_sample(rng, 1024, canonical, 480, 640, 768, 1024, (100, 150, 300, 400)) for _ in range(n_images + 1)]
@@ -479,11 +508,12 @@ def phase_pipeline(tag, amg, canonical, n_images, min_launches, weights):
         short = {k: (delta[k], n) for k, n in min_launches.items() if delta[k] < n}
         if short:
             fail(f"{name}: kernels launched fewer times than the path needs: {short}")
-        off = {k: (delta[k], n) for k, n in GLUE_LAUNCHES_PER_IMAGE.items() if delta[k] != n}
+        off = {k: (delta[k], n) for k, n in exact.items() if delta[k] != n}
         if off:
             fail(f"{name}: the CLIP glue's launches (launched, expected) differ from the path's: {off}")
-        if delta["nms"] != NMS_LAUNCHES_PER_IMAGE[tag]:
-            fail(f"{name}: NMS launched {delta['nms']} times on the card, expected {NMS_LAUNCHES_PER_IMAGE[tag]}")
+        nms = NMS_LAUNCHES_PER_IMAGE[tag.split()[0]]
+        if delta["nms"] != nms:
+            fail(f"{name}: NMS launched {delta['nms']} times on the card, expected {nms}")
     # at full width in bf16 every launch of a wrapper with two kernels is the tensor-core kernel's
     total, on_tc = launch_counts(), tc_launch_counts()
     off_tc = {k: (n, total[k]) for k, n in on_tc.items() if n != total[k]}
@@ -1772,6 +1802,12 @@ def main(argv):
         missing = [k for k in mins if counts[tag][k] == 0]
         if missing:
             fail(f"kernels of the {tag} path never launched: {missing}")
+    # CLIP ViT-L/14@336 as the scorer at RefCOCO settings: K6 at 577 tokens, 27 launches an image on the tensor cores
+    reset_launch_counts()
+    tag = "RefCOCO " + VIT_L14_336[0]
+    phase_pipeline(tag, AMG_REFCOCO, 640, 1, MIN_LAUNCHES_PER_IMAGE, (weights[0], clip_weights(VIT_L14_336[0])),
+                   clip_model=VIT_L14_336[0])
+    counts[tag] = launch_counts()
     for tag in paths:
         phase_downloads(tag, *paths[tag], card)
     shares = phase_busy_share(paths, card)

@@ -45,7 +45,7 @@ import time
 
 import torch
 
-from ..core.config import AMG_PHRASECUT, AMG_REFCOCO, PipelineConfig
+from ..core.config import AMG_PHRASECUT, AMG_REFCOCO, ClipConfig, GuidanceConfig, PipelineConfig, clip_preset
 from ..eval.parity import ParityLog, SelectionRecord
 
 from ..core import checkpoint, convert
@@ -90,8 +90,13 @@ def default_argument_parser(epilog=None) -> argparse.ArgumentParser:
     p.add_argument("--trace_dir", default="", help="write a torch.profiler chrome trace, the stages named, here")
     p.add_argument("--data_parallel", action="store_true",
                    help="shard the eval over all local devices (one process each; see the module docstring)")
-    # the port's addition
+    # the port's additions
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu (the kernels' plain versions)")
+    p.add_argument("--crop_size", type=int, default=0,
+                   help="the proposals' crop side (default: the CLIP tower's input: ViT-B/16 224, ViT-L/14@336 336)")
+    p.add_argument("--masking_block", type=int, default=-1,
+                   help="the first G2L fusion block (default: the tower's depth - 3, the reference's 9 of 12)")
+    p.add_argument("--gem_img_size", type=int, default=0, help="GEM's input side (default 448)")
     return p
 
 
@@ -126,29 +131,50 @@ def load_params(args, cfg: PipelineConfig, device):
             raise SystemExit(f"{path}: {checkpoint.ORBAX_REFUSAL}")
         return from_numpy_tree(tree, device, dtype)
 
-    return (load_one(args.sam_checkpoint, convert.load_torch_sam, cfg.sam),
-            load_one(args.clip_checkpoint, convert.load_torch_clip, cfg.clip))
+    clip = load_one(args.clip_checkpoint, convert.load_torch_clip, cfg.clip)
+    rows = int(clip["visual"]["positional_embedding"].shape[0])
+    if rows != cfg.clip.seq_len:
+        raise SystemExit(f"{args.clip_checkpoint}: {rows} positional rows, but --clip_model {args.clip_model} has "
+                         f"{cfg.clip.seq_len} (ViT-L/14@336 has 577, ViT-L/14 and ViT-B/16 257 and 197)")
+    return load_one(args.sam_checkpoint, convert.load_torch_sam, cfg.sam), clip
+
+
+def tower_defaults(clip: ClipConfig) -> dict:
+    """The settings a CLIP tower sets unless the flags name them: the crops
+    at the tower's input side (the reference's 224, Hybridgl_main.py:19, is
+    ViT-B/16's) and G2L in the last three blocks (the reference's masking
+    block 9 of 12). GEM keeps 448 px over the same tower."""
+    return dict(crop_size=clip.image_size, masking_block=clip.vision_layers - 3)
 
 
 def build_config(args) -> PipelineConfig:
+    import dataclasses
+
     dataset = args.dataset
     split_by = "umd" if dataset == "refcocog" else "unc"
     amg = AMG_PHRASECUT if dataset == "phrasecut" else AMG_REFCOCO
     if args.max_proposals:
-        import dataclasses
-
         amg = dataclasses.replace(amg, max_proposals=args.max_proposals)
+    tower = tower_defaults(clip_preset(args.clip_model))
     cfg = PipelineConfig(
         clip_model=args.clip_model,
         sam_model=args.sam_model,
         fusion_mode=args.fusion_mode,
         amg=amg,
         canonical_size=1024 if dataset == "phrasecut" else 640,
+        crop_size=tower["crop_size"],
+        guidance=GuidanceConfig(masking_block=tower["masking_block"]),
     )
     if args.clip_model == "test-tiny" or args.sam_model == "test-tiny":
         from ..core.config import tiny_smoke_config
 
         cfg = tiny_smoke_config(fusion_mode=args.fusion_mode, min_mask_region_area=amg.min_mask_region_area)
+    if args.crop_size:
+        cfg = cfg.replace(crop_size=args.crop_size)
+    if args.masking_block >= 0:
+        cfg = cfg.replace(guidance=dataclasses.replace(cfg.guidance, masking_block=args.masking_block))
+    if args.gem_img_size:
+        cfg = cfg.replace(gem=dataclasses.replace(cfg.gem, img_size=args.gem_img_size))
     if args.no_bug_compat:
         from ..core.config import CompatConfig
 

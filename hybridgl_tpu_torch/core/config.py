@@ -1,5 +1,6 @@
 """The port's own copy of ``hybridgl_tpu/core/config.py``, kept verbatim apart from its
-imports and build paths, so that the port imports nothing of the JAX package.
+imports and build paths, so that the port imports nothing of the JAX package; the port
+adds one CLIP preset, ``ViT-L/14@336``.
 
 Typed configuration for the whole framework.
 
@@ -80,6 +81,19 @@ def clip_preset(name: str) -> ClipConfig:
             embed_dim=24,
         ),
         "ViT-L/14": ClipConfig(
+            patch_size=14,
+            vision_width=1024,
+            vision_layers=24,
+            vision_heads=16,
+            text_width=768,
+            text_heads=12,
+            text_layers=12,
+            embed_dim=768,
+        ),
+        # the port's addition: OpenAI's ViT-L/14 at 336 px (openai/CLIP clip.py _MODELS
+        # "ViT-L/14@336px"; Radford et al. 2021, Table 20): a 24 x 24 grid, 577 tokens
+        "ViT-L/14@336": ClipConfig(
+            image_size=336,
             patch_size=14,
             vision_width=1024,
             vision_layers=24,

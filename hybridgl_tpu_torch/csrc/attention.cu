@@ -6,8 +6,9 @@
 //   K2 hybridgl_tpu/kernels/flash_attention.py:flash_attention_fused (SAM
 //      global blocks, S = 4096, G = 64),
 //   K6 hybridgl_tpu/kernels/clip_attention.py:clip_attention (CLIP blocks,
-//      L = 197, bias on query row 0 only; in bf16 at hd 64 / 80 and L <= 256
-//      the entry point below hands it to attention_wgmma.cu),
+//      L = 197 and CLIP ViT-L/14@336's 577, bias on query row 0 only; in bf16
+//      at hd 64 / 80 and L <= 577 the entry point below hands it to
+//      attention_wgmma.cu),
 //   K9 hybridgl_tpu/kernels/flash_attention.py:flash_attention_rel_pos (the
 //      pre-scaled tiled form, scale 1; only the kernel check calls it).
 // The TPU kernels fold the SAM bias into an augmented 128-lane contraction;

@@ -66,6 +66,25 @@
 // finfo(float32).min: score + bias stays finite, row 0 always keeps its own
 // key (bias 0), so the running max is finite and masked keys get exp = 0
 // exactly. A null cls_bias runs the kernel with no bias.
+//
+// The same kernel past 256 rows (K6 at CLIP ViT-L/14@336: L = 577 tokens, hd
+// = 64, up to 2,048 stream-heads; 175 GFLOP against 606 MB a call at bucket
+// 64, so the operations and the bytes bound it alike, ~0.18 ms). A head's K
+// and V (577 x 64 bf16 each; 160 KB as whole key tiles) still fit one block's
+// shared memory, but then only one block fits an SM, and the tensor cores
+// wait while a block loads. So one block of four warpgroups takes a whole
+// head: it loads K and V once (ten cp.async groups, one a key tile) and walks
+// the head's query tiles (577 rows in 10 tiles of 58), each warpgroup every
+// fourth one. The first pass consumes the key tiles as they land, a barrier a
+// tile, which holds the warpgroups in step; the later passes find K and V
+// resident and run without a barrier, so one warpgroup's softmax overlaps the
+// others' products. Between the products nothing branches (ptxas serialises
+// the wgmma of a path that does): K and V are whole key tiles, zero past S, so
+// every P V takes four steps, and each key's bias comes from two rows in
+// shared memory (0 or -inf past S for every query row; cls_bias, times 1 on
+// global row 0 and 0 elsewhere). The template's KT is the most key tiles a
+// block holds (4 or 10); the kernel keeps its name, resident_kernel<HD, MODE,
+// KT>.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -366,22 +385,29 @@ rel_pos_stream_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
   }
 }
 
-// ---- resident kernel: S <= 256; REL_POS any G with G * G = S, CLS_ROW any S ----
+// ---- resident kernel: REL_POS S <= 256 (any G with G * G = S); CLS_ROW S <= 577 ----
 
-constexpr int MAX_RESIDENT_S = 256;
-constexpr int MAX_KTILES = MAX_RESIDENT_S / BK;  // cp.async groups a block commits, one per key tile
-static_assert(MAX_KTILES == 4, "the wait ladder in resident_kernel names four groups");
+constexpr int MAX_RESIDENT_S = 256;  // one warpgroup a block, at most four key tiles
+constexpr int MAX_CLS_S = 577;       // CLS_ROW: CLIP ViT-L/14@336's tokens, four warpgroups, ten key tiles
+
+// the most key tiles (cp.async groups) a block of the kernel for S holds
+__host__ __device__ constexpr int key_tiles(int S) {
+  return S <= MAX_RESIDENT_S ? MAX_RESIDENT_S / BK : (MAX_CLS_S + BK - 1) / BK;
+}
+// warpgroups a block: four where K and V fill the SM's shared memory alone
+__host__ __device__ constexpr int resident_wgs(int KT) { return KT > MAX_RESIDENT_S / BK ? 4 : 1; }
 
 struct ResidentLayout {
   int sp;        // S rounded up to 16 keys
-  int kv_bytes;  // K region then V region; K's last 64-key tile may read into V
-  int rows;      // query rows per block
-  int qtiles;
+  int kv_bytes;  // K region then V region; K's last 64-key tile may read into V (walking: whole tiles)
+  int rows;      // query rows per warpgroup tile
+  int qtiles;    // warpgroup tiles of query rows
+  int blocks;    // blocks a head: a tile each with one warpgroup, else one that walks the tiles
   int bytes;
 };
 
-// G = 0: no bias tables in shared memory (CLS_ROW).
-inline ResidentLayout resident_layout(int S, int G, int HD) {
+// G = 0: no bias tables in shared memory (CLS_ROW). wgs: warpgroups a block.
+inline ResidentLayout resident_layout(int S, int G, int HD, int wgs) {
   ResidentLayout L;
   L.sp = (S + 15) / 16 * 16;
   const int ktiles = (S + BK - 1) / BK;
@@ -389,30 +415,56 @@ inline ResidentLayout resident_layout(int S, int G, int HD) {
   L.kv_bytes = kv_rows * HD * 2;
   L.qtiles = (S + WG_ROWS - 1) / WG_ROWS;
   L.rows = (S + L.qtiles - 1) / L.qtiles;
+  L.blocks = wgs == 1 ? L.qtiles : 1;
   L.bytes = L.kv_bytes + (G > 0 ? 2 * L.rows * G * 4 + MAX_RESIDENT_S * 2 : 0);
+  if (wgs > 1) {  // whole key tiles for K and V, then the keys' bias rows (resident_kernel, WALK)
+    L.kv_bytes = 2 * ktiles * BK * HD * 2;
+    L.bytes = L.kv_bytes + 2 * ktiles * BK * 4;
+  }
   return L;
 }
 
+// wait until at most n of this thread's cp.async groups are in flight (the
+// instruction takes the count as an immediate: a ladder of N + 1 cases)
+template <int N>
+__device__ __forceinline__ void cp_async_wait_at_most(int n) {
+  if constexpr (N == 0) {
+    cp_async_wait<0>();
+  } else {
+    if (n >= N) cp_async_wait<N>();
+    else cp_async_wait_at_most<N - 1>(n);
+  }
+}
+
 // REL_POS: rel_h, rel_w [BH, S, G]. CLS_ROW: rel_h is cls_bias [BH / G, S] or
-// null, rel_w unused, and G carries the number of heads H.
-template <int HD, int MODE>
-__global__ void __launch_bounds__(128, 3)
+// null, rel_w unused, and G carries the number of heads H. KT: the most key
+// tiles of S (key_tiles), which sets the warpgroups a block (resident_wgs).
+template <int HD, int MODE, int KT>
+__global__ void __launch_bounds__(128 * resident_wgs(KT), resident_wgs(KT) == 1 ? 3 : 1)
 resident_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                 const __nv_bfloat16* __restrict__ v, const float* __restrict__ rel_h,
                 const float* __restrict__ rel_w, __nv_bfloat16* __restrict__ out, int S, int G, int sp,
                 int kv_bytes, int rows, float scale) {
+  constexpr int WGS = resident_wgs(KT);
+  constexpr int NT = 128 * WGS;  // threads a block
+  constexpr bool WALK = WGS > 1;  // the block walks all of a head's query tiles
+  static_assert(MODE == CLS_ROW || !WALK, "REL_POS keeps one warpgroup a block (its bias rows are the block's)");
   extern __shared__ __align__(128) unsigned char smem[];
+  const int ktiles = (S + BK - 1) / BK;
   const uint32_t ks = smem_u32(smem);
-  const uint32_t vs = ks + sp * HD * 2;
-  // REL_POS only; in CLS_ROW mode the block has no shared memory past kv_bytes
+  const uint32_t vs = ks + (WALK ? ktiles * BK : sp) * HD * 2;
+  // WALK: after K and V (whole key tiles, zero past S), each key's bias for every row (0, or -inf past S)
+  // and for row 0 (cls_bias, 0 past S)
+  float* key_bias = reinterpret_cast<float*>(smem + kv_bytes);
+  float* cls_row = key_bias + ktiles * BK;
+  // REL_POS only (a CLS_ROW block keeps nothing past kv_bytes but, walking, the keys' bias rows)
   float* Rh = reinterpret_cast<float*>(smem + kv_bytes);  // [rows][G]
   float* Rw = Rh + rows * G;                              // [rows][G]
   uint16_t* split = reinterpret_cast<uint16_t*>(Rw + rows * G);  // key -> (k / G) | (k % G) << 8
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * rows;
-  const int ktiles = (S + BK - 1) / BK;
+  const int q0 = blockIdx.x * rows;  // REL_POS (one warpgroup a block): the block's first query row
   const size_t base = (size_t)bh * S * HD;
 
   // the block's rel_h / rel_w rows are contiguous in device memory: a
@@ -421,7 +473,7 @@ resident_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __rest
     const size_t rel_base = ((size_t)bh * S + q0) * G;
     const int live = (min(q0 + rows, S) - q0) * G;
     const uint32_t rh_s = smem_u32(Rh), rw_s = smem_u32(Rw);
-    for (int i = tid; i < rows * G; i += 128) {
+    for (int i = tid; i < rows * G; i += NT) {
       const size_t off = rel_base + (i < live ? i : 0);
       cp_async4(rh_s + i * 4, rel_h + off, i < live ? 4 : 0);
       cp_async4(rw_s + i * 4, rel_w + off, i < live ? 4 : 0);
@@ -429,89 +481,113 @@ resident_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __rest
   }
   // K and V: one cp.async group per 64-key tile; keys past S are zero-filled.
   // 16-byte unit u of a tile is key (u / HD) * 8 + u % 8, chunk (u % HD) / 8,
-  // and lands at byte 16 * u of the tile; a thread owns units tid + 128 i,
+  // and lands at byte 16 * u of the tile; a thread owns units tid + NT i,
   // whose key and offset inside a tile are worked out once
   constexpr int UNITS = BK * HD / 8;
-  static_assert(UNITS % 128 == 0, "a full tile is a whole number of block-wide copies");
-  int unit_key[UNITS / 128], unit_off[UNITS / 128];
+  constexpr int PER = (UNITS + NT - 1) / NT;  // units a thread copies of a full tile
+  int unit_key[PER], unit_off[PER];
 #pragma unroll
-  for (int i = 0; i < UNITS / 128; ++i) {
-    const int u = tid + 128 * i;
+  for (int i = 0; i < PER; ++i) {
+    const int u = tid + NT * i;
     unit_key[i] = (u / HD) * 8 + (u & 7);
     unit_off[i] = unit_key[i] * HD + ((u % HD) >> 3) * 8;
   }
   for (int t = 0; t < ktiles; ++t) {
-    const int units = min(BK, sp - t * BK) * (HD / 8);
+    const int units = WALK ? UNITS : min(BK, sp - t * BK) * (HD / 8);
     const uint32_t dst = (uint32_t)t * BK * HD * 2 + tid * 16;
     const size_t tile_base = base + (size_t)t * BK * HD;
 #pragma unroll
-    for (int i = 0; i < UNITS / 128; ++i)
-      if (tid + 128 * i < units) {
+    for (int i = 0; i < PER; ++i)
+      if (tid + NT * i < units) {
         const bool live = t * BK + unit_key[i] < S;
         const size_t off = live ? tile_base + unit_off[i] : base;
-        cp_async16(ks + dst + i * 2048, k + off, live ? 16 : 0);
-        cp_async16(vs + dst + i * 2048, v + off, live ? 16 : 0);
+        cp_async16(ks + dst + i * NT * 16, k + off, live ? 16 : 0);
+        cp_async16(vs + dst + i * NT * 16, v + off, live ? 16 : 0);
       }
     cp_async_commit();
   }
-  // the wait below counts back from MAX_KTILES groups: commit empty ones for
-  // the tiles a short sequence does not have
-  for (int t = ktiles; t < MAX_KTILES; ++t) cp_async_commit();
+  // the wait below counts back from KT groups: commit empty ones for the
+  // tiles a short sequence does not have
+  for (int t = ktiles; t < KT; ++t) cp_async_commit();
   if constexpr (MODE == REL_POS)
-    for (int key = tid; key < MAX_RESIDENT_S; key += 128) split[key] = (uint16_t)((key / G) | ((key % G) << 8));
+    for (int key = tid; key < MAX_RESIDENT_S; key += NT) split[key] = (uint16_t)((key / G) | ((key % G) << 8));
+  if constexpr (WALK) {
+    const float* cls = rel_h != nullptr ? rel_h + (size_t)(bh / G) * S : nullptr;
+    for (int key = tid; key < ktiles * BK; key += NT) {
+      key_bias[key] = key < S ? 0.f : -INFINITY;
+      cls_row[key] = cls != nullptr && key < S ? cls[key] : 0.f;
+    }
+  }
 
-  const int r0 = warp * 16 + (lane >> 2), r1 = r0 + 8;  // rows inside the tile
+  const int r0 = (warp & 3) * 16 + (lane >> 2), r1 = r0 + 8;  // rows inside the warpgroup's tile
   const int col = (lane & 3) * 2;
-  const bool live0 = r0 < rows && q0 + r0 < S, live1 = r1 < rows && q0 + r1 < S;
-  uint32_t qa[HD / 16][4];
-  load_q_fragments<HD>(qa, live0 ? q + base + (size_t)(q0 + r0) * HD : nullptr,
-                       live1 ? q + base + (size_t)(q0 + r1) * HD : nullptr, col, scale);
   // dead rows read a live row's bias: their output is never stored
   const int b0 = min(r0, rows - 1) * G, b1 = min(r1, rows - 1) * G;
-  // CLS_ROW: the bias row of this stream, for the four lanes that own global row 0
-  const float* cls = nullptr;
-  if constexpr (MODE == CLS_ROW)
-    if (rel_h != nullptr && q0 + r0 == 0) cls = rel_h + (size_t)(bh / G) * S;
+  // query tile qt holds rows [qt * rows, (qt + 1) * rows); every warpgroup runs the first pass (a tile
+  // past S computes on zeros and stores nothing), the later ones while the tile holds a row
+  for (int qt = blockIdx.x * WGS + (warp >> 2), pass = 0; pass == 0 || (WALK && qt * rows < S);
+       qt += gridDim.x * WGS, ++pass) {
+    const int qb = qt * rows;
+    const bool live0 = r0 < rows && qb + r0 < S, live1 = r1 < rows && qb + r1 < S;
+    uint32_t qa[HD / 16][4];
+    load_q_fragments<HD>(qa, live0 ? q + base + (size_t)(qb + r0) * HD : nullptr,
+                         live1 ? q + base + (size_t)(qb + r1) * HD : nullptr, col, scale);
+    // CLS_ROW: the bias row of this stream, for the four lanes that own global row 0
+    const float* cls = nullptr;
+    if constexpr (MODE == CLS_ROW && !WALK)
+      if (rel_h != nullptr && qb + r0 == 0) cls = rel_h + (size_t)(bh / G) * S;
+    const float w0 = qb + r0 == 0 ? 1.f : 0.f;  // WALK: this lane's row r0 is global row 0
 
-  float o[HD / 2];
+    float o[HD / 2];
 #pragma unroll
-  for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
-  RowState st;
-  uint32_t pa[4][4];
-  float s[32];
-  for (int t = 0; t < ktiles; ++t) {
-    // groups 0..t done = at most MAX_KTILES - 1 - t still in flight
-    if (t == 0) cp_async_wait<MAX_KTILES - 1>();
-    else if (t == 1) cp_async_wait<MAX_KTILES - 2>();
-    else if (t == 2) cp_async_wait<MAX_KTILES - 3>();
-    else cp_async_wait<0>();
-    fence_async_proxy();
-    __syncthreads();  // every thread's part of tile t has landed; at t = 0 also the bias rows
-
-    scores<HD>(s, qa, ks + (uint32_t)t * BK * HD * 2);
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int key = t * BK + j * 8 + col + e;
-        if (key < S) {
-          if constexpr (MODE == REL_POS) {
-            const int hw = split[key];
-            s[j * 4 + e] += Rh[b0 + (hw & 0xff)] + Rw[b0 + (hw >> 8)];
-            s[j * 4 + 2 + e] += Rh[b1 + (hw & 0xff)] + Rw[b1 + (hw >> 8)];
-          } else if (cls != nullptr) {
-            s[j * 4 + e] += cls[key];  // row r0 = global row 0 alone
-          }
-        } else {
-          s[j * 4 + e] = -INFINITY;
-          s[j * 4 + 2 + e] = -INFINITY;
-        }
+    for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+    RowState st;
+    uint32_t pa[4][4];
+    float s[32];
+    for (int t = 0; t < ktiles; ++t) {
+      if (!WALK || pass == 0) {
+        cp_async_wait_at_most<KT - 1>(KT - 1 - t);  // groups 0..t done
+        fence_async_proxy();
+        __syncthreads();  // every thread's part of tile t has landed; at t = 0 also the bias rows
       }
-    softmax_tile<HD>(s, 0.f, 0.f, st, o, pa);
-    accumulate_pv<HD>(o, pa, vs + (uint32_t)t * BK * HD * 2, min(4, (sp - t * BK) / 16));
+
+      scores<HD>(s, qa, ks + (uint32_t)t * BK * HD * 2);
+      if constexpr (WALK) {  // no branch: the keys' bias rows from shared memory
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int key = t * BK + j * 8 + col + e;
+            const float kb = key_bias[key];
+            s[j * 4 + e] += fmaf(w0, cls_row[key], kb);
+            s[j * 4 + 2 + e] += kb;
+          }
+      } else {
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int key = t * BK + j * 8 + col + e;
+            if (key < S) {
+              if constexpr (MODE == REL_POS) {
+                const int hw = split[key];
+                s[j * 4 + e] += Rh[b0 + (hw & 0xff)] + Rw[b0 + (hw >> 8)];
+                s[j * 4 + 2 + e] += Rh[b1 + (hw & 0xff)] + Rw[b1 + (hw >> 8)];
+              } else if (cls != nullptr) {
+                s[j * 4 + e] += cls[key];  // row r0 = global row 0 alone
+              }
+            } else {
+              s[j * 4 + e] = -INFINITY;
+              s[j * 4 + 2 + e] = -INFINITY;
+            }
+          }
+      }
+      softmax_tile<HD>(s, 0.f, 0.f, st, o, pa);
+      accumulate_pv<HD>(o, pa, vs + (uint32_t)t * BK * HD * 2, WALK ? 4 : min(4, (sp - t * BK) / 16));
+    }
+    store_rows<HD>(o, st, live0 ? out + base + (size_t)(qb + r0) * HD : nullptr,
+                   live1 ? out + base + (size_t)(qb + r1) * HD : nullptr, col);
   }
-  store_rows<HD>(o, st, live0 ? out + base + (size_t)(q0 + r0) * HD : nullptr,
-                 live1 ? out + base + (size_t)(q0 + r1) * HD : nullptr, col);
 }
 
 template <int HD>
@@ -527,21 +603,29 @@ int launch_stream(const void* q, const void* k, const void* v, const float* rel_
   return (int)cudaGetLastError();
 }
 
-template <int HD, int MODE>
+template <int HD, int MODE, int KT>
 int launch_resident(const void* q, const void* k, const void* v, const float* rel_h, const float* rel_w, void* out,
                     int BH, int S, int G, float scale, cudaStream_t stream) {
-  auto kern = resident_kernel<HD, MODE>;
-  const ResidentLayout L = resident_layout(S, MODE == REL_POS ? G : 0, HD);
+  auto kern = resident_kernel<HD, MODE, KT>;
+  constexpr int WGS = resident_wgs(KT);
+  const ResidentLayout L = resident_layout(S, MODE == REL_POS ? G : 0, HD, WGS);
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, L.bytes);
   if (err != cudaSuccess) return (int)err;
-  // three blocks an SM need the largest shared-memory carve-out
+  // three blocks an SM (or one block's 148 KB of K and V) need the largest shared-memory carve-out
   err = cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout, cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return (int)err;
-  kern<<<dim3(L.qtiles, BH), 128, L.bytes, stream>>>(
+  kern<<<dim3(L.blocks, BH), 128 * WGS, L.bytes, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), rel_h, rel_w, static_cast<__nv_bfloat16*>(out), S, G, L.sp, L.kv_bytes,
       L.rows, scale);
   return (int)cudaGetLastError();
+}
+
+template <int KT>
+int launch_cls(const void* q, const void* k, const void* v, const float* cls_bias, void* out, int BH, int S, int HD,
+               int H, float scale, cudaStream_t st) {
+  return HD == 80 ? launch_resident<80, CLS_ROW, KT>(q, k, v, cls_bias, nullptr, out, BH, S, H, scale, st)
+                  : launch_resident<64, CLS_ROW, KT>(q, k, v, cls_bias, nullptr, out, BH, S, H, scale, st);
 }
 
 }  // namespace
@@ -563,20 +647,21 @@ int hgl_rel_pos_attention_tc(const void* q, const void* k, const void* v, const 
   if (G == 64)
     return HD == 80 ? launch_stream<80>(q, k, v, rel_h, rel_w, out, BH, S, scale, st)
                     : launch_stream<64>(q, k, v, rel_h, rel_w, out, BH, S, scale, st);
-  return HD == 80 ? launch_resident<80, REL_POS>(q, k, v, rel_h, rel_w, out, BH, S, G, scale, st)
-                  : launch_resident<64, REL_POS>(q, k, v, rel_h, rel_w, out, BH, S, G, scale, st);
+  constexpr int KT = key_tiles(MAX_RESIDENT_S);
+  return HD == 80 ? launch_resident<80, REL_POS, KT>(q, k, v, rel_h, rel_w, out, BH, S, G, scale, st)
+                  : launch_resident<64, REL_POS, KT>(q, k, v, rel_h, rel_w, out, BH, S, G, scale, st);
 }
 
 // 1 where the resident kernel takes this CLS-row geometry (bf16 operands only).
-int hgl_cls_tc_takes(int S, int HD) { return (HD == 64 || HD == 80) && S >= 1 && S <= MAX_RESIDENT_S; }
+int hgl_cls_tc_takes(int S, int HD) { return (HD == 64 || HD == 80) && S >= 1 && S <= MAX_CLS_S; }
 
 // K6 in bf16 on the tensor cores: cls_bias [BH / H, S] f32 or null; the caller
 // has checked hgl_cls_tc_takes. Returns a cudaError_t code (0 = launched).
 int hgl_cls_attention_tc(const void* q, const void* k, const void* v, const float* cls_bias, void* out, int BH,
                          int S, int HD, int H, float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return HD == 80 ? launch_resident<80, CLS_ROW>(q, k, v, cls_bias, nullptr, out, BH, S, H, scale, st)
-                  : launch_resident<64, CLS_ROW>(q, k, v, cls_bias, nullptr, out, BH, S, H, scale, st);
+  return S <= MAX_RESIDENT_S ? launch_cls<key_tiles(MAX_RESIDENT_S)>(q, k, v, cls_bias, out, BH, S, HD, H, scale, st)
+                             : launch_cls<key_tiles(MAX_CLS_S)>(q, k, v, cls_bias, out, BH, S, HD, H, scale, st);
 }
 
 }  // extern "C"

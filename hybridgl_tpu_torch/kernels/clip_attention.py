@@ -3,20 +3,22 @@
 :func:`clip_attention` replaces the Pallas kernel of the same name
 (``hybridgl_tpu/kernels/clip_attention.py:78``): the ViT-B/16 blocks of the
 hybrid fusion stage, up to 2P = 128 crop streams x 12 heads of L = 197
-tokens, hd = 64. The additive bias ``cls_bias[n, k]`` applies to query row 0
+tokens, hd = 64, and CLIP ViT-L/14@336's, 128 streams x 16 heads of L = 577. The additive bias ``cls_bias[n, k]`` applies to query row 0
 only, every other row is unbiased (the reference's ``make_attn_mask``,
 backbone.py:108-115, arrives compact as [N, L]; see
 models/clip/fusion.py:make_cls_bias).
 
 Two kernels stand behind it (:func:`variant` says which a call takes, by
 dtype and shape alone, inside the C entry point): bf16 operands with head
-dim 64 or 80 and L <= 256 run the resident tensor-core kernel of
+dim 64 or 80 and L <= 577 run the resident tensor-core kernel of
 ``csrc/attention_wgmma.cu`` in CLS_ROW mode (all K and V of a head in shared
-memory, the bias added to row 0's f32 accumulator entries); f32 operands, the
-other head dims (16, 32) and 256 < L <= 512 (ViT-L/14's 257) run the
-CUDA-core kernel of ``csrc/attention.cu`` (CLS_ROW mode), which is exact in
-f32. The tensor-core kernel rounds the scaled q and the probabilities to bf16;
-the bias and all sums stay f32.
+memory, the bias added to row 0's f32 accumulator entries; past 256 rows one
+block of four warpgroups walks a head's query tiles); f32 operands and the other head dims (16, 32)
+run the CUDA-core kernel of ``csrc/attention.cu`` (CLS_ROW mode), which is
+exact in f32. The tensor-core kernel rounds the scaled q and the
+probabilities to bf16; the bias and all sums stay f32. Past ``MAX_ROWS`` the
+model's routing (``models/clip/layers.py``) takes the plain path: GEM's 785
+(ViT-B/16) and 1,025 (ViT-L/14@336) tokens.
 
 The bias stays f32: masked patches carry ``finfo(float32).min``, which a
 cast to bf16 would turn into -inf. Row 0 always attends to itself (bias 0),
@@ -35,17 +37,20 @@ import torch
 
 from . import _build, _ops
 
-# single-tile row limit of the reference's routing (models/clip/layers.py):
-# longer sequences (GEM's 785 tokens) take the plain path
-MAX_ROWS = 512
+# the longest sequence K6 takes (models/clip/layers.py routes by it): CLIP
+# ViT-L/14@336's 577 tokens; longer ones (GEM's 785 and 1,025) take the plain path
+MAX_ROWS = 577
 SUPPORTED_HEAD_DIMS = (16, 32, 64, 80)
 TC_HEAD_DIMS = (64, 80)
-TC_MAX_ROWS = 256  # the resident kernel keeps a head's K and V in shared memory
+TC_MAX_ROWS = 577  # the resident kernel keeps a head's K and V in shared memory (148 KB at 577 x 64)
 
 
 def variant(dtype, L: int, hd: int) -> str:
-    """Which kernel a CUDA call takes: "wgmma" or "cuda-core". Mirrors
-    ``hgl_cls_tc_takes`` (csrc/attention_wgmma.cu)."""
+    """Which path a call of ``L`` tokens takes on the card: "wgmma" or
+    "cuda-core" (mirrors ``hgl_cls_tc_takes``, csrc/attention_wgmma.cu), or
+    "plain" past ``MAX_ROWS``, where the model does not call K6."""
+    if L > MAX_ROWS:
+        return "plain"
     if dtype == torch.bfloat16 and hd in TC_HEAD_DIMS and 1 <= L <= TC_MAX_ROWS:
         return "wgmma"
     return "cuda-core"

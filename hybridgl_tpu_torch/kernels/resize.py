@@ -32,9 +32,16 @@ def _last_index(size):
 
 
 def _src_coords(out_size: int, src_size, device, dtype=torch.float32):
+    """Half-pixel source coordinates, (i + 0.5) src / out - 0.5, clamped to
+    [0, src - 1], computed as ((2 i + 1) src - out) / (2 out): the numerator is
+    an integer that float32 holds exactly, so a coordinate that is an integer
+    comes out exactly. The product form lands such a row one ulp off
+    (112.99999 for 113 at row 3 of 454 -> 14), and the row before it then gets
+    a weight of ~1e-5 where the reference's has none (``make_cls_bias`` opens a
+    patch to the CLS row for any nonzero weight)."""
     i = torch.arange(out_size, dtype=dtype, device=device)
     src = upload(src_size, device, dtype)
-    c = (i + 0.5) * (src / out_size) - 0.5
+    c = ((2 * i + 1) * src - out_size) / (2 * out_size)
     return torch.clamp(c, min=torch.zeros((), dtype=dtype, device=device), max=src - 1.0)
 
 

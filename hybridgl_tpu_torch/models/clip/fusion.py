@@ -29,6 +29,7 @@ from ...core.config import ClipConfig, CompatConfig
 
 from ...kernels.resize import resize_bilinear
 from ...kernels import clip_glue
+from ...utils.profiling import device_span
 from .layers import allowed_mask_to_bias, block_step, cls_bias_to_attn_bias
 from .vit import vit_block, vit_head, vit_run, vit_stem
 
@@ -100,7 +101,9 @@ def hybrid_forward(p_visual, local_imgs, global_imgs, pred_masks, cfg: ClipConfi
     x2 = vit_stem(p_visual, global_imgs, cfg)
     P = x.shape[0]
     if fusion_mode == "G2L":
-        return vit_head(p_visual, _g2l_tail(blocks, x, x2, masks_grid, bias, cfg, mb, last), cfg)
+        with device_span("g2l"):  # the blocks, timed on the device (utils/profiling.py)
+            x = _g2l_tail(blocks, x, x2, masks_grid, bias, cfg, mb, last)
+        return vit_head(p_visual, x, cfg)
     xx = run(torch.cat([x, x2], dim=0), 0, mb)
     x, x2 = xx[:P], xx[P:]
     xh_local, xh_global = x, x2  # G2L&L2G's hybrid streams

@@ -32,8 +32,11 @@ cannot overwrite another key's buffers; the sentence stage's outputs are
 copied out of its pool, since the runner keeps them past the next replay.
 The kernel launch counters (K6 and the CLIP block's fused glue in the
 feature stage, the glue in the sentence stage's text tower) add what the
-capture counted at each replay. Off the card the same stage functions run
-eagerly on the same static inputs.
+capture counted at each replay. The feature graph holds two device spans
+(``utils/profiling.py:device_span``), ``g2l`` (the G2L blocks) and ``gem``
+(GEM's patch features), handed to the pipeline's timer after each replay:
+``crops+fusion/g2l@device`` and ``crops+fusion/gem@device``. Off the card the
+same stage functions run eagerly on the same static inputs.
 """
 
 from __future__ import annotations
@@ -45,6 +48,7 @@ import numpy as np
 import torch
 
 from ..core.config import PipelineConfig
+from ..utils.profiling import GraphSpans, before_replay, recording, replayed
 from ..utils.transfer import upload_into
 from .scoring import SentenceInputs, SentenceOutputs, feature_stage, sentence_stage
 from .stage_graph import Captured, capture, replay
@@ -64,6 +68,7 @@ class _Bucket:
         self.gem_pf: Optional[torch.Tensor] = None
         self.loaded = None  # the bundle's masks copied in by the last features() call
         self.graph: Optional[Captured] = None
+        self.spans: Optional[GraphSpans] = None  # the graph's device spans (g2l, gem)
 
 
 class ScoreGraph:
@@ -129,9 +134,12 @@ class ScoreGraph:
             self._features(bk)
         else:
             if bk.graph is None:
-                bk.graph = capture(lambda: self._features(bk), self.device)
+                with recording(GraphSpans()) as bk.spans:
+                    bk.graph = capture(lambda: self._features(bk), self.device)
                 self.captures[f"features {bk.masks.shape[0]}"] += 1
+            before_replay(bk.spans)
             replay(bk.graph)
+            replayed(bk.spans)
         return bk.feats, bk.gem_pf
 
     @torch.inference_mode()

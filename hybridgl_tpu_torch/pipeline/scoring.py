@@ -29,6 +29,7 @@ from ..models.clip.fusion import calculate_score, hybrid_forward
 from ..models.clip.text import encode_text
 from ..models.gem.gem import gem_image_features, gem_preprocess
 from ..utils.buckets import next_pow2
+from ..utils.profiling import device_span
 from ..utils.transfer import upload
 from .guidance import gem_mask_scores, normalize_heatmap, select_candidates
 from .preprocess import build_crops
@@ -128,7 +129,8 @@ def feature_stage(cfg: PipelineConfig, clip_params, masks: torch.Tensor, image_c
     ).to(torch.uint8)
     gem_img = gem_preprocess(gem_u8, cfg.gem.img_size)
     # GEM patch features are text-independent: once per image
-    gem_pf, _, _ = gem_image_features(clip_params["visual"], gem_img[None], cfg.clip, cfg.gem)
+    with device_span("gem"):
+        gem_pf, _, _ = gem_image_features(clip_params["visual"], gem_img[None], cfg.clip, cfg.gem)
     gem_pf = gem_pf[0] / torch.clamp(torch.linalg.norm(gem_pf[0], dim=-1, keepdim=True), min=1e-6)
     return feats, gem_pf
 

@@ -13,8 +13,9 @@ in shared memory), and both are held at SamPredictor's shapes (B = 1: K3 at 7
 tokens and, on its split route, at 9; K4 at m = 3 and 1). K5 and K6 have two each as well: K5's tensor-core kernel
 at the three served windows in bf16, its CUDA-core kernel in f32 and in bf16
 at n = 200, which the tensor-core dispatch refuses; K6's tensor-core kernel
-at [1536, 197, 64] in bf16 with query row 0 (the only biased row) also held
-on its own, its CUDA-core kernel in f32 and at hd = 32. K10 likewise: its
+at [1536, 197, 64] and CLIP ViT-L/14@336's [2048, 577, 64] in bf16 with query
+row 0 (the only biased row) also held on its own, its CUDA-core kernel in f32
+and at hd = 32. K10 likewise: its
 tensor-core kernel at both shapes in bf16, its CUDA-core kernel in f32 and in
 bf16 at n = 200, with the time of ``half_transform`` + K5 on the same inputs
 beside it (no single PyTorch call computes K10; that pair is the port's other
@@ -48,7 +49,8 @@ Bars (the reference check's, ``tools/check_tpu_kernels.py:144-183``):
 
 Geometry: SAM ViT-H attention (K1: 25 windows x 16 heads, S = 196, G = 14;
 K2 and K9: 16 heads, S = 4096, G = 64, hd = 80), CLIP ViT-B/16 (K6: 128
-streams x 12 heads, L = 197, hd = 64), the SAM decoder (C = 256, 8 heads x
+streams x 12 heads, L = 197, hd = 64; CLIP ViT-L/14@336: 128 streams x 16
+heads, L = 577), the SAM decoder (C = 256, 8 heads x
 tp 8, S = 4096; B = 64 and 128 for K3/K4, 128 for K7/K8), pass 1 (K5: 192 RefCOCO
 candidates at C = 640, and PhraseCut's layer-1 crop window and full-image
 window at C = 1024; K10: 16
@@ -100,6 +102,40 @@ PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 # kernels whose operations run in f32 on the CUDA cores (their bound uses PEAK_F32_FLOPS)
 CUDA_CORE_F32 = ("nms",)
+
+
+def g2l_launches(vision_layers: int, masking_block: int) -> dict:
+    """K6 and the fused glue of one G2L forward (:func:`clip_launches_per_image`)."""
+    mb, T = masking_block, vision_layers - masking_block
+    calls = mb + 2 * T
+    return {"clip_attention": calls, "qkv_heads": calls, "merge_heads": calls, "bias_quick_gelu": calls,
+            "layer_norm": 4, "residual_layer_norm": 2 * mb + 2 * T + (T - 1), "inject_layer_norm": T,
+            "residual_add": T + 1}
+
+
+def clip_launches_per_image(vision_layers: int, masking_block: int, gem_depth: int, text_layers: int) -> dict:
+    """K6 and the CLIP block's fused glue (G1-G7) one RefCOCO image launches,
+    exactly, in G2L mode: the feature graph once (the G2L forward, then GEM
+    over the same tower) and the sentence graph once (the text tower).
+
+    G2L (``models/clip/fusion.py:_g2l_tail``): the trunk's ``masking_block``
+    blocks on the fused 2P batch and the T = depth - masking_block tail blocks
+    on each of the two streams, one K6, head split, merge and QuickGELU a block
+    call; LayerNorm alone for the two stems' ln_pre, block 0's ln_1 and
+    ln_post; each block call's ln_2, the trunk's next ln_1 and the global
+    stream's (but its last) with the residual; the injection with the local
+    ln_1 (T); a residual alone at the end of each local block and the global
+    last. GEM (``models/gem/gem.py``, plain attention): ln_pre, block 0's ln_1
+    and ln_post on both streams alone, each block's ln_2 and the next block's
+    ln_1 with the residual, the last block's and the ``gem_depth`` GEM-stream
+    residuals alone, a QuickGELU a block. The text tower (plain attention):
+    block 0's ln_1 alone, each block's ln_2 and next ln_1 (ln_final after the
+    last) with the residual, a QuickGELU a block."""
+    g2l = g2l_launches(vision_layers, masking_block)
+    gem = {"layer_norm": 4, "residual_layer_norm": 2 * vision_layers - 1, "residual_add": gem_depth + 1,
+           "bias_quick_gelu": vision_layers}
+    text = {"layer_norm": 1, "residual_layer_norm": 2 * text_layers, "bias_quick_gelu": text_layers}
+    return {k: n + gem.get(k, 0) + text.get(k, 0) for k, n in g2l.items()}
 
 
 def kernel_work(name: str, **d) -> tuple[int, int]:
@@ -290,12 +326,15 @@ def _clip(run: _Run):
     """K6: 2P = 128 crop streams x 12 heads, L = 197, hd = 64; the CLS-row
     bias masks about half the patches with finfo(float32).min. bf16 on the
     tensor-core kernel, with query row 0 of every head (the only biased row)
-    also held on its own; then the CUDA-core kernel in f32 and at hd = 32."""
+    also held on its own; then the CUDA-core kernel in f32 and at hd = 32;
+    then CLIP ViT-L/14@336 at bucket 64: 128 streams x 16 heads, L = 577, bf16
+    on the tensor-core kernel (one block of four warpgroups a head)."""
     from ..kernels.clip_attention import clip_attention, reference_clip_attention, variant
 
-    N, H, L = 128, 12, 197
-    for hd, dtype, want_kind in ((64, torch.bfloat16, "wgmma"), (64, torch.float32, "cuda-core"),
-                                 (32, torch.bfloat16, "cuda-core")):
+    for N, H, L, hd, dtype, want_kind in ((128, 12, 197, 64, torch.bfloat16, "wgmma"),
+                                          (128, 12, 197, 64, torch.float32, "cuda-core"),
+                                          (128, 12, 197, 32, torch.bfloat16, "cuda-core"),
+                                          (128, 16, 577, 64, torch.bfloat16, "wgmma")):
         name = str(dtype).split(".")[-1]
         q, k, v = (run.randn(N * H, L, hd, dtype=dtype) for _ in range(3))
         allowed = torch.rand((N, L), generator=run.gen, device=run.dev) > 0.5
@@ -307,7 +346,7 @@ def _clip(run: _Run):
         got, want = kernel(), plain()
         torch.cuda.synchronize()
         kind = variant(dtype, L, hd)
-        label = f"clip_attention ({kind}, hd = {hd}, {name})"
+        label = f"clip_attention ({kind}, L = {L}, hd = {hd}, {name})"
         ok_v = run.verdict(f"{label} kernel", kind == want_kind, kind)
         ok, err = run.attention(label, got, want)
         ok_0, err_0 = run.attention(f"{label} row 0", got[:, 0], want[:, 0])

@@ -131,15 +131,18 @@ def test_progress_checkpoint_roundtrip(tmp_path):
 ])
 def test_cli_flags_and_config_match_reference(argv):
     """The reference's flag surface and build_config, exactly; the port
-    adds --device only."""
+    adds --device and the three settings it derives from the CLIP tower
+    unless named (--crop_size, --masking_block, --gem_img_size), which at
+    their defaults give the reference's config."""
     from hybridgl_tpu.cli.main import build_config as jax_build_config
     from hybridgl_tpu.cli.main import default_argument_parser as jax_parser
     from hybridgl_tpu_torch.cli.main import build_config, default_argument_parser
 
     a, b = default_argument_parser().parse_args(argv), jax_parser().parse_args(argv)
-    assert a.device == "cuda"
-    del a.device
+    assert (a.device, a.crop_size, a.masking_block, a.gem_img_size) == ("cuda", 0, -1, 0)
+    port_only = {k: vars(a).pop(k) for k in ("device", "crop_size", "masking_block", "gem_img_size")}
     assert vars(a) == vars(b)
+    vars(a).update(port_only)
     assert build_config(a) == to_port(jax_build_config(b)) and a.splitBy == b.splitBy
 
 

@@ -621,10 +621,15 @@ def _attention_bar(got, want):
     (5, 2, 64, 64),      # exactly one full key tile
     (5, 2, 65, 80),      # one key past a tile; hd = 80
     (5, 2, 200, 80),
-    (5, 2, 256, 64),     # the longest resident sequence
+    (5, 2, 256, 64),     # the longest one-warpgroup resident sequence
+    (5, 2, 257, 64),     # four warpgroups walking a head from here: ViT-L/14's 257
+    (3, 2, 300, 80),     # five warpgroup tiles of 60 rows: the last block's second warpgroup holds none; hd = 80
+    (3, 2, 450, 64),     # eight tiles of 57 rows, four blocks of two
+    (7, 16, 577, 64),    # ViT-L/14@336: ten tiles of 58 rows, ten key tiles
+    (3, 2, 577, 80),
 ])
 def test_clip_attention_tensor_core(dev, N, H, L, hd, with_bias):
-    """bf16 at hd 64 / 80 and L <= 256 on the resident tensor-core kernel, at
+    """bf16 at hd 64 / 80 and L <= 577 on the resident tensor-core kernel, at
     the kernel check's attention bar over the whole output and over query row 0
     alone: only row 0 is biased, and a cosine over all rows would hide it."""
     from hybridgl_tpu_torch.kernels import clip_attention as mod
@@ -659,11 +664,11 @@ def test_clip_attention_resident_short_sequences_under_load(dev, L, hd):
 
 @pytest.mark.parametrize("dtype,L,hd,kind", [
     (torch.float32, 197, 64, "cuda-core"), (torch.bfloat16, 197, 32, "cuda-core"),
-    (torch.bfloat16, 257, 64, "cuda-core"), (torch.float32, 50, 80, "cuda-core"),
+    (torch.float32, 577, 64, "cuda-core"), (torch.float32, 50, 80, "cuda-core"),
 ])
 def test_clip_attention_cuda_core_kernel_kept(dev, dtype, L, hd, kind):
-    """f32, the other head dims and L > 256 (ViT-L/14's 257) stay on the
-    CUDA-core kernel; row 0 on its own here too."""
+    """f32 (also at ViT-L/14@336's 577 tokens) and the other head dims stay
+    on the CUDA-core kernel; row 0 on its own here too."""
     from hybridgl_tpu_torch.kernels import clip_attention as mod
 
     assert mod.variant(dtype, L, hd) == kind
@@ -687,10 +692,31 @@ def test_k5_k6_variant_functions_mirror_the_c_dispatch(dev):
             assert (k5.variant(BF16, n, C) == "wgmma") == bool(lib.hgl_pass1_stats_tc_takes(n, C))
             assert k5.variant(torch.float32, n, C) == "cuda-core"
     assert lib.hgl_pass1_stats_tc_smem(256) == 256 * 768 <= 227 * 1024
-    for L in (1, 17, 50, 197, 256, 257, 512):
+    for L in (1, 17, 50, 197, 256, 257, 512, 577, 578, 640, 785):
         for hd in (16, 32, 64, 80):
             assert (k6.variant(BF16, L, hd) == "wgmma") == bool(lib.hgl_cls_tc_takes(L, hd))
-            assert k6.variant(torch.float32, L, hd) == "cuda-core"
+            assert k6.variant(torch.float32, L, hd) == ("cuda-core" if L <= k6.MAX_ROWS else "plain")
+
+
+def test_clip_attention_vit_l14_336_at_bucket_64(dev):
+    """K6 at CLIP ViT-L/14@336's G2L shapes, bucket 64: 2 x 64 streams x 16
+    heads (BH = 2,048) of L = 577, hd = 64, bf16, on the tensor-core kernel,
+    against the f32 plain version over every row and over the biased row 0."""
+    from hybridgl_tpu_torch.kernels import clip_attention as mod
+
+    N, H, L, hd = 128, 16, 577, 64
+    assert mod.variant(torch.bfloat16, L, hd) == "wgmma"
+    q, k, v, bias = _k6_inputs(dev, N, H, L, hd, True, seed=577)
+    before = clip_attention.tc_launches
+    got = clip_attention(q, k, v, bias, H, hd**-0.5)
+    torch.cuda.synchronize()
+    assert clip_attention.tc_launches == before + 1
+    for lo in range(0, N * H, 512):  # the plain version's [512, L, L] f32 scores at a time
+        sl = slice(lo, lo + 512)
+        want = reference_clip_attention(q[sl].float(), k[sl].float(), v[sl].float(), bias[lo // H: (lo + 512) // H],
+                                        H, hd**-0.5)
+        _attention_bar(got[sl], want)
+        _attention_bar(got[sl, 0], want[:, 0])
 
 
 # ---- K10 on its tensor-core kernel (bf16), beside the CUDA-core one ----

@@ -56,3 +56,8 @@ def test_stream_spans_cover_the_stream_without_a_sync(dev):
                  "host_wait"):
         assert counts[f"{name}@device"] == counts[name], name
     assert totals["proposals_dispatch@device"] > 0 and totals["crops+fusion@device"] > 0
+    # the feature graph's device spans (G2L blocks, GEM): a pair each a replay, folded, or missed where the graph
+    # replayed again before it was read (nothing here reads an image's results between its replays)
+    spans = [counts.get(f"crops+fusion/{k}@device", 0) for k in ("g2l", "gem")]
+    assert sum(spans) + counts.get("span_missed", 0) == 2 * counts["crops+fusion"]
+    assert spans[0] == 0 or 0 < totals["crops+fusion/g2l@device"] < totals["crops+fusion@device"]

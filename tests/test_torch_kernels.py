@@ -350,7 +350,12 @@ def test_k10_variant(dtype, n, n2, C, kind):
 @pytest.mark.parametrize("dtype,L,hd,kind", [
     (torch.bfloat16, 197, 64, "wgmma"), (torch.bfloat16, 50, 64, "wgmma"), (torch.bfloat16, 256, 80, "wgmma"),
     (torch.float32, 197, 64, "cuda-core"), (torch.bfloat16, 197, 32, "cuda-core"),
-    (torch.bfloat16, 257, 64, "cuda-core"),  # ViT-L/14: past the resident kernel's 256 keys
+    (torch.bfloat16, 257, 64, "wgmma"),  # ViT-L/14: four warpgroups walk a head past 256 keys
+    (torch.bfloat16, 577, 64, "wgmma"), (torch.bfloat16, 577, 80, "wgmma"),  # ViT-L/14@336's G2L blocks
+    (torch.float32, 577, 64, "cuda-core"),  # f32 launches the CUDA-core kernel, exact in f32
+    (torch.bfloat16, 578, 64, "plain"),
+    (torch.bfloat16, 785, 64, "plain"), (torch.bfloat16, 1025, 64, "plain"),  # GEM: ViT-B/16, ViT-L/14@336
+    (torch.float32, 785, 64, "plain"),
 ])
 def test_k6_variant(dtype, L, hd, kind):
     from hybridgl_tpu_torch.kernels import clip_attention as mod

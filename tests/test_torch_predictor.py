@@ -133,8 +133,12 @@ def test_preprocess_functions_match_jax():
 
 @pytest.mark.parametrize("trail", [(), (3,)])
 def test_resize_helpers_match_jax(trail):
-    """place_valid_region, sample_region and resize_bilinear_batched on the
-    same maps: max|d| <= 1e-5."""
+    """place_valid_region and sample_region on the same maps as the JAX
+    helpers, resize_bilinear_batched against the exact (float64) bilinear
+    resize of the valid region: max|d| <= 1e-5. The port computes each
+    half-pixel source row as ((2 i + 1) src - out) / (2 out), exact where the
+    row is (fault F10), and the JAX helper's float32 product lands up to a ulp
+    off, so the two differ by ~1.5e-5 here."""
     rng = np.random.default_rng(4)
     img = rng.standard_normal((30, 44) + trail).astype(np.float32)
     want = np.asarray(jresize.place_valid_region(jnp.asarray(img), (21, 37), (48, 40), (33, 28)))
@@ -145,7 +149,10 @@ def test_resize_helpers_match_jax(trail):
     got = resize.sample_region(torch.from_numpy(img), (4, 9), (17, 30), (24, 20)).numpy()
     assert got.shape == want.shape and np.abs(got - want).max() <= 1e-5
     batch = rng.standard_normal((3, 30, 44) + trail).astype(np.float32)
-    want = np.asarray(jresize.resize_bilinear_batched(jnp.asarray(batch), (50, 25), (21, 37)))
+    region = torch.from_numpy(batch[:, :21, :37]).double()
+    region = region.permute(0, 3, 1, 2) if trail else region[:, None]
+    exact = torch.nn.functional.interpolate(region, (50, 25), mode="bilinear", align_corners=False)
+    want = (exact.permute(0, 2, 3, 1) if trail else exact[:, 0]).float().numpy()
     got = resize.resize_bilinear_batched(torch.from_numpy(batch), (50, 25), (21, 37)).numpy()
     assert got.shape == want.shape and np.abs(got - want).max() <= 1e-5
     u8 = rng.integers(0, 255, (30, 44) + trail).astype(np.uint8)

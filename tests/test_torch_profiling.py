@@ -20,7 +20,7 @@ from hybridgl_tpu_torch.models.sam.amg import Proposals
 from hybridgl_tpu_torch.pipeline import handoff, runner
 from hybridgl_tpu_torch.pipeline.runner import HybridGLPipeline, ImageSample
 from hybridgl_tpu_torch.tools import profile_trace
-from hybridgl_tpu_torch.utils.profiling import StageTimer
+from hybridgl_tpu_torch.utils.profiling import GraphSpans, StageTimer, before_replay, device_span, recording, replayed
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -133,6 +133,64 @@ def test_no_event_while_a_graph_is_captured(stream):
     assert counts["proposals_dispatch@device"] == 1 and counts["sentence_stage@device"] == 1
     assert "crops+fusion@device" not in counts and counts["crops+fusion"] == 1
     assert t.totals["sentence_stage@gap"] == pytest.approx(3e-3)  # from the last timed exit
+
+
+def _replay(spans, stream, times):
+    """A replay of a captured graph: its event pairs re-recorded at ``times``."""
+    before_replay(spans)
+    for (_, a, b), (t0, t1) in zip(spans.pairs, times):
+        a.t, b.t = t0, t1
+    replayed(spans)
+
+
+def test_graph_spans_fold_under_the_open_span(stream, monkeypatch):
+    """A captured graph's device spans (``device_span`` under ``recording``):
+    event pairs recorded at the capture alone (not in its eager warm-up),
+    handed to the innermost open span after each replay and folded as
+    ``<key>/<name>@device`` without waiting; a pair not finished when its
+    graph replays again is counted in ``span_missed`` and never folded."""
+    monkeypatch.setattr(torch.cuda, "Event", lambda enable_timing=False, external=False: _Event(stream, enable_timing))
+    spans = GraphSpans()
+    with recording(spans):
+        for capturing in (False, True):  # the warm-up, then the capture
+            stream.capturing = capturing
+            for name in ("g2l", "gem"):
+                with device_span(name):
+                    pass
+    stream.capturing = False
+    assert [n for n, _, _ in spans.pairs] == ["g2l", "gem"] and stream.recorded == 4
+    _replay(spans, stream, [(0.0, 1.0), (1.0, 2.0)])  # no span open: nobody takes the pairs
+    assert spans.holder is None
+    t = StageTimer(block=False, device="cuda")
+    stream.now = 10.0
+    with t.span("crops+fusion"):
+        _replay(spans, stream, [(10.0, 14.0), (14.0, 16.0)])
+        stream.now = 16.0
+    stream.done = 16.0
+    totals, counts = dict(t.totals), dict(t.counts)
+    assert totals["crops+fusion/g2l@device"] == pytest.approx(4e-3)
+    assert totals["crops+fusion/gem@device"] == pytest.approx(2e-3)
+    assert counts["crops+fusion/g2l@device"] == counts["crops+fusion/gem@device"] == 1
+    stream.now = 30.0
+    with t.span("crops+fusion"):
+        _replay(spans, stream, [(30.0, 35.0), (35.0, 36.0)])
+    stream.done = 34.0  # the graph has not finished when it replays again
+    with t.span("crops+fusion"):
+        _replay(spans, stream, [(40.0, 41.0), (41.0, 42.0)])
+    stream.done = 100.0
+    counts = dict(t.counts)
+    assert counts["span_missed"] == 2 and counts["crops+fusion/g2l@device"] == 2
+    assert t.totals["crops+fusion/g2l@device"] == pytest.approx(5e-3)
+
+
+def test_device_span_off_a_capture_records_nothing():
+    """Run eagerly, a device span adds no span to the open timer: the host
+    spans stay the reference's stages."""
+    t = StageTimer(device="cpu")
+    with t.span("crops+fusion"):
+        with device_span("g2l"):
+            pass
+    assert dict(t.counts) == {"crops+fusion": 1}
 
 
 @pytest.mark.parametrize("block,device", [(False, "cpu"), (True, "cpu"), (True, "cuda")])
@@ -263,15 +321,18 @@ _TOTALS = {"proposals_dispatch": 0.016, "host_wait": 0.0004, "small_region_clean
            "host_wait@gap": 0.0002, "small_region_cleanup@device": 0.002, "small_region_cleanup@gap": 0.0001,
            "small_region_cleanup/host_wait@device": 0.0003, "parse+tokenize@device": 0.0001,
            "parse+tokenize@gap": 0.0001, "crops+fusion@device": 0.124, "crops+fusion@gap": 0.0002,
-           "sentence_stage@device": 0.020, "sentence_stage@gap": 0.0001}
+           "sentence_stage@device": 0.020, "sentence_stage@gap": 0.0001,
+           "crops+fusion/g2l@device": 0.100, "crops+fusion/gem@device": 0.016}
 _COUNTS = {"proposals_dispatch": 4, "host_wait": 5, "small_region_cleanup": 4, "parse+tokenize": 4,
            "crops+fusion": 4, "sentence_stage": 4, "small_region_cleanup/host_wait@device": 1,
+           "crops+fusion/g2l@device": 4, "crops+fusion/gem@device": 4,
            **{k: 4 for k in _TOTALS if k.endswith("@device") and "/" not in k},
            **{k: 4 for k in _TOTALS if k.endswith("@gap")}}
 _COUNTS["proposals_dispatch@gap"] = 3
 READINGS = {"proposal_span_device_ms": 40.0, "feature_span_device_ms": 31.0, "sentence_span_device_ms": 5.0,
             "stream_gap_ms": 1e3 * (0.0001 + 0.002 + 0.0001 + 0.012 + 0.0002 + 0.0001 + 0.0001 + 0.0002 + 0.0001) / 4,
-            "host_waits_per_image": 1.25}
+            "host_waits_per_image": 1.25, "g2l_span_device_ms": 25.0, "gem_span_device_ms": 4.0}
+GRAPH_SPANS = ("g2l_span_device_ms", "gem_span_device_ms")  # the feature graph's device spans
 
 
 @pytest.mark.parametrize("name", sorted(READINGS))
@@ -290,10 +351,19 @@ def test_span_metric_is_silent_without_the_programs_spans(name):
     assert _metric(name)(parent) is None
 
 
+@pytest.mark.parametrize("name", GRAPH_SPANS)
+def test_graph_span_metric_is_silent_where_a_pair_was_missed(name):
+    """A pair the timer could not read before its graph replayed again
+    (``span_missed``) would leave an image out of the mean: no reading."""
+    run = SimpleNamespace(timer=dict(totals=dict(_TOTALS), counts=dict(_COUNTS, span_missed=1)))
+    assert _metric(name)(run) is None
+
+
 def test_benchmark_lists_the_span_metrics():
     with open(os.path.join(REPO, "BENCHMARK.json")) as f:
         per_layer = {m["name"]: m for m in json.load(f)["per_layer"]}
     for name in READINGS:
         m = per_layer[name]
-        assert m["source"] == "program_span" and m["workloads"] == ["refcoco-occupancy"]
+        assert m["source"] == "program_span"
+        assert m["workloads"] == ["refcoco-occupancy", "refcoco-occupancy-clipl14-336"]
         assert m["moves"] == ("image_latency_ms_p95" if name == "host_waits_per_image" else "images_per_s")
