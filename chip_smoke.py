@@ -181,15 +181,18 @@ G2L_NODES = {"clip_attention": 15, "qkv_heads": 15, "merge_heads": 15, "bias_qui
              "residual_layer_norm": 26, "inject_layer_norm": 3, "residual_add": 4}  # = g2l_launches(12, 9)
 # the CLIP block's fused glue an image, exactly (kernels/clip_glue.py; the
 # feature graph once, the sentence graph once): the G2L forward above; GEM's
-# 12 blocks (gem/gem.py: ln_pre and block 0's ln_1 alone, each block's ln_2
-# and the next block's ln_1 with the residual, the last block's residual and
-# the 7 GEM-stream residuals alone, ln_post on both streams, 12 QuickGELUs);
-# the text tower's 12 blocks (block 0's ln_1 alone, 12 ln_2 and 11 ln_1 + the
-# ln_final with the residual, 12 QuickGELUs)
-GEM_GLUE = {"layer_norm": 4, "residual_layer_norm": 23, "residual_add": 8, "bias_quick_gelu": 12}
+# 12 blocks (gem/gem.py: a head split a block, ln_pre and block 0's ln_1
+# alone, each block's ln_2 and the next block's ln_1 with the residual, the
+# last block's residual and the 7 GEM-stream residuals alone, ln_post on both
+# streams, 12 QuickGELUs; its attention writes the heads merged); the text
+# tower's 12 blocks (block 0's ln_1 alone, 12 ln_2 and 11 ln_1 + the ln_final
+# with the residual, 12 QuickGELUs)
+GEM_GLUE = {"qkv_heads": 12, "layer_norm": 4, "residual_layer_norm": 23, "residual_add": 8, "bias_quick_gelu": 12}
 TEXT_GLUE = {"layer_norm": 1, "residual_layer_norm": 24, "bias_quick_gelu": 12}
 GLUE_LAUNCHES_PER_IMAGE = {k: G2L_NODES[k] + GEM_GLUE.get(k, 0) + TEXT_GLUE.get(k, 0) for k in G2L_NODES
                            if k != "clip_attention"}
+# GEM's attention an image, exactly (kernels/gem_attention.py): one call a block of the tower
+GEM_ATTENTION_LAUNCHES_PER_IMAGE = 12
 # the same counts at any tower (tools/check_kernels.py:clip_launches_per_image): CLIP ViT-L/14@336 with
 # G2L from block 21 of 24, GEM depth 7, a 12-layer text tower launches K6 27 times an image (21 + 2 x 3)
 VIT_L14_336 = ("ViT-L/14@336", 24, 21, 7, 12)
@@ -204,6 +207,7 @@ MIN_LAUNCHES_PER_IMAGE = {
     "i2t_ln_then_t2i": 2,
     "upscale_hyper_blocked": 1,
     "nms": 1,
+    "gem_attention": GEM_ATTENTION_LAUNCHES_PER_IMAGE,
     **GLUE_LAUNCHES_PER_IMAGE,
 }
 # the PhraseCut path adds the pass-2 re-decode on the per-prompt route: two

@@ -10,9 +10,10 @@ which the score tensor is *stored* between the QK product and the PV product:
   * ``HYBRIDGL_F32_SCORES=1`` forces f32 scores under bf16 activations (a
     debugging/accuracy knob).
 
-The plain attention paths (GEM's self-self ensemble, the CLIP text encoder's
-causal attention) follow this policy cast for cast, so that under bf16 the
-port rounds where the reference rounds.
+The plain attention paths (the CLIP text encoder's causal attention; GEM's
+trunk attention and self-self ensemble on the CPU, whose kernel keeps its
+scores in f32 on the card) follow this policy cast for cast, so that under
+bf16 the port rounds where the reference rounds.
 """
 
 from __future__ import annotations

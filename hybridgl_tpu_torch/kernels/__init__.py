@@ -4,8 +4,9 @@
 ``decoder_attn_t2i``, ``decoder_pass`` and ``upscale_hyper`` wrap the
 hand-written CUDA kernels in ``csrc/`` (built by ``_build``) that replace the
 ten TPU kernels, ``nms`` wraps the port's own NMS kernel (the reference's
-``nms`` is XLA) and ``clip_glue`` the port's fused glue of the CLIP block
-(XLA's fusions in the reference): each wrapper calls its registered operator,
+``nms`` is XLA), ``clip_glue`` the port's fused glue of the CLIP block
+(XLA's fusions in the reference) and ``gem_attention`` GEM's attention (plain
+XLA in the reference): each wrapper calls its registered operator,
 ``torch.ops.hybridgl.<reference function's name>`` (``_ops``), whose CUDA
 implementation launches the kernel and whose CPU one runs the plain version.
 The other modules are the plain tensor primitives the reference wrote as
@@ -14,8 +15,9 @@ XLA.
 Each kernel wrapper counts its launches in a plain integer attribute
 (``wrapper.launches``), incremented only where it launches its kernel, once
 a kernel launch (K3's split route makes several a call; ``nms`` counts one a
-call for its two kernels). The wrappers with a tensor-core and a CUDA-core
-kernel behind them (the ten) also count the launches that took the
+call for its two kernels, ``gem_attention`` one a call for its normalisation
+and its passes). The wrappers with a tensor-core and a CUDA-core kernel
+behind them (the ten and ``gem_attention``) also count the launches that took the
 tensor-core one (``wrapper.tc_launches``).
 """
 
@@ -29,9 +31,10 @@ GLUE = ("layer_norm", "residual_add", "residual_layer_norm", "inject_layer_norm"
 
 def kernel_wrappers():
     """{name: wrapper} for every CUDA kernel of the port, by the name of its
-    operator; importing them registers the eighteen operators."""
+    operator; importing them registers the nineteen operators."""
     from . import clip_glue
     from .clip_attention import clip_attention
+    from .gem_attention import gem_attention
     from .decoder_attn import i2t_ln_update
     from .decoder_attn_t2i import t2i_ctx
     from .decoder_pass import i2t_ln_then_t2i
@@ -52,6 +55,7 @@ def kernel_wrappers():
         "flash_attention_rel_pos": flash_attention_rel_pos,
         "pass1_stats": pass1_stats,
         "nms": nms,
+        "gem_attention": gem_attention,
         **{name: getattr(clip_glue, name) for name in GLUE},
     }
 

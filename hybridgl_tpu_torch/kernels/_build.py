@@ -61,6 +61,9 @@ _SIGNATURES = {
     "hgl_clip_qkv_heads": [_i] + [_vp] * 5 + [_i] * 4 + [_vp],
     "hgl_clip_merge_heads": [_i, _vp, _vp] + [_i] * 4 + [_vp],
     "hgl_clip_bias_quick_gelu": [_i] + [_vp] * 3 + [_i] * 2 + [_vp],
+    "hgl_gem_attention": [_i] + [_vp] * 6 + [_i] * 4 + [_f, _f, _i, _vp],
+    "hgl_gem_l2norm": [_i] + [_vp] * 4 + [_i, _i, _vp],
+    "hgl_gem_tc_takes": [_i],
 }
 
 

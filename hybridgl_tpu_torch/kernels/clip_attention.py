@@ -17,8 +17,9 @@ block of four warpgroups walks a head's query tiles); f32 operands and the other
 run the CUDA-core kernel of ``csrc/attention.cu`` (CLS_ROW mode), which is
 exact in f32. The tensor-core kernel rounds the scaled q and the
 probabilities to bf16; the bias and all sums stay f32. Past ``MAX_ROWS`` the
-model's routing (``models/clip/layers.py``) takes the plain path: GEM's 785
-(ViT-B/16) and 1,025 (ViT-L/14@336) tokens.
+model's routing (``models/clip/layers.py``) takes the plain path; GEM's 785
+(ViT-B/16) and 1,025 (ViT-L/14@336) tokens have a kernel of their own
+(``kernels/gem_attention.py``).
 
 The bias stays f32: masked patches carry ``finfo(float32).min``, which a
 cast to bf16 would turn into -inf. Row 0 always attends to itself (bias 0),
@@ -38,7 +39,7 @@ import torch
 from . import _build, _ops
 
 # the longest sequence K6 takes (models/clip/layers.py routes by it): CLIP
-# ViT-L/14@336's 577 tokens; longer ones (GEM's 785 and 1,025) take the plain path
+# ViT-L/14@336's 577 tokens; longer ones take the plain path
 MAX_ROWS = 577
 SUPPORTED_HEAD_DIMS = (16, 32, 64, 80)
 TC_HEAD_DIMS = (64, 80)

@@ -6,8 +6,8 @@ the reference's ``multi_head_attention`` (:81), whose kernel takes L <= 512:
 no ``attn_bias`` and L <= ``MAX_ROWS`` (577, CLIP ViT-L/14@336's tokens, so
 that its G2L blocks keep the compact CLS-row bias) -> K6 (``clip_attention``,
 with the optional compact CLS-row bias; bf16 on the tensor cores, f32 on the
-CUDA cores); otherwise (the text encoder's causal bias, GEM's 785 and 1,025
-tokens) the plain path.
+CUDA cores); otherwise (the text encoder's causal bias) the plain path. GEM's
+785 and 1,025 tokens run ``kernels/gem_attention.py`` from ``models/gem``.
 
 The glue between the block's matrix products runs as the fused operators of
 ``kernels/clip_glue.py`` (their plain versions on the CPU): each LayerNorm,

@@ -5,8 +5,11 @@ the qq/kk/vv self-self ensemble (Bousselham et al., CVPR 2024): for t in
 {q, k, v}, attn_t = softmax(temp * norm(t) norm(t)^T), applied to v; the
 ensemble mean goes through the block's output projection into the gem
 stream (residual, no MLP). Inputs are 448^2 with the 224-pretrained
-positional embedding bilinearly interpolated. The 785-token attention is
-plain PyTorch (the reference has no kernel for it).
+positional embedding bilinearly interpolated. Each block's attention, the
+trunk's and in the last ``depth`` blocks the ensemble beside it, is one call
+of ``kernels/gem_attention.py`` (a hand-written kernel on the card, at 785
+tokens on ViT-B/16 and 1,025 on ViT-L/14@336; the plain version, moved there
+unchanged, on the CPU); the head split is the fused glue's ``qkv_heads``.
 """
 
 from __future__ import annotations
@@ -16,7 +19,8 @@ import functools
 import torch
 
 from ...core.config import ClipConfig, GemConfig
-from ...core.dtypes import score_dtype, softmax_scores
+from ...kernels import clip_glue
+from ...kernels.gem_attention import _l2norm, gem_attention
 from ...kernels.resize import resize_bilinear
 from ...utils.transfer import upload
 from ..clip.layers import layer_norm, mlp_residual, residual_layer_norm
@@ -31,47 +35,6 @@ def interpolate_pos_embedding(pos: torch.Tensor, new_grid: int) -> torch.Tensor:
     g = int(round(patches.shape[0] ** 0.5))
     up = resize_bilinear(patches.reshape(g, g, -1), (new_grid, new_grid))
     return torch.cat([cls, up.reshape(new_grid * new_grid, -1)], dim=0)
-
-
-def _qkv(p_attn, x, num_heads):
-    N, L, D = x.shape
-    hd = D // num_heads
-    qkv = x @ p_attn["in_proj_w"].to(x.dtype) + p_attn["in_proj_b"].to(x.dtype)
-    return (t.reshape(N, L, num_heads, hd).transpose(1, 2) for t in qkv.split(D, dim=-1))
-
-
-def _merge_heads(t):
-    N, H, L, hd = t.shape
-    return t.transpose(1, 2).reshape(N, L, H * hd)
-
-
-def _l2norm(t, eps=1e-6):
-    # the squares round in t's dtype before the sum, as in the reference's jnp.linalg.norm
-    return t / torch.clamp(torch.sqrt((t * t).sum(dim=-1, keepdim=True)), min=eps)
-
-
-def _scores(a, b, scale, sdt):
-    """scale * a b^T with f32 sums, stored in the score dtype (core/dtypes.py)."""
-    return (scale * torch.matmul(a.float(), b.float().transpose(-1, -2))).to(sdt)
-
-
-def self_self_attention(q, k, v, temp: float, iters: int):
-    """qq/kk/vv ensemble; returns [N, H, L, hd]."""
-    sdt = score_dtype(q.dtype)
-    outs = []
-    for t in (q, k, v):
-        tn = _l2norm(t)
-        attn = None
-        for _ in range(max(iters, 1)):
-            attn = softmax_scores(_scores(tn, tn, temp, sdt)).to(t.dtype)
-            tn = _l2norm(torch.matmul(attn, tn))
-        outs.append(torch.matmul(attn, v))
-    return (outs[0] + outs[1] + outs[2]) / 3.0
-
-
-def _std_attention(q, k, v, scale):
-    attn = softmax_scores(_scores(q, k, scale, score_dtype(q.dtype))).to(v.dtype)
-    return torch.matmul(attn, v)
 
 
 def gem_image_features(p_visual, images: torch.Tensor, clip_cfg: ClipConfig, gem_cfg: GemConfig):
@@ -100,13 +63,15 @@ def gem_image_features(p_visual, images: torch.Tensor, clip_cfg: ClipConfig, gem
     for i, blk in enumerate(blocks):
         if i >= gem_start and x_gem is None:
             x_gem = x
-        q, k, v = _qkv(blk["attn"], layer_norm(blk["ln_1"], x) if a is None else a, H)
-        out_w, out_b = blk["attn"]["out_w"].to(dt), blk["attn"]["out_b"].to(dt)
+        p = blk["attn"]
+        q, k, v = clip_glue.qkv_heads((layer_norm(blk["ln_1"], x) if a is None else a) @ p["in_proj_w"].to(dt),
+                                      p["in_proj_b"].to(dt), H)
+        out_w, out_b = p["out_w"].to(dt), p["out_b"].to(dt)
+        # [1 or 2, N, L, D]: the trunk's context, then in the last depth blocks the ensemble's
+        o = gem_attention(q, k, v, N, scale, temp, gem_cfg.ss_attn_iters, i >= gem_start) @ out_w
         if i >= gem_start:
-            ss = _merge_heads(self_self_attention(q, k, v, temp, gem_cfg.ss_attn_iters))
-            x_gem, _ = residual_layer_norm(x_gem, ss @ out_w, out_b, None)  # gem stream: attention only, no MLP
-        o = _merge_heads(_std_attention(q * scale, k, v, 1.0)) @ out_w
-        x, a = residual_layer_norm(x, o, out_b, blk["ln_2"])
+            x_gem, _ = residual_layer_norm(x_gem, o[1], out_b, None)  # gem stream: attention only, no MLP
+        x, a = residual_layer_norm(x, o[0], out_b, blk["ln_2"])
         x, a = mlp_residual(blk, x, a, blocks[i + 1]["ln_1"] if i + 1 < len(blocks) else None)
 
     proj = p_visual["proj"].to(dt)

@@ -32,13 +32,22 @@ counted against the CUDA cores' f32 rate (no PyTorch call computes greedy
 NMS). The port's fused glue of the CLIP block (``csrc/clip_glue.cu``; XLA
 fuses it in the reference) is timed at ViT-B/16's trunk at proposal
 buckets 32 and 64, its bound by bytes, and checked at the main path's
-other rows (bucket 8, GEM, the text tower). The run ends with ``ALL PASS`` or
-``FAILURES``; the exit code is 0 only if every kernel passed.
+other rows (bucket 8, GEM, the text tower). GEM's attention
+(``csrc/gem_attention.cu``; plain XLA in the reference) is timed at GEM's 785
+and 1,025 tokens beside its plain version and beside the same function
+from library calls (two ``scaled_dot_product_attention`` calls, the unit
+rows and a mean: :func:`_gem_library`), the trunk with and without the
+ensemble, against the plain version in f32 under the attention bar and, for
+the ensemble, under its own bar on the part its scores decide. The run
+ends with ``ALL PASS`` or ``FAILURES``; the exit code is 0 only if every
+kernel passed.
 
     python -m hybridgl_tpu_torch.tools.check_kernels [name ...]   (default: all)
 
 Bars (the reference check's, ``tools/check_tpu_kernels.py:144-183``):
   * attention-type outputs: cos >= 0.999 and mean|d|/mean|plain| < 0.02;
+  * GEM's ensemble also: mean|d|/mean|plain| < ``ENSEMBLE_BAR`` on its
+    score-dependent part (:func:`ensemble_score_error`);
   * decoder logits (K4): max|d| < 0.1 and > 99.5% sign agreement;
   * NMS: order, keep_sorted and num_kept exactly equal;
   * pass-1 stats: stability |d| <= 1e-3 and box edges within 1 px in bf16;
@@ -85,6 +94,8 @@ KERNELS = {
     "pass1_stats": ("hybridgl_tpu_torch/csrc/pass1_stats_wgmma.cu", "hybridgl_tpu/kernels/pass1_stats.py:152"),
     # the port's own kernel: the reference's nms is an XLA program (the IoU matrix and a fori_loop sweep)
     "nms": ("hybridgl_tpu_torch/csrc/nms.cu", "hybridgl_tpu/kernels/nms.py:31"),
+    # the port's own: GEM's attention, plain XLA in the reference (its _std_attention and self_self_attention)
+    "gem_attention": ("hybridgl_tpu_torch/csrc/gem_attention.cu", "none: plain XLA in hybridgl_tpu/models/gem/gem.py"),
     # the port's own: the CLIP block's glue, which XLA fuses in the reference
     **{name: ("hybridgl_tpu_torch/csrc/clip_glue.cu", "none: XLA's fusions in hybridgl_tpu/models/clip/layers.py")
        for name in GLUE},
@@ -114,9 +125,10 @@ def g2l_launches(vision_layers: int, masking_block: int) -> dict:
 
 
 def clip_launches_per_image(vision_layers: int, masking_block: int, gem_depth: int, text_layers: int) -> dict:
-    """K6 and the CLIP block's fused glue (G1-G7) one RefCOCO image launches,
-    exactly, in G2L mode: the feature graph once (the G2L forward, then GEM
-    over the same tower) and the sentence graph once (the text tower).
+    """K6, GEM's attention and the CLIP block's fused glue (G1-G7) one RefCOCO
+    image launches, exactly, in G2L mode: the feature graph once (the G2L
+    forward, then GEM over the same tower) and the sentence graph once (the
+    text tower).
 
     G2L (``models/clip/fusion.py:_g2l_tail``): the trunk's ``masking_block``
     blocks on the fused 2P batch and the T = depth - masking_block tail blocks
@@ -125,17 +137,19 @@ def clip_launches_per_image(vision_layers: int, masking_block: int, gem_depth: i
     ln_post; each block call's ln_2, the trunk's next ln_1 and the global
     stream's (but its last) with the residual; the injection with the local
     ln_1 (T); a residual alone at the end of each local block and the global
-    last. GEM (``models/gem/gem.py``, plain attention): ln_pre, block 0's ln_1
-    and ln_post on both streams alone, each block's ln_2 and the next block's
-    ln_1 with the residual, the last block's and the ``gem_depth`` GEM-stream
-    residuals alone, a QuickGELU a block. The text tower (plain attention):
-    block 0's ln_1 alone, each block's ln_2 and next ln_1 (ln_final after the
-    last) with the residual, a QuickGELU a block."""
+    last. GEM (``models/gem/gem.py``): a head split and one ``gem_attention``
+    a block (the kernel writes the heads merged: no merge), ln_pre, block 0's
+    ln_1 and ln_post on both streams alone, each block's ln_2 and the next
+    block's ln_1 with the residual, the last block's and the ``gem_depth``
+    GEM-stream residuals alone, a QuickGELU a block. The text tower (plain
+    attention): block 0's ln_1 alone, each block's ln_2 and next ln_1
+    (ln_final after the last) with the residual, a QuickGELU a block."""
     g2l = g2l_launches(vision_layers, masking_block)
-    gem = {"layer_norm": 4, "residual_layer_norm": 2 * vision_layers - 1, "residual_add": gem_depth + 1,
+    gem = {"gem_attention": vision_layers, "qkv_heads": vision_layers, "layer_norm": 4,
+           "residual_layer_norm": 2 * vision_layers - 1, "residual_add": gem_depth + 1,
            "bias_quick_gelu": vision_layers}
     text = {"layer_norm": 1, "residual_layer_norm": 2 * text_layers, "bias_quick_gelu": text_layers}
-    return {k: n + gem.get(k, 0) + text.get(k, 0) for k, n in g2l.items()}
+    return {k: g2l.get(k, 0) + gem.get(k, 0) + text.get(k, 0) for k in {**g2l, **gem}}
 
 
 def kernel_work(name: str, **d) -> tuple[int, int]:
@@ -145,7 +159,9 @@ def kernel_work(name: str, **d) -> tuple[int, int]:
     placement window of the pass-1 stats) it is what these inputs need.
 
     Shapes: the attention kernels take BH, S, hd, esize (bytes per q/k/v
-    element) and G (rel-pos) or N (CLS-row bias rows); the pass-1 stats B, n,
+    element) and G (rel-pos) or N (CLS-row bias rows); GEM's attention also
+    ``ensemble`` and ``iters`` (the trunk's attention, and with the ensemble
+    three more an iteration; q, k, v in, one or two outputs); the pass-1 stats B, n,
     C, dh, dw (window extent), esize (stats dtype) and, full mode, n2; the
     decoder kernels B, S, C, Cq, GT, shared (qside and base are [1, S, .]);
     K4 B, S, C, c4, c8, m; the NMS kernel N and read_words, the mask words its
@@ -157,6 +173,11 @@ def kernel_work(name: str, **d) -> tuple[int, int]:
     if name == "clip_attention":
         BH, S, hd, N, e = d["BH"], d["S"], d["hd"], d["N"], d["esize"]
         return 4 * BH * S * S * hd, 4 * BH * S * hd * e + N * S * 4
+    if name == "gem_attention":
+        BH, S, hd, e = d["BH"], d["S"], d["hd"], d["esize"]
+        ens = bool(d.get("ensemble"))
+        attentions = 1 + 3 * max(d.get("iters", 1), 1) * ens
+        return 4 * BH * S * S * hd * attentions, (3 + 1 + ens) * BH * S * hd * e
     if name in ("pass1_stats_half", "pass1_stats"):
         B, n, C, dh, dw, e = d["B"], d["n"], d["C"], d["dh"], d["dw"], d["esize"]
         out = B * 2 * 4 + 2 * B * C  # the two counts, the row and column flags
@@ -259,6 +280,13 @@ class _Run:
         self.verdict(label, ok, f"cos {cos:.6f} mean|d|/mean|plain| {rel:.5f} max|d| {float(d.max()):.5f}"
                      + ("" if finite else " NON-FINITE"))
         return ok, float(d.max())
+
+    def ensemble(self, label, got, want, v, n):
+        """(ok, error) of an ensemble output under :data:`ENSEMBLE_BAR`."""
+        err = ensemble_score_error(got, want, v, n)
+        self.verdict(label, err < ENSEMBLE_BAR,
+                     f"score-dependent part: mean|d|/mean|plain| {err:.4f} (bar {ENSEMBLE_BAR})")
+        return err < ENSEMBLE_BAR, err
 
     def record(self, name, ok, err, kernel, plain, shape, work, library=None):
         """Times the kernel, its plain version and, where there is one, the
@@ -367,6 +395,112 @@ def _clip(run: _Run):
         if library is not None:
             del mask, library
         torch.cuda.empty_cache()
+
+
+# the ensemble's bar on its score-dependent part (ensemble_score_error). At
+# [12, 785, 64] and [16, 1025, 64], temperature hd^-0.5, bf16: the f32 output
+# rounded to bf16 reads 0.054-0.055, the plain bf16 path 0.108-0.112; uniform
+# scores 1.00, another stream in place of one 0.90-0.92, one stream dropped
+# 0.45-0.82, the temperature halved or doubled 0.51-1.03
+# (tests/test_torch_gem_attention.py holds these).
+ENSEMBLE_BAR = 0.2
+
+
+def ensemble_score_error(got, want, v, n: int) -> float:
+    """mean|d| / mean|plain| of the part of GEM's ensemble that its scores
+    decide: the output [n, L, H*hd] less its uniform part, the mean of v's
+    rows over L (what every stream's softmax gives were its scores equal).
+    At GEM's temperature hd^-0.5 the unit rows' scores spread by ~0.016, so
+    the ensemble lies within ~2% of that uniform part, and the attention bar
+    on the whole output passes a kernel with uniform scores, a stream dropped
+    or another temperature; on this part they read 0.45 or more. Undefined
+    at L = 1, where the output is its uniform part."""
+    NH, L, hd = v.shape
+    u = v.float().reshape(n, NH // n, L, hd).mean(2).reshape(n, 1, NH // n * hd)
+    g, w = got.float() - u, want.float() - u
+    return float((g - w).abs().mean() / (w.abs().mean() + 1e-30))
+
+
+def _gem_library(q, k, v, scale, temp, ensemble):
+    """GEM's attention at N = 1 from library calls (the yardstick; nothing
+    in the port calls it): the trunk as one ``scaled_dot_product_attention``,
+    the ensemble as one more over the three streams' unit rows (normalised in
+    f32) against v, then their mean; heads merged, [E, 1, L, H*hd]."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    H, L, hd = q.shape
+    outs = [sdpa(q[None], k[None], v[None], scale=scale)]
+    if ensemble:
+        unit = torch.nn.functional.normalize(torch.stack((q, k, v)).float(), dim=-1, eps=1e-6).to(q.dtype)
+        outs.append(sdpa(unit, unit, v[None].expand(3, H, L, hd), scale=temp).mean(0, keepdim=True))
+    return torch.stack(outs).transpose(2, 3).reshape(len(outs), 1, L, H * hd)
+
+
+def _gem(run: _Run):
+    """GEM's attention at GEM's two towers at N = 1 (ViT-B/16 at 448 px: 12
+    heads of 785 tokens; ViT-L/14@336 at 448 px: 16 heads of 1,025), hd = 64,
+    the temperature hd^-0.5 as the configuration leaves it: bf16 on the
+    tensor-core kernel against the plain version on the same inputs in f32,
+    timed beside the plain version in bf16 (the path the port ran before)
+    and beside :func:`_gem_library`, the trunk with the ensemble (the last
+    ``depth`` blocks) and the trunk alone (the others); then, untimed, two
+    iterations of the ensemble in bf16 at temperature 1 and the CUDA-core
+    kernel in f32. At hd^-0.5 the second pass's unit rows are alike to ~1e-4,
+    so what its scores decide lies under the bf16 output's rounding (a bf16
+    rounding of the f32 answer reads 8-12 on :func:`ensemble_score_error`); at
+    1 it reads 0.02-0.03, and skipping the update pass 2.5-3.4. The ensemble
+    is held to the attention bar and to :data:`ENSEMBLE_BAR`, and that bar
+    must fail the kernel's own ensemble at uniform scores (a temperature of
+    1e-6), at twice the temperature and, at two iterations, with one."""
+    from ..kernels.gem_attention import gem_attention, reference_gem_attention, variant
+
+    for H, L in ((12, 785), (16, 1025)):
+        hd, scale = 64, 64**-0.5
+        q, k, v = (run.randn(H, L, hd) for _ in range(3))
+        for ensemble, iters, temp, dtype, timed in ((True, 1, scale, torch.bfloat16, True),
+                                                    (False, 1, scale, torch.bfloat16, True),
+                                                    (True, 2, 1.0, torch.bfloat16, False),
+                                                    (True, 1, scale, torch.float32, False)):
+            qd, kd, vd = (t.to(dtype) for t in (q, k, v))
+            kernel = lambda: gem_attention(qd, kd, vd, 1, scale, temp, iters, ensemble)  # noqa: E731
+            plain = lambda: reference_gem_attention(qd, kd, vd, 1, scale, temp, iters, ensemble)  # noqa: E731
+            library = lambda: _gem_library(qd, kd, vd, scale, temp, ensemble)  # noqa: E731
+            got = kernel()
+            want = reference_gem_attention(q.float(), k.float(), v.float(), 1, scale, temp, iters, ensemble)
+            torch.cuda.synchronize()
+            kind = variant(dtype, hd)
+            label = (f"gem_attention ({kind}, [{H}, {L}, {hd}], {str(dtype).split('.')[-1]}, "
+                     f"{f'trunk + ensemble, iters {iters}, temp {temp:g}' if ensemble else 'trunk'})")
+            ok_v = run.verdict(f"{label} kernel", kind == ("wgmma" if dtype == torch.bfloat16 else "cuda-core"), kind)
+            ok, err = run.attention(label, got, want)
+            ok_e = True
+            if ensemble:  # the ensemble on its own: the trunk's larger values would hide it in the whole
+                ok_e, err_e = run.attention(f"{label} ensemble", got[1], want[1])
+                ok_s, _ = run.ensemble(f"{label} ensemble", got[1], want[1], v, 1)
+                ok_e, err = ok_e and ok_s, max(err, err_e)
+            faults = ()  # the bar fails the kernel's own ensemble where it is wrong
+            if ensemble and timed:
+                faults = (("uniform scores", 1e-6, iters), ("twice the temperature", 2 * temp, iters))
+            elif ensemble and iters > 1:
+                faults = (("update pass skipped", temp, 1),)
+            for fault, t, it in faults:
+                bad = ensemble_score_error(gem_attention(qd, kd, vd, 1, scale, t, it, True)[1], want[1], v, 1)
+                ok_e &= run.verdict(f"{label} ensemble bar fails a planted fault ({fault})",
+                                    bad >= ENSEMBLE_BAR, f"{bad:.4f} >= {ENSEMBLE_BAR}")
+            if timed:  # the library's output under the same bars: it computes the same function
+                lib_ok, _ = run.attention(f"{label} library", library(), want)
+                if ensemble:
+                    lib_ok &= run.ensemble(f"{label} library ensemble", library()[1], want[1], v, 1)[0]
+                ok_e &= lib_ok
+            del got, want
+            if timed:
+                run.record("gem_attention", ok_v and ok and ok_e, err, kernel, plain,
+                           f"[{H}, {L}, {hd}] bf16 {'trunk + ensemble' if ensemble else 'trunk'}",
+                           dict(BH=H, S=L, hd=hd, esize=2, ensemble=ensemble, iters=iters), library=library)
+            else:
+                prev = run.results["gem_attention"]
+                prev["ok"] = prev["ok"] and ok_v and ok and ok_e
+                prev["max_abs_err"] = max(prev["max_abs_err"], err)
+            torch.cuda.empty_cache()
 
 
 def _stats_verdict(run: _Run, label, got, want, exact):
@@ -803,7 +937,7 @@ def _glue(run: _Run):
 
 
 # what run_checks reports for each kernel (library_ms is None where no
-# single PyTorch call computes the kernel's function)
+# PyTorch call computes the kernel's function; GEM's is two and their glue)
 RESULT_KEYS = ("ok", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 
 # each group checks the kernels it names
@@ -813,12 +947,13 @@ _GROUPS = (
     (("pass1_stats_half", "pass1_stats"), _pass1),
     (("i2t_ln_then_t2i", "i2t_ln_update", "t2i_ctx", "upscale_hyper_blocked"), _decoder),
     (("nms",), _nms),
+    (("gem_attention",), _gem),
     (GLUE, _glue),
 )
 
 
 def run_checks(names=None, log=print) -> dict:
-    """Check the named kernels (default: all eighteen) on the card.
+    """Check the named kernels (default: all nineteen) on the card.
 
     Returns {name: dict of RESULT_KEYS}; raises where no CUDA card is
     present."""

@@ -157,8 +157,9 @@ def test_sentence_scores_match_the_reference(tiny):
 
 @pytest.mark.parametrize("tower,launches", [
     ((12, 9, 7, 12), None),  # ViT-B/16: the counts chip_smoke holds the card to
-    ((24, 21, 7, 12), {"clip_attention": 27, "qkv_heads": 27, "merge_heads": 27, "bias_quick_gelu": 63,
-                       "layer_norm": 9, "residual_layer_norm": 121, "inject_layer_norm": 3, "residual_add": 12}),
+    ((24, 21, 7, 12), {"clip_attention": 27, "qkv_heads": 27 + 24, "merge_heads": 27, "bias_quick_gelu": 63,
+                       "layer_norm": 9, "residual_layer_norm": 121, "inject_layer_norm": 3, "residual_add": 12,
+                       "gem_attention": 24}),
 ])
 def test_clip_launches_an_image(tower, launches):
     """K6 and G1-G7 one RefCOCO image launches (the feature graph and the
@@ -171,6 +172,7 @@ def test_clip_launches_an_image(tower, launches):
     got = clip_launches_per_image(*tower)
     if launches is None:
         assert g2l_launches(12, 9) == chip_smoke.G2L_NODES
-        launches = dict(chip_smoke.GLUE_LAUNCHES_PER_IMAGE, clip_attention=chip_smoke.G2L_NODES["clip_attention"])
+        launches = dict(chip_smoke.GLUE_LAUNCHES_PER_IMAGE, clip_attention=chip_smoke.G2L_NODES["clip_attention"],
+                        gem_attention=chip_smoke.GEM_ATTENTION_LAUNCHES_PER_IMAGE)
         assert chip_smoke.K6_LAUNCHES_PER_MODE["G2L"] == 15
     assert got == launches

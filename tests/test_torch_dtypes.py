@@ -191,7 +191,7 @@ def test_attention_functions_round_where_jax_rounds(fn, monkeypatch):
     from hybridgl_tpu.models.clip.text import causal_bias
     from hybridgl_tpu.models.gem import gem as jax_gem
     from hybridgl_tpu_torch.models.clip import layers
-    from hybridgl_tpu_torch.models.gem import gem
+    from hybridgl_tpu_torch.kernels import gem_attention as gem  # GEM's plain versions
 
     rng = np.random.default_rng(0)
     q, k, v = (_bf16(rng, (2, 2, 17, 16)) for _ in range(3))

@@ -193,6 +193,7 @@ def test_kernel_work_covers_every_kernel():
         "nms": dict(N=128, read_words=138),
         **{name: dict(T=64 * 197, D=768, esize=2) for name in GLUE},
         "bias_quick_gelu": dict(T=64 * 197, F=3072, esize=2),
+        "gem_attention": dict(BH=16, S=1025, hd=64, esize=2, ensemble=True, iters=1),
     }
     assert set(shapes) == set(KERNELS)
     work = {name: kernel_work(name, **shape) for name, shape in shapes.items()}
@@ -221,6 +222,12 @@ def test_kernel_work_covers_every_kernel():
     # NMS: ~15 operations an IoU of the upper triangle; boxes, valid, the mask's 64 x 2 + 64 x 1 words of upper
     # triangle written and 138 read, keep and the count
     assert work["nms"] == (15 * 128 * 127 // 2, 16 * 128 + 128 + 8 * (192 + 138) + 128 + 4)
+    # GEM's attention at ViT-L/14@336: the trunk's and the three streams' 4 S^2 hd operations each (~17.2 GFLOP);
+    # q, k, v in and the two merged outputs out; each update pass adds three attentions
+    assert work["gem_attention"] == (4 * 4 * 16 * 1025**2 * 64, 5 * 16 * 1025 * 64 * 2)
+    trunk = kernel_work("gem_attention", BH=16, S=1025, hd=64, esize=2, ensemble=False)
+    assert trunk == (work["gem_attention"][0] // 4, 4 * 16 * 1025 * 64 * 2)
+    assert kernel_work("gem_attention", BH=16, S=1025, hd=64, esize=2, ensemble=True, iters=2)[0] == 7 * trunk[0]
     with pytest.raises(ValueError):
         kernel_work("no_such_kernel")
 

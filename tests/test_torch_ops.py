@@ -1,5 +1,5 @@
-"""The ten kernels, the port's NMS kernel and the CLIP block's fused glue as
-registered PyTorch operators,
+"""The ten kernels, the port's NMS kernel, the CLIP block's fused glue and
+GEM's attention as registered PyTorch operators,
 ``torch.ops.hybridgl.*`` (``hybridgl_tpu_torch/kernels/_ops.py``), on the CPU: for each operator
 ``torch.library.opcheck`` (``test_schema``: the schema's aliasing and
 mutation claims hold; ``test_faketensor``: the fake implementation gives the
@@ -8,7 +8,7 @@ real outputs' shapes, strides and dtypes; ``test_autograd_registration``;
 symbolic shapes, where its fake implementation can take them), the operator
 equal bit for bit to its plain version and to its public wrapper, and the
 fake outputs' shapes and dtypes against the real ones. Small shapes, inputs
-from a numpy seed; the four attention operators and the seven glue operators
+from a numpy seed; the five attention operators and the seven glue operators
 also in bf16 (pass 1 runs in its bf16 stats dtype).
 """
 
@@ -22,6 +22,7 @@ from hybridgl_tpu_torch.kernels.clip_attention import clip_attention, reference_
 from hybridgl_tpu_torch.kernels.decoder_attn import i2t_ln_update, reference_i2t_ln_update
 from hybridgl_tpu_torch.kernels.decoder_attn_t2i import reference_t2i_ctx, t2i_ctx
 from hybridgl_tpu_torch.kernels.decoder_pass import i2t_ln_then_t2i, reference_i2t_ln_then_t2i
+from hybridgl_tpu_torch.kernels.gem_attention import gem_attention, reference_gem_attention
 from hybridgl_tpu_torch.kernels.nms import nms, reference_nms_sorted
 from hybridgl_tpu_torch.kernels.flash_attention import (
     flash_attention_fused,
@@ -40,7 +41,7 @@ from hybridgl_tpu_torch.kernels.upscale_hyper import reference_upscale_hyper, up
 OPS = torch.ops.hybridgl
 NAMES = ["flash_windowed_fused", "flash_attention_fused", "flash_attention_rel_pos", "clip_attention",
          "pass1_stats_half", "pass1_stats", "i2t_ln_then_t2i", "i2t_ln_update", "t2i_ctx", "upscale_hyper_blocked",
-         "nms", *GLUE]
+         "nms", "gem_attention", *GLUE]
 # K4's fake output side is isqrt(g * g): a symbolic size has no integer square root
 NOT_SYMBOLIC = {"upscale_hyper_blocked"}
 WINDOW = torch.tensor([2.0, 3.0, 10.0, 12.0])  # the operators take the window as a [4] f32 tensor
@@ -79,6 +80,11 @@ def case(name, dtype=torch.float32, seed=0):
         bias[:, 0] = 0.0
         return ((*qkv, bias, H, 0.25), lambda: reference_clip_attention(*qkv, bias, H, 0.25),
                 lambda: clip_attention(*qkv, bias, H, 0.25))
+    if name == "gem_attention":  # the ensemble at two iterations beside the trunk
+        N, H, L, hd = 2, 2, 7, 16
+        qkv = [_t(rng, N * H, L, hd, dtype=dtype) for _ in range(3)]
+        args = (*qkv, N, 0.25, 0.7, 2, True)
+        return args, lambda: reference_gem_attention(*args), lambda: gem_attention(*args)
     if name == "pass1_stats_half":
         tmp, Wy = _t(rng, 3, 16, 24, dtype=torch.bfloat16), _t(rng, 24, 16, dtype=torch.bfloat16)
         return ((tmp, Wy, WINDOW, 0.0, 0.5), lambda: reference_pass1_stats_half(tmp, Wy, WINDOW, 0.0, 0.5),
@@ -147,8 +153,9 @@ def pass1_outputs(stab, flags):
 
 
 def test_the_ten_operators_are_registered_under_the_reference_names():
-    # the ten TPU kernels' operators, the port's own NMS kernel's and the seven of the CLIP block's glue
-    assert set(NAMES) == set(kernel_wrappers()) and len(NAMES) == 18
+    # the ten TPU kernels' operators, the port's own NMS kernel's, GEM's attention and the seven of the CLIP
+    # block's glue
+    assert set(NAMES) == set(kernel_wrappers()) and len(NAMES) == 19
     for name in NAMES:
         assert getattr(OPS, name).default.name() == f"hybridgl::{name}"
 
@@ -164,7 +171,7 @@ def test_opcheck(name):
 
 
 @pytest.mark.parametrize("name,dtype", [(n, torch.float32) for n in NAMES] + [
-    (n, torch.bfloat16) for n in NAMES[:4] + list(GLUE)])
+    (n, torch.bfloat16) for n in NAMES[:4] + ["gem_attention", *GLUE]])
 def test_operator_equals_its_plain_version_and_its_wrapper(name, dtype):
     args, plain, wrapper = case(name, dtype)
     got = flat(getattr(OPS, name)(*args))
