@@ -95,37 +95,26 @@ Phases (every phase asserts; any failure exits non-zero):
      proposals and on 64 live synthetic ones, through the sentence stage in
      one call (the runner's path) and one call a sentence: equal selections,
      IoU sums equal to 1e-5;
- 11. device cleanup: synthetic survivors with holes and islands around
-     min_mask_region_area, and noisy blobs, 16 at 640^2 and 128 at 1024^2,
-     then one RefCOCO image's own proposals, through the runner's host pass
-     (the native library) and through kernels/connected.py on the card
-     (plain PyTorch, what HYBRIDGL_CLEANUP=device selects): equal masks,
-     boxes and validity, both times; then one RefCOCO image through run_image
-     under HYBRIDGL_CLEANUP=device against the host pass, on its own
-     proposals and on 16 rectangles with holes and islands in their place:
-     equal selections and IoUs, both times, NMS on the card twice an image
-     (once without the switch); and one PhraseCut image both ways: equal
-     selections, NMS seven times (six);
- 12. data parallel on the card: (a) the CLI with --data_parallel at world 1
+ 11. data parallel on the card: (a) the CLI with --data_parallel at world 1
      over nccl at full width on phase 8's synthetic REFER tree gives the
      sequential CLI's result log and parity records (equal indices, IoUs |d| <
      1e-5); (b) two ranks on cuda:0 over gloo: build_full_eval_step(sticky) +
      finalize_sticky on four full-width RefCOCO images against run_image over
      the same four in order: equal k1/k2 and selections, accumulators to rtol
      1e-5, each rank's K1-K6 launch counts, ms/img of both;
- 13. tensor-parallel encoder on the card: mp = 2 on cuda:0 over gloo, ViT-H
+ 12. tensor-parallel encoder on the card: mp = 2 on cuda:0 over gloo, ViT-H
      in bf16, against encode_image in one process: cos > 0.999, K1 x 28 and K2
      x 4 a rank (8 heads each), every launch on the tensor-core kernel;
- 14. prepared decoder params: predict_masks on a 64-point chunk at full width
+ 13. prepared decoder params: predict_masks on a 64-point chunk at full width
      in bf16 from the prepared tree (what the pipeline and the predictor build
      once: the weight-only products of models/sam/decoder.py) against the raw
      tree: logits max|d| < 0.1, thresholded pixels > 99.5% equal, IoU
      predictions |d| < 2e-2; ms per chunk both ways. Phases 5 and 6 run
      prepared;
- 15. bench: tools/bench.py at BENCH_ITERS=4 BENCH_REPS=3, its JSON line echoed;
+ 14. bench: tools/bench.py at BENCH_ITERS=4 BENCH_REPS=3, its JSON line echoed;
      and the multi-device dry run (tools/dryrun.py): four ranks on cuda:0 over
      gloo at its tiny configuration;
- 16. the kernels as operators: the host cost of a launch through
+ 15. the kernels as operators: the host cost of a launch through
      torch.ops.hybridgl against the direct call (tools/dispatch_cost.py), then
      the serving export (tools/export_serving.py) at full width: the ViT-H
      encoder and the ViT-B/16 G2L fusion at P = 64 exported with torch.export,
@@ -133,23 +122,21 @@ Phases (every phase asserts; any failure exits non-zero):
      28 + 4 and 15 kernel nodes; each loaded program once on the card against
      eager (cos > 0.999), K1 +28, K2 +4 and K6 +15 launches, all on the
      tensor cores; the .pt2 sizes and both times;
- 17. the demo: ``python -m hybridgl_tpu_torch.cli.demo --random-weights`` at
+ 16. the demo: ``python -m hybridgl_tpu_torch.cli.demo --random-weights`` at
      its defaults (SAM ViT-B, CLIP ViT-B/16, 8 x 8 points) on a synthetic
      480x640 image in a process of its own: exit code 0 and "no proposals
      found" (random weights pass none of the quality thresholds), then again
      with those zeroed: its overlay written; each run K1 x 8 and K2 x 4 at 12
      heads of head dim 64, NMS x 1.
-The ranks of phases 12, 13 and 15 and the demo run in processes of their own
+The ranks of phases 11, 12 and 14 and the demo run in processes of their own
 and report their launch counts, which the kernels line adds to this
 process's.
-The decoder runs its default route: the HYBRIDGL_FUSED_* switches are
-removed from the environment at start. The second-to-last line is a JSON
-object with one entry per kernel; the last line is the JSON contract line.
-``--profile`` adds a breakdown of one more RefCOCO image (stage wall times,
-device time by kernel from torch.profiler), the scoring stages on a full
-bucket of 64 synthetic proposals, the RefCOCO ms/img with the four decoder
-switches at 0 beside the default route, the decoder chunk times, the
-multicrop stage times, and the device time of one more PhraseCut image.
+The second-to-last line is a JSON object with one entry per kernel; the
+last line is the JSON contract line. ``--profile`` adds a breakdown of one
+more RefCOCO image (stage wall times, device time by kernel from
+torch.profiler), the scoring stages on a full bucket of 64 synthetic
+proposals, the multicrop stage times, and the device time of one more
+PhraseCut image.
 """
 
 from __future__ import annotations
@@ -163,9 +150,6 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, REPO)
-DECODER_SWITCHES = tuple(f"HYBRIDGL_FUSED_{k}" for k in ("PASS", "I2T", "T2I", "UPSCALE"))
-for _k in DECODER_SWITCHES:  # the contract run takes the default decoder route
-    os.environ.pop(_k, None)
 
 # the kernel-check entry point is the only path of K9 and K10 (as in the
 # reference, whose serving paths run K2 and K5 instead); K1-K8 count the
@@ -215,8 +199,7 @@ MIN_LAUNCHES_PER_IMAGE = {
 # encoder passes and 128 pass-1 chunks launch the others many times over
 MIN_LAUNCHES_PER_PHRASECUT_IMAGE = dict(MIN_LAUNCHES_PER_IMAGE, i2t_ln_update=2, t2i_ctx=3, nms=6)
 # NMS launches an image, exactly (one a call): RefCOCO's one over all
-# candidates; PhraseCut's five per-crop calls and the cross-crop call;
-# HYBRIDGL_CLEANUP=device adds the cleanup's duplicate suppression
+# candidates; PhraseCut's five per-crop calls and the cross-crop call
 NMS_LAUNCHES_PER_IMAGE = {"RefCOCO": 1, "PhraseCut": 6}
 # K6 launches of one hybrid_forward at ViT-B/16 (12 blocks, masking block 9,
 # last layer 10), one per block call: crop runs the 12 blocks once;
@@ -613,8 +596,7 @@ def _selections(pipe, sample, props):
     and scoring: [(pure_index, final_index, pure_iou, final_iou)] a sentence."""
     from hybridgl_tpu_torch.pipeline.handoff import hand_off
 
-    pack = pipe.cfg.amg.min_mask_region_area > 0 and not pipe._device_cleanup
-    done, bucket = pipe._finish_proposals(hand_off(props, pack), (sample.h, sample.w))
+    done, bucket = pipe._finish_proposals(hand_off(props, pipe.cfg.amg.min_mask_region_area > 0), (sample.h, sample.w))
     return [(r.pure_index, r.final_index, r.pure_iou, r.final_iou)
             for r in _plain(pipe._score_image(sample, done, pipe.init_state(), bucket=bucket))]
 
@@ -826,45 +808,6 @@ def _wall_ms(fn):
     out = fn()
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) * 1e3, out
-
-
-def phase_routes(pipe, samples):
-    """RefCOCO ms/img and one decoder chunk (64 points) on the default route
-    against the four switches at 0, in turns (default, off, off, default)."""
-    import numpy as np
-    import torch
-
-    from hybridgl_tpu_torch.models.sam.amg import build_point_grid
-    from hybridgl_tpu_torch.models.sam.prompt_encoder import dense_pe, no_mask_dense
-    from hybridgl_tpu_torch.models.sam.sam import encode, predict_points, preprocess_padded
-    from hybridgl_tpu_torch.tools.check_kernels import time_ms
-
-    cfg, p_sam = pipe.cfg, pipe.sam_params
-    sample = samples[1]
-    x = preprocess_padded(torch.from_numpy(sample.image_1024).cuda(), (sample.rh, sample.rw), cfg.sam)
-    emb = encode(p_sam, x, cfg.sam)
-    pe, dense = dense_pe(p_sam["prompt"], cfg.sam), no_mask_dense(p_sam["prompt"], cfg.sam, 1)[0]
-    pts = torch.from_numpy(build_point_grid(8) * np.float32([sample.rw, sample.rh])).cuda()[:, None, :]
-    labels = torch.ones((64, 1), device="cuda")
-    per_route = {"default": [], "switches at 0": []}
-    chunk = {"default": [], "switches at 0": []}
-    for route in ("default", "switches at 0", "switches at 0", "default"):
-        for k in DECODER_SWITCHES:
-            if route == "default":
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = "0"
-        chunk[route].append(time_ms(lambda: predict_points(p_sam, emb, pts, labels, cfg.sam, True, pe=pe, dense=dense),
-                                    reps=5))
-        state = pipe.init_state()
-        for smp in samples[1:3]:
-            per_route[route].append(_wall_ms(lambda: pipe.run_image(smp, state))[0])
-    for k in DECODER_SWITCHES:
-        os.environ.pop(k, None)
-    for route in per_route:
-        log(f"  RefCOCO route {route}: median {statistics.median(per_route[route]):.1f} ms/img "
-            f"({[round(t, 1) for t in per_route[route]]}); decoder chunk of 64 points "
-            f"{[round(t, 2) for t in chunk[route]]} ms")
 
 
 def phase_multicrop_stages(pipe, samples):
@@ -1207,200 +1150,6 @@ def phase_batched_sentences(pipe, samples):
                 f"{[(r.pure_index, r.final_index) for r in r_b]}, same {same}, IoU sums max|d| {d_sum:.2e}")
             if not ok:
                 fail(f"the batched sentence stage depends on the batch ({label})")
-
-
-def _survivors_with_holes_and_islands(pipe, n_live=16, h=480, w=640):
-    """A bundle of ``n_live`` live rectangles in P = max_proposals slots, all
-    inside the (h, w) image: each has a hole and an island whose areas
-    straddle min_mask_region_area (one below it, to be repaired, one above it,
-    to stay); every fifth is a duplicate of its predecessor but for one more
-    small island, which the cleanup removes; and one has a small pocket open
-    at the image's bottom edge."""
-    import torch
-
-    from hybridgl_tpu_torch.kernels.masks import mask_to_box
-    from hybridgl_tpu_torch.models.sam.amg import Proposals
-
-    dev, C, P = pipe.device, pipe.cfg.canonical_size, pipe.cfg.amg.max_proposals
-    area = pipe.cfg.amg.min_mask_region_area
-    small, large = max(int((area * 0.8) ** 0.5), 1), int((area * 1.3) ** 0.5) + 1
-    g = torch.Generator().manual_seed(4)
-    masks = torch.zeros((P, C, C), dtype=torch.bool)
-    for i in range(n_live):
-        if i % 5 == 1:  # its predecessor again, with a small island in the corner
-            masks[i] = masks[i - 1]
-            masks[i, h - small - 2 : h - 2, w - small - 2 : w - 2] = True
-            continue
-        y0, x0 = int(torch.randint(0, h // 4, (1,), generator=g)), int(torch.randint(0, w // 4, (1,), generator=g))
-        hh = int(torch.randint(2 * h // 5, 3 * h // 5, (1,), generator=g))
-        ww = int(torch.randint(2 * w // 5, 9 * w // 20, (1,), generator=g))
-        masks[i, y0 : y0 + hh, x0 : x0 + ww] = True  # ends left of 0.7 w
-        hole, island = (small, large) if i % 2 else (large, small)
-        masks[i, y0 + hh // 4 : y0 + hh // 4 + hole, x0 + ww // 4 : x0 + ww // 4 + hole] = False
-        masks[i, h // 2 : h // 2 + island, w - large - 4 : w - large - 4 + island] = True
-    masks[2, h - h // 4 : h, w // 10 : w // 3] = True
-    masks[2, h - max(small // 2, 2) : h, w // 6 : w // 6 + max(small // 2, 2)] = False  # open at the bottom edge
-    masks = masks.to(dev)
-    valid = torch.arange(P, device=dev) < n_live
-    ones = valid.float()
-    return Proposals(masks * valid[:, None, None], mask_to_box(masks) * ones[:, None], ones, ones,
-                     torch.zeros((P, 2), device=dev), masks.sum((-2, -1)).float(), valid, num=n_live, overflow=0)
-
-
-def _noisy_survivors(pipe, n_live, h=480, w=640):
-    """``n_live`` live blob masks in P = max_proposals slots: a smooth random
-    field thresholded at 0 (a few irregular components a mask), with 0.5% of
-    the pixels flipped (hundreds of one-pixel holes and islands a mask, as a
-    decoder's raw logits leave them)."""
-    import torch
-
-    from hybridgl_tpu_torch.kernels.masks import mask_to_box
-    from hybridgl_tpu_torch.models.sam.amg import Proposals
-
-    dev, C, P = pipe.device, pipe.cfg.canonical_size, pipe.cfg.amg.max_proposals
-    g = torch.Generator(device=dev).manual_seed(6)
-    coarse = torch.randn((n_live, 1, h // 32, w // 32), generator=g, device=dev)
-    blobs = torch.nn.functional.interpolate(coarse, size=(h, w), mode="bilinear")[:, 0] > 0
-    flip = torch.rand((n_live, h, w), generator=g, device=dev) < 0.005
-    masks = torch.zeros((P, C, C), dtype=torch.bool, device=dev)
-    masks[:n_live, :h, :w] = blobs ^ flip
-    valid = torch.arange(P, device=dev) < n_live
-    ones = valid.float()
-    return Proposals(masks, mask_to_box(masks) * ones[:, None], ones, ones, torch.zeros((P, 2), device=dev),
-                     masks.sum((-2, -1)).float(), valid, num=n_live, overflow=0)
-
-
-def phase_device_cleanup(refcoco, phrasecut):
-    """The two cleanup passes, the runner's native one on the host (with the
-    masks' download and upload) and kernels/connected.py on the card (plain
-    PyTorch, the runner's under HYBRIDGL_CLEANUP=device), on synthetic survivors with
-    holes and islands around min_mask_region_area and on noisy blobs, 16 at
-    RefCOCO's 640^2 frame and 128 at PhraseCut's 1024^2, then on one RefCOCO
-    image's own proposals: equal masks, boxes and validity, both times
-    printed; then the runner's switch (:func:`_runner_cleanup_switch`)."""
-    import torch
-
-    from hybridgl_tpu_torch.kernels.connected import cleanup_proposals_jit
-    from hybridgl_tpu_torch.kernels.resize import valid_mask
-
-    live = lambda p: p.masks & p.valid[:, None, None]  # noqa: E731  (a dead slot keeps its pixels on the host pass)
-    for tag, (pipe, samples), n_live in (("RefCOCO", refcoco, 16), ("PhraseCut", phrasecut, 128)):
-        sample, amg, C = samples[1], pipe.cfg.amg, pipe.cfg.canonical_size
-        hw = (sample.h, sample.w)
-
-        def on_card(bundle, hw):
-            return cleanup_proposals_jit(bundle, valid_mask((C, C), hw, pipe.device), amg.min_mask_region_area,
-                                         max(amg.box_nms_thresh, amg.crop_nms_thresh))
-
-        bundles = [("rectangles with holes and islands", _survivors_with_holes_and_islands(pipe, n_live)),
-                   ("noisy blobs", _noisy_survivors(pipe, n_live))]
-        if tag == "RefCOCO":
-            with torch.inference_mode():
-                bundles.append(("the image's own proposals", pipe._launch_proposals(sample)))
-        for kind, bundle in bundles:
-            out = {}
-            for name, fn in (("host", pipe._cleanup_host), ("device", on_card)):
-                fn(bundle, hw)  # warm-up (the host pass builds its library at first use)
-                out[name] = _wall_ms(lambda: fn(bundle, hw))
-            (ms_h, host), (ms_d, dev) = out["host"], out["device"]
-            changed = int((live(host) != live(bundle)).flatten(1).any(1).sum())
-            equal = (torch.equal(live(host), live(dev)), torch.equal(host.boxes_xyxy, dev.boxes_xyxy),
-                     torch.equal(host.valid, dev.valid))
-            n_in = int(bundle.num)  # the AMG's count is a device scalar
-            ok = all(equal) and host.num == dev.num and 0 < host.num <= n_in
-            if kind != "the image's own proposals":
-                ok = ok and changed > 0
-            if kind.startswith("rectangles"):
-                ok = ok and host.num < n_in  # every fifth is a duplicate once cleaned
-            log(f"  cleanup of {n_in} survivors, {kind}, at {C}^2 (min area {amg.min_mask_region_area}): "
-                f"host pass {ms_h:.1f} ms, pass on the card {ms_d:.1f} ms")
-            log(f"{'PASS' if ok else 'FAIL'} cleanup on the card == host cleanup, {tag}, {kind}: {changed} masks changed, "
-                f"{n_in - host.num} duplicates suppressed, equal masks {equal[0]}, boxes {equal[1]}, valid {equal[2]}")
-            if not ok:
-                fail(f"the cleanup on the card differs from the host cleanup ({tag}, {kind})")
-        del bundles, bundle, host, dev, out
-        torch.cuda.empty_cache()
-    _runner_cleanup_switch(*refcoco)
-    _phrasecut_cleanup_switch(*phrasecut)
-
-
-def _device_cleanup_pipeline(pipe):
-    """The pipeline's twin built under HYBRIDGL_CLEANUP=device."""
-    from hybridgl_tpu_torch.pipeline.runner import HybridGLPipeline
-
-    saved = os.environ.get("HYBRIDGL_CLEANUP")
-    os.environ["HYBRIDGL_CLEANUP"] = "device"
-    try:
-        on_card = HybridGLPipeline(pipe.cfg, pipe.sam_params, pipe.clip_params, pipe.parser, pipe.tokenizer,
-                                   device=pipe.device)
-    finally:
-        if saved is None:
-            os.environ.pop("HYBRIDGL_CLEANUP")
-        else:
-            os.environ["HYBRIDGL_CLEANUP"] = saved
-    if not on_card._device_cleanup or pipe._device_cleanup:
-        fail("HYBRIDGL_CLEANUP=device did not select the cleanup on the card (or the default pipeline took it)")
-    return on_card
-
-
-def _runner_cleanup_switch(pipe, samples):
-    """One RefCOCO image through run_image with HYBRIDGL_CLEANUP=device (a
-    pipeline built under it) and with the default host pass: on the image's
-    own proposals (random weights leave one), and on 16 rectangles with holes
-    and islands put in their place before the cleanup (13 survive it). Equal
-    selections and IoUs; both times after a warm-up; NMS on the card once an
-    image on the host pass, twice under the switch (with the stamped bundle,
-    which skips the AMG, none and once)."""
-    from hybridgl_tpu_torch.kernels import launch_counts
-
-    on_card = _device_cleanup_pipeline(pipe)
-    sample = samples[1]
-    for label in ("its own proposals", "16 rectangles with holes and islands in place of its proposals"):
-        out = {}
-        for name, p in (("host pass", pipe), ("HYBRIDGL_CLEANUP=device", on_card)):
-            if label.startswith("16"):
-                p._launch_proposals = lambda _, p=p: _survivors_with_holes_and_islands(p, 16)
-            try:
-                p.run_image(sample, p.init_state())  # warm-up
-                state = p.init_state()
-                nms0 = launch_counts()["nms"]
-                ms, results = _wall_ms(lambda: _plain(p.run_image(sample, state)))
-                n_nms = launch_counts()["nms"] - nms0
-            finally:
-                p.__dict__.pop("_launch_proposals", None)
-            out[name] = (ms, [(r.pure_index, r.final_index) for r in results],
-                         [(r.pure_iou, r.final_iou) for r in results], p.last_proposals.num, n_nms)
-        (ms_h, sel_h, iou_h, n_h, nms_h), (ms_d, sel_d, iou_d, n_d, nms_d) = out.values()
-        d_iou = max(abs(a - b) for x, y in zip(iou_h, iou_d) for a, b in zip(x, y))
-        want_nms = (1, 2) if label == "its own proposals" else (0, 1)  # stamped bundles skip the AMG's NMS
-        ok = sel_h == sel_d and d_iou <= 1e-6 and n_h == n_d and (nms_h, nms_d) == want_nms
-        log(f"  run_image, one RefCOCO image, {label}: host pass {ms_h:.1f} ms, HYBRIDGL_CLEANUP=device {ms_d:.1f} ms")
-        log(f"{'PASS' if ok else 'FAIL'} run_image under HYBRIDGL_CLEANUP=device == the host pass, {label}: "
-            f"selections {sel_d}, live proposals {n_d}, IoU max|d| {d_iou:.2e}, NMS launches {nms_d} ({nms_h} on "
-            f"the host pass; expected {want_nms[1]} and {want_nms[0]})")
-        if not ok:
-            fail(f"run_image under HYBRIDGL_CLEANUP=device differs from the host pass ({label})")
-
-
-def _phrasecut_cleanup_switch(pipe, samples):
-    """One PhraseCut image through run_image with the host pass and under
-    HYBRIDGL_CLEANUP=device: equal selections and IoUs; NMS on the card six
-    times and seven (the cleanup's duplicate suppression)."""
-    from hybridgl_tpu_torch.kernels import launch_counts
-
-    sample, out = samples[1], {}
-    for name, p in (("host pass", pipe), ("HYBRIDGL_CLEANUP=device", _device_cleanup_pipeline(pipe))):
-        nms0 = launch_counts()["nms"]
-        ms, results = _wall_ms(lambda: _plain(p.run_image(sample, p.init_state())))
-        out[name] = (ms, [(r.pure_index, r.final_index, r.pure_iou, r.final_iou) for r in results],
-                     launch_counts()["nms"] - nms0)
-    (ms_h, r_h, nms_h), (ms_d, r_d, nms_d) = out.values()
-    ok = r_h == r_d and (nms_h, nms_d) == (NMS_LAUNCHES_PER_IMAGE["PhraseCut"], NMS_LAUNCHES_PER_IMAGE["PhraseCut"] + 1)
-    log(f"{'PASS' if ok else 'FAIL'} run_image under HYBRIDGL_CLEANUP=device == the host pass, one PhraseCut image: "
-        f"selections {[r[:2] for r in r_d]}, same {r_h == r_d}, NMS launches {nms_d} ({nms_h} on the host pass; "
-        f"expected 7 and 6); {ms_d:.1f} and {ms_h:.1f} ms (no warm-up)")
-    if not ok:
-        fail("PhraseCut under HYBRIDGL_CLEANUP=device differs from the host pass or missed its NMS launches")
 
 
 def phase_prepared(pipe, samples, weights):
@@ -1828,8 +1577,7 @@ def main(argv):
     counts["predictor"] = launch_counts()
     reset_launch_counts()
     phase_batched_sentences(*paths["RefCOCO"])
-    phase_device_cleanup(paths["RefCOCO"], paths["PhraseCut"])
-    counts["runner switches"] = launch_counts()
+    counts["batched sentences"] = launch_counts()
     reset_launch_counts()
     phase_prepared(*paths["RefCOCO"], weights)
     counts["prepared params"] = launch_counts()
@@ -1845,9 +1593,8 @@ def main(argv):
     phase_dryrun()
     phase_bench()
     counts["demo"] = phase_demo(card)
-    if "--profile" in argv:  # opt-in: the stage and route breakdowns are not part of the contract run
+    if "--profile" in argv:  # opt-in: the stage breakdowns are not part of the contract run
         phase_profile(*paths["RefCOCO"])
-        phase_routes(*paths["RefCOCO"])
         phase_multicrop_stages(*paths["PhraseCut"])
         from hybridgl_tpu_torch.tools.device_time import profile_image
 

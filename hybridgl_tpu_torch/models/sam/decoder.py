@@ -6,25 +6,27 @@ token->image cross-attention, MLP, image->token cross-attention} layers with
 attention downsample rate 2, a final token->image attention, 4x
 transposed-conv upscaling and per-token hypernetwork MLPs.
 
-Routes, chosen by the reference's four switches (default ON; ``=0`` opts
-out), exactly as decoder.py:737-864, 981 choose them:
+One route, the kernels' (the reference's default, decoder.py:737-864, 981;
+the port has no switch for it):
 
-  * ``HYBRIDGL_FUSED_PASS``: the shared-image transformer runs as two fused
-    layer passes (K3, ``kernels/decoder_pass.py``), each an i2t + norm4
-    sweep that also accumulates the next t2i (_two_way_fused_passes);
-  * ``HYBRIDGL_FUSED_I2T``: every image->token update + norm4 is K7
-    (``kernels/decoder_attn.py``);
-  * ``HYBRIDGL_FUSED_T2I``: every token->image attention on the per-prompt
-    stream is K8 (``kernels/decoder_attn_t2i.py``);
-  * ``HYBRIDGL_FUSED_UPSCALE``: the upscale + hypernetwork tail is K4
-    (``kernels/upscale_hyper.py``).
+  * the shared-image transformer runs as two fused layer passes (K3,
+    ``kernels/decoder_pass.py``), each an i2t + norm4 sweep that also
+    accumulates the next t2i (_two_way_fused_passes);
+  * on the per-prompt stream (batched dense prompts), every image->token
+    update + norm4 is K7 (``kernels/decoder_attn.py``) and every
+    token->image attention, the final one included, is K8
+    (``kernels/decoder_attn_t2i.py``);
+  * the upscale + hypernetwork tail is K4 (``kernels/upscale_hyper.py``).
+
+Layer 0's token->image attention on the shared image and every token
+self-attention run the projected attention form (_attn). On a CPU tensor
+each kernel runs its plain version.
 
 The kernels take the reference's side-switched operands: the image-side
 projections are folded onto the ~7 prompt tokens (_i2t_prep_generic,
 _i2t_prep_shared_q, _t2i_qw), so the [B, g*g, C] image stream is only read
-by the kernels. Those token-side operand functions are tiny einsums in plain torch,
-as in the reference. With a switch off, its stage runs the standard
-projected attention form (or the plain upscale chain).
+by the kernels. Those token-side operand functions are tiny einsums in plain
+torch, as in the reference.
 
 :func:`prepare_decoder_params` hoists what depends on the weights alone out
 of the per-chunk decode (the reference's serving-time preparation,
@@ -44,13 +46,11 @@ import torch
 import torch.nn.functional as F
 
 from ...core.config import SamConfig
-from ...utils.env import env_flag
 
 from ...kernels.decoder_attn import i2t_ln_update
 from ...kernels.decoder_attn_t2i import t2i_ctx
 from ...kernels.decoder_pass import i2t_ln_then_t2i
 from ...kernels.upscale_hyper import upscale_hyper
-from .image_encoder import layer_norm_2d
 
 LN_EPS = 1e-5  # decoder transformer norms are default torch LayerNorm
 
@@ -90,26 +90,6 @@ def _attn(p, q, k, v, num_heads: int):
 
 def _mlp_relu(p_fc, p_proj, x):
     return _lin(p_proj, torch.relu(_lin(p_fc, x)))
-
-
-def use_fused_pass() -> bool:
-    """Fused layer passes (K3); opt out with $HYBRIDGL_FUSED_PASS=0."""
-    return env_flag("HYBRIDGL_FUSED_PASS", default=True)
-
-
-def use_fused_i2t() -> bool:
-    """Fused image->token update + norm4 (K7); opt out with $HYBRIDGL_FUSED_I2T=0."""
-    return env_flag("HYBRIDGL_FUSED_I2T", default=True)
-
-
-def use_fused_t2i() -> bool:
-    """Flash token->image attention (K8); opt out with $HYBRIDGL_FUSED_T2I=0."""
-    return env_flag("HYBRIDGL_FUSED_T2I", default=True)
-
-
-def use_fused_upscale() -> bool:
-    """Fused upscale + hypernetwork tail (K4); opt out with $HYBRIDGL_FUSED_UPSCALE=0."""
-    return env_flag("HYBRIDGL_FUSED_UPSCALE", default=True)
 
 
 def _tp_for(T: int) -> int:
@@ -422,35 +402,12 @@ def two_way_transformer(p, image_embedding, image_pe, point_embedding, cfg: SamC
     layer 0 it is identical for every prompt, so its projections run once
     and the [B, g*g, C] image stream first appears as layer 0's
     image->token output. Same math as the batched path."""
-    h = cfg.decoder_heads
-    queries = point_embedding
-    if shared_image and use_fused_pass():
-        return _two_way_fused_passes(p, image_embedding, image_pe, point_embedding, cfg)
     if shared_image:
-        layer0 = p["layers"][0]
-        k_img = image_embedding + image_pe  # [g*g, C], shared
-        queries = _layer0_tokens(layer0, point_embedding, k_img, image_embedding, h)
-        q = queries + point_embedding
-        pi = layer0["cross_i2t"]
-        if use_fused_i2t():
-            # K7 over the once-projected shared image queries
-            tp = _tp_for(q.shape[1])
-            w, off, vo, const, ln_s, ln_b = _i2t_operands(layer0, q, queries, h, tp, shared_q=True)
-            qproj = _lin(pi["q"], k_img.to(queries.dtype))[None].contiguous()
-            keys = i2t_ln_update(qproj, image_embedding[None].to(queries.dtype).contiguous(), w, off, vo, const,
-                                 ln_s, ln_b, h, tp)
-        else:
-            # the shared image queries broadcast against the per-prompt tokens
-            out = _sdpa(_lin(pi["q"], k_img)[None], _lin(pi["k"], q), _lin(pi["v"], queries), h)
-            keys = _ln(layer0["norm4"], image_embedding[None] + _lin(pi["out"], out))
-        image_pe = image_pe[None]
-        layers, first = p["layers"][1:], 1
-    else:
-        keys = image_embedding
-        layers, first = p["layers"], 0
+        return _two_way_fused_passes(p, image_embedding, image_pe, point_embedding, cfg)
+    h = cfg.decoder_heads
+    queries, keys = point_embedding, image_embedding
     image_pe = image_pe.contiguous()
-
-    for i, layer in enumerate(layers, first):
+    for i, layer in enumerate(p["layers"]):
         if i == 0:
             queries = _attn(layer["self_attn"], queries, queries, queries, h)
         else:
@@ -459,28 +416,18 @@ def two_way_transformer(p, image_embedding, image_pe, point_embedding, cfg: SamC
         queries = _ln(layer["norm1"], queries)
 
         q = queries + point_embedding
-        if use_fused_t2i():
-            queries = queries + _t2i_fused(layer["cross_t2i"], q, keys, image_pe, h, prep=layer.get("prepared_t2i"))
-        else:
-            queries = queries + _attn(layer["cross_t2i"], q, keys + image_pe, keys, h)
+        queries = queries + _t2i_fused(layer["cross_t2i"], q, keys, image_pe, h, prep=layer.get("prepared_t2i"))
         queries = _ln(layer["norm2"], queries)
         queries = queries + _mlp_relu(layer["mlp_fc"], layer["mlp_proj"], queries)
         queries = _ln(layer["norm3"], queries)
 
         q = queries + point_embedding
-        if use_fused_i2t():
-            tp = _tp_for(q.shape[1])
-            w, off, vo, const, ln_s, ln_b = _i2t_operands(layer, q, queries, h, tp, shared_q=False)
-            keys = i2t_ln_update(keys, keys, w, off, vo, const, ln_s, ln_b, h, tp, pe=image_pe)
-        else:
-            kpe = keys + image_pe
-            keys = _ln(layer["norm4"], keys + _attn(layer["cross_i2t"], kpe, q, queries, h))
+        tp = _tp_for(q.shape[1])
+        w, off, vo, const, ln_s, ln_b = _i2t_operands(layer, q, queries, h, tp, shared_q=False)
+        keys = i2t_ln_update(keys, keys, w, off, vo, const, ln_s, ln_b, h, tp, pe=image_pe)
 
     q = queries + point_embedding
-    if use_fused_t2i():
-        queries = queries + _t2i_fused(p["final_attn"], q, keys, image_pe, h, prep=p.get("prepared_final_t2i"))
-    else:
-        queries = queries + _attn(p["final_attn"], q, keys + image_pe, keys, h)
+    queries = queries + _t2i_fused(p["final_attn"], q, keys, image_pe, h, prep=p.get("prepared_final_t2i"))
     queries = _ln(p["norm_final"], queries)
     return queries, keys
 
@@ -540,28 +487,12 @@ def predict_masks(p_dec, image_embedding, image_pe, sparse_prompts, cfg: SamConf
     # hypernetwork rows before the contraction (decoder.py:974-979)
     sel = slice(1, None) if multimask_output else slice(0, 1)
     hyper = hyper[:, sel]
-    n_sel = hyper.shape[1]
 
-    # upscale 4x (mask_decoder.py:53-59): both transposed convs have kernel
-    # == stride == 2, so each is a per-pixel matmul onto a 2x2 sub-grid
-    u1, u2, ln = p_dec["upscale"]["deconv1"], p_dec["upscale"]["deconv2"], p_dec["upscale"]["ln"]
-    c4, c8 = u1["w"].shape[-1], u2["w"].shape[-1]
+    # upscale 4x (mask_decoder.py:53-59) and the hypernetwork contraction: K4
     pu = p_dec["upscale"].get("prepared")
     if pu is None:
         pu = _prep_upscale(p_dec["upscale"], C)
-    w1, w2 = pu["w1"].to(dt), pu["w2"].to(dt)  # [C, (i j c4)], [c4, (e f c8)]
-    if use_fused_upscale():
-        masks = upscale_hyper(src.reshape(B, g * g, C).contiguous(), w1, pu["b1"], pu["ln_s"], pu["ln_b"], w2,
-                              pu["b2"], hyper)
-    else:
-        x = src.reshape(B, g, g, C) @ w1
-        x = x.reshape(B, g, g, 2, 2, c4) + u1["b"].to(dt)
-        x = layer_norm_2d(ln, x)
-        x = F.gelu(x, approximate="none")
-        x = (x @ w2).reshape(B, g, g, 2, 2, 2, 2, c8) + u2["b"].to(dt)
-        x = F.gelu(x, approximate="none")  # [b, h, w, i, j, e, f, c]
-        # rows are (h, i, e) -> 4h+2i+e, cols (w, j, f) -> 4w+2j+f
-        masks = torch.einsum("bmc,bhwijefc->bmhiewjf", hyper.float(), x.float())
-        masks = masks.reshape(B, n_sel, 4 * g, 4 * g)
+    masks = upscale_hyper(src.reshape(B, g * g, C).contiguous(), pu["w1"].to(dt), pu["b1"], pu["ln_s"], pu["ln_b"],
+                          pu["w2"].to(dt), pu["b2"], hyper)
     iou_pred = _mlp_stack(p_dec["iou_head"], iou_token_out).float()
     return masks, iou_pred[:, sel]

@@ -8,21 +8,18 @@ optionally, the fusion stage's proposal axis over ``mp``.
 Parity with the sequential runner (``pipeline/runner.py``) is exact:
 
   * a rank runs the runner's own stage functions (the proposal stage's
-    ``StageGraph``, ``cleanup_host`` or ``cleanup_device``, and
-    ``pipeline/scoring.py``'s ``feature_stage``, ``sentence_ingredients`` and
+    ``StageGraph``, ``cleanup_host``, and ``pipeline/scoring.py``'s
+    ``feature_stage``, ``sentence_ingredients`` and
     ``select_sentences``, on the runner's proposal and sentence buckets): one
     body, so what holds the runner holds this step. The scoring functions run
     eagerly here, since the step ships its ingredients to the host by design,
     as the reference's does;
-  * the small-region cleanup inside the step is the runner's: by default its
-    native host pass on the proposal stage's hand-off (``pipeline/handoff.py``:
+  * the small-region cleanup inside the step is the runner's native host
+    pass on the proposal stage's hand-off (``pipeline/handoff.py``:
     bit-packed masks, only the live rows to the host, the count from one meta
     buffer), a plain call in eager PyTorch (the reference reaches the same
     pass from inside its compiled step through a host callback, with
-    bit-packed masks); with ``HYBRIDGL_CLEANUP=device`` (read at each step, as
-    the reference's full_eval.py:287-300 reads it where it traces) the pass on
-    tensors, ``kernels/connected.py``, on the rank's device. Both give the
-    same results; the device pass's time follows the masks (``PERF.md``);
+    bit-packed masks);
   * the reference's *sticky* k1/k2 clamp (Hybridgl_main.py:178-181) is a
     sequential mutation over the whole dataset, so with ``sticky=True`` the
     step returns each image's scoring INGREDIENTS (:class:`Ingredients`: a few
@@ -51,24 +48,20 @@ import torch
 from ..core.config import PipelineConfig
 from ..eval.metrics import IoUAccum
 from ..models.clip import tokenizer as tok
+from ..models.sam.amg import Proposals
 from ..pipeline.guidance import dir_flag_id, rela_flag_id
-from ..pipeline.runner import (
+from ..pipeline.handoff import hand_off, receive
+from ..pipeline.runner import cleanup_host, meta_bucket, read_bucket
+from ..pipeline.scoring import (
     Ingredients,
-    Proposals,
     SentenceInputs,
     bucket_size,
-    cleanup_device,
-    cleanup_host,
-    cleanup_on_device,
     feature_stage,
-    meta_bucket,
-    read_bucket,
     select_sentences,
     sentence_arrays,
     sentence_ingredients,
     sentence_inputs,
 )
-from ..pipeline.handoff import hand_off, receive
 from ..pipeline.stage_graph import StageGraph
 from ..utils.transfer import upload
 from ..utils.buckets import next_pow2
@@ -184,20 +177,14 @@ def _image_ingredients(stage: StageGraph, clip_params, rec: FullEvalBatch, cfg: 
     S, P = rec.sentence_valid.shape[0], cfg.amg.max_proposals
     # the canonical image once, for both stages
     image_c = upload(rec.image_canonical, dev)
-    on_device, min_area = cleanup_on_device(), cfg.amg.min_mask_region_area
-    handoff = hand_off(stage.launch(rec._replace(image_canonical=image_c)),
-                       pack=min_area > 0 and not on_device)
+    min_area = cfg.amg.min_mask_region_area
+    handoff = hand_off(stage.launch(rec._replace(image_canonical=image_c)), pack=min_area > 0)
     props, _ = receive(handoff)  # the count from the meta buffer
-    host_valid = True
     if min_area > 0 and props.num > 0:
-        if on_device:
-            props, host_valid = cleanup_device(cfg, props, (h, w), dev), False
-        else:
-            props = cleanup_host(cfg, props, (h, w), dev, handoff)
-    if survival_hook is not None:  # the runner's testing knob, at the runner's place
-        props, host_valid = survival_hook(props), False
-    # the bucket as the runner takes it: from the meta buffer, or one read of a bundle it does not describe
-    props, bucket = (props, meta_bucket(handoff)) if host_valid else read_bucket(props)
+        props = cleanup_host(cfg, props, (h, w), dev, handoff)
+    # the bucket as the runner takes it: from the meta buffer, or one read of
+    # the bundle of the runner's testing knob, at the runner's place
+    props, bucket = (props, meta_bucket(handoff)) if survival_hook is None else read_bucket(survival_hook(props))
     out = dict(num=int(props.num), score=torch.zeros((S, P)), score_neg=torch.zeros((S, P)), gem_scores=torch.zeros((S, P)),
                boxes_xywh=torch.zeros((P, 4)), prop_valid=torch.zeros(P, dtype=torch.bool), iu=torch.zeros((P, 3)))
     rows, at = _rows(rec)

@@ -44,11 +44,11 @@ from ..models.clip.fusion import calculate_score
 from ..models.clip.text import encode_text
 from ..models.sam.amg import generate_proposals
 from ..pipeline.guidance import select_candidates
-from ..pipeline.runner import fusion_features
+from ..pipeline.scoring import fusion_features
 
 
 class _MpShard(NamedTuple):
-    """What ``pipeline/runner.py:fusion_features`` takes to shard the proposal axis."""
+    """What ``pipeline/scoring.py:fusion_features`` takes to shard the proposal axis."""
 
     index: int
     size: int

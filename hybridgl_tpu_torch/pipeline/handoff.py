@@ -9,8 +9,8 @@ the per-proposal fields the host cleanup needs in one f32 ``aux`` buffer
 one int32 ``meta`` buffer (num, overflow, valid: 2 + P). The first
 ``PACKED_HEAD`` packed rows, ``aux`` and ``meta`` start copying into pinned
 host memory of this dispatch's own, and an event marks their end. Without
-a host cleanup (``HYBRIDGL_CLEANUP=device``, or ``min_mask_region_area``
-0) nothing is packed and only ``meta`` moves.
+a host cleanup (``min_mask_region_area`` 0) nothing is packed and only
+``meta`` moves.
 
 Finish side, :func:`receive`: one wait on that event, then ``meta`` gives
 num, overflow and valid. The host cleanup (``runner.cleanup_host``) takes

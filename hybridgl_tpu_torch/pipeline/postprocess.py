@@ -9,14 +9,13 @@ automatic_mask_generator.py:323-372 + utils/amg.py:267-291).
 The connected components run in the port's copy of the reference's native
 library (``native/region_cleanup.cpp`` through
 ``postprocess_native.cleanup_batch``), built by the host compiler into
-``hybridgl_tpu_torch/_build/`` on first use. The reference prefers cv2 where
-it is importable; the port always runs the native pass and raises if it
-cannot be built.
+``hybridgl_tpu_torch/_build/`` and loaded once a process. The reference
+prefers cv2 where it is importable; the port always runs the native pass
+and raises if it cannot be built.
 """
 
 from __future__ import annotations
 
-import contextlib
 import os
 
 import numpy as np
@@ -24,10 +23,6 @@ import numpy as np
 from . import postprocess_native
 
 from ..models.sam.amg import Proposals
-from ..utils import native_build
-
-
-_FORCE = "HYBRIDGL_FORCE_NATIVE_CLEANUP"
 
 
 def cleanup_threads() -> int:
@@ -60,30 +55,6 @@ def _cleanup_batch_threaded(masks, boxes, process, hw, min_area):
             lambda ab: postprocess_native.cleanup_batch(masks[ab[0]:ab[1]], boxes[ab[0]:ab[1]], process[ab[0]:ab[1]],
                                                         hw, min_area), spans))
     return tuple(np.concatenate([part[k] for part in parts]) for k in range(3))
-
-
-@contextlib.contextmanager
-def _native_cleanup():
-    """Make ``postprocess_native.cleanup_batch`` run the native library
-    (building it on first use) for the duration of the block, as the
-    reference does under ``HYBRIDGL_FORCE_NATIVE_CLEANUP=1``, and restore
-    the module's own choice afterwards."""
-    saved = (postprocess_native._lib, postprocess_native._tried, os.environ.get(_FORCE))
-    os.environ[_FORCE] = "1"
-    postprocess_native._lib, postprocess_native._tried = None, False
-    try:
-        # build here first, so that a missing or failing compiler raises with
-        # its own message (get_lib only reports that there is no library)
-        lib_path = native_build.build(postprocess_native._SOURCE)
-        if postprocess_native.get_lib() is None:
-            raise RuntimeError(f"native region cleanup unavailable: {lib_path} was built but could not be loaded")
-        yield
-    finally:
-        postprocess_native._lib, postprocess_native._tried = saved[:2]
-        if saved[2] is None:
-            os.environ.pop(_FORCE, None)
-        else:
-            os.environ[_FORCE] = saved[2]
 
 
 def _np_nms(boxes: np.ndarray, scores: np.ndarray, thresh: float):
@@ -130,8 +101,7 @@ def postprocess_small_regions(props: Proposals, min_area: int, nms_thresh: float
     if hw is not None:
         H, W = int(hw[0]), int(hw[1])
     process = valid & (np.arange(len(masks)) < n)
-    with _native_cleanup():
-        changed_flags, nat_boxes, nat_areas = _cleanup_batch_threaded(new_masks, boxes, process, (H, W), min_area)
+    changed_flags, nat_boxes, nat_areas = _cleanup_batch_threaded(new_masks, boxes, process, (H, W), min_area)
 
     idx = [i for i in range(n) if valid[i]]
     nms_boxes = np.stack([nat_boxes[i] if changed_flags[i] else boxes[i] for i in idx])

@@ -1,17 +1,16 @@
-"""The port's own copy of ``hybridgl_tpu/pipeline/postprocess_native.py``, kept verbatim apart from its
-imports and build paths, so that the port imports nothing of the JAX package.
+"""The port's copy of ``hybridgl_tpu/pipeline/postprocess_native.py``: the
+same C entry point and semantics, built and loaded by the port itself, so
+that the port imports nothing of the JAX package.
 
 ctypes bindings for the native small-region cleanup
 (hybridgl_tpu_torch/native/region_cleanup.cpp), built at first use into
-hybridgl_tpu_torch/_build/ by utils/native_build.py.
+hybridgl_tpu_torch/_build/ by utils/native_build.py and loaded once a
+process.
 
-Drop-in fast path for pipeline/postprocess.py's per-mask crop loop: one C
-call handles the whole proposal bundle (two union-find labelings per mask,
-in place on the strided crop windows) instead of 2 cv2 calls plus ~6 numpy
-passes per mask. ``cleanup_batch`` returns None when the library is
-unavailable; the port's only caller (pipeline/postprocess.py) builds the
-library itself first and raises with the compiler's message, it never takes
-the cv2 path.
+One C call handles the whole proposal bundle (two union-find labelings per
+mask, in place on the strided crop windows). The reference prefers cv2
+where it is importable; the port always runs this pass, and a missing or
+failing compiler raises with the compiler's message.
 
 Byte-identical to the cv2 path except one documented corner: when the
 all-small islands fallback has a TIED max size, the native pass keeps the
@@ -26,6 +25,7 @@ utils/amg.py:267-291 (see postprocess.py for the crop-window argument).
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Optional, Tuple
 
 import numpy as np
@@ -33,45 +33,24 @@ import numpy as np
 _SOURCE = "region_cleanup.cpp"
 
 _lib: Optional[ctypes.CDLL] = None
-_tried = False
+_lock = threading.Lock()  # the cleanup's threads reach the first load together
 
 
-def _try_build() -> Optional[str]:
+def get_lib() -> ctypes.CDLL:
+    """The native library, built and loaded at the first call of the
+    process; the other callers wait for it. Raises if it cannot be built or
+    loaded (the next call tries again)."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            _lib = _load()
+        return _lib
+
+
+def _load() -> ctypes.CDLL:
     from ..utils import native_build
 
-    try:
-        return str(native_build.build(_SOURCE))
-    except Exception:
-        return None
-
-
-def get_lib() -> Optional[ctypes.CDLL]:
-    global _lib, _tried
-    if _lib is not None or _tried:
-        return _lib
-    _tried = True
-    from ..utils.env import env_flag
-
-    if env_flag("HYBRIDGL_NO_NATIVE_CLEANUP"):
-        return None
-    if not env_flag("HYBRIDGL_FORCE_NATIVE_CLEANUP"):
-        # cv2 5.0's block-based labeling (SIMD Spaghetti) measured faster
-        # than this union-find on both noise-dense (847 vs 1156 ms) and
-        # compact-blob (110 vs 138 ms) bundles on the single-core host, so
-        # the native pass serves as the cv2-free fallback, not the default.
-        try:
-            import cv2  # noqa: F401
-
-            return None
-        except ImportError:
-            pass
-    lib_path = _try_build()
-    if lib_path is None:
-        return None
-    try:
-        lib = ctypes.CDLL(lib_path)
-    except OSError:
-        return None
+    lib = ctypes.CDLL(str(native_build.build(_SOURCE)))
     u8p = ctypes.POINTER(ctypes.c_uint8)
     f32p = ctypes.POINTER(ctypes.c_float)
     i64p = ctypes.POINTER(ctypes.c_int64)
@@ -90,8 +69,7 @@ def get_lib() -> Optional[ctypes.CDLL]:
         f32p,  # out_boxes [P, 4]
         i64p,  # out_areas [P]
     ]
-    _lib = lib
-    return _lib
+    return lib
 
 
 def cleanup_batch(
@@ -100,13 +78,11 @@ def cleanup_batch(
     valid: np.ndarray,  # [P] bool
     img_hw: Tuple[int, int],
     min_area: int,
-) -> Optional[Tuple[np.ndarray, np.ndarray, np.ndarray]]:
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Runs the native pass; returns (changed [P] bool, new_boxes [P, 4]
-    float32, new_areas [P] int64) or None when the library is unavailable.
-    Only changed rows of new_boxes/new_areas are meaningful."""
+    float32, new_areas [P] int64). Only changed rows of new_boxes/new_areas
+    are meaningful."""
     lib = get_lib()
-    if lib is None:
-        return None
     m = np.ascontiguousarray(masks).view(np.uint8)
     b = np.ascontiguousarray(boxes, dtype=np.float32)
     v = np.ascontiguousarray(valid).view(np.uint8)

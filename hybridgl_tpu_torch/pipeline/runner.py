@@ -48,14 +48,8 @@ replays them; off the card they run eagerly. All of an image's sentences go
 through one sentence stage, padded to a power of two with row 0 repeated
 (the reference's ``_sentences_batched``); the padding adds nothing. The
 proposal bucket comes from the validity the hand-off's meta buffer brought
-to the host. The small-region cleanup is the native host pass by default, on the live rows
-of the hand-off. ``HYBRIDGL_CLEANUP=device`` (the reference's switch, read when the
-pipeline is built; default ``host``) runs the pass on tensors instead
-(kernels/connected.py:cleanup_proposals_jit) where the masks are, with the
-same results. Its time follows the masks: it takes as many sweeps as their
-components are wound, on an H100 from a fifth of the host pass's time (clean
-rectangles) to ten times it (speckled blobs; ``PERF.md``), so the host pass
-stays the default.
+to the host. The small-region cleanup is the native host pass
+(pipeline/postprocess.py), on the live rows of the hand-off.
 ``survival_hook``, where set, replaces the proposal bundle after the proposal
 stage: a benchmarking knob, whose bundle's count and validity are read once
 to size its bucket, before the scoring stages, as are those of a bundle a
@@ -69,7 +63,6 @@ bundle whose count and validity are read from the device.
 from __future__ import annotations
 
 import contextlib
-import os
 import warnings
 from dataclasses import dataclass
 from typing import Iterable, List, NamedTuple, Optional, Sequence
@@ -81,7 +74,6 @@ from ..core.config import PipelineConfig
 from ..lang import ExpressionParser, ParsedExpression, get_parser
 
 from ..eval.metrics import IoUAccum, accumulate
-from ..kernels.resize import valid_mask
 from ..models.sam.amg import Proposals
 from ..models.sam.image_encoder import prepare_sam_params
 from ..utils.transfer import upload
@@ -89,18 +81,7 @@ from .guidance import dir_flag_id, rela_flag_id
 from .handoff import Handoff, fetch_rows, hand_off, receive, unpack_masks
 from .postprocess import postprocess_small_regions
 from .score_graph import ScoreGraph
-from .scoring import (  # noqa: F401  (the stage functions' home; the data-parallel step imports them from here)
-    Ingredients,
-    SentenceInputs,
-    bucket_size,
-    feature_stage,
-    fusion_features,
-    select_sentences,
-    sentence_arrays,
-    sentence_ingredients,
-    sentence_inputs,
-    sentence_stage,
-)
+from .scoring import bucket_size, sentence_arrays
 from .stage_graph import StageGraph
 
 
@@ -190,29 +171,10 @@ def meta_bucket(handoff: Handoff) -> int:
 
 def read_bucket(props: Proposals):
     """A bundle the hand-off did not bring to the host (the survival hook's,
-    one cleaned on the device, a caller's own): its count and validity read
-    once, outside the scoring stages. -> (the bundle with ``num`` an int,
-    its scoring bucket)."""
+    a caller's own): its count and validity read once, outside the scoring
+    stages. -> (the bundle with ``num`` an int, its scoring bucket)."""
     num, valid = int(props.num), props.valid.cpu().numpy()
     return props._replace(num=num), bucket_size(valid, num)
-
-
-def cleanup_on_device() -> bool:
-    """``HYBRIDGL_CLEANUP=device``: the small-region cleanup runs on tensors
-    where the masks are (the reference's switch; any other value, or none,
-    selects the host pass)."""
-    return os.environ.get("HYBRIDGL_CLEANUP", "host") == "device"
-
-
-def cleanup_device(cfg: PipelineConfig, props: Proposals, hw, device) -> Proposals:
-    """The small-region cleanup on tensors (kernels/connected.py) over the
-    frame's valid ``hw`` corner, as the reference's runner.py:179-186: the
-    host pass's masks, boxes and validity (a dead slot loses its pixels)."""
-    from ..kernels.connected import cleanup_proposals_jit
-
-    amg, C = cfg.amg, cfg.canonical_size
-    return cleanup_proposals_jit(props, valid_mask((C, C), hw, device), amg.min_mask_region_area,
-                                 max(amg.box_nms_thresh, amg.crop_nms_thresh))
 
 
 class HybridGLPipeline:
@@ -239,7 +201,6 @@ class HybridGLPipeline:
         self._warned_overflow = False
         self.timer = None  # optional utils.profiling.StageTimer: per-stage wall times (and stream times on the card)
         self.survival_hook = None  # optional Proposals -> Proposals override after the proposal stage
-        self._device_cleanup = cleanup_on_device()  # HYBRIDGL_CLEANUP=device, read once as the reference does
 
     def _span(self, name: str):
         if self.timer is None:
@@ -271,8 +232,7 @@ class HybridGLPipeline:
         -> (Handoff, the canonical image on the device)."""
         image_c = upload(sample.image_canonical, self.device)
         props = self._launch_proposals(sample._replace(image_canonical=image_c))
-        pack = self.cfg.amg.min_mask_region_area > 0 and not self._device_cleanup
-        return hand_off(props, pack), image_c
+        return hand_off(props, self.cfg.amg.min_mask_region_area > 0), image_c
 
     def _launch_proposals(self, sample: ImageSample) -> Proposals:
         """The proposal stage on the device (SAM encoder + AMG), launched and
@@ -297,22 +257,16 @@ class HybridGLPipeline:
                 stacklevel=2,
             )
             self._warned_overflow = True
-        host_valid = True
         if cfg.amg.min_mask_region_area > 0:
             with self._span("small_region_cleanup"):
                 if props.num > 0:
-                    if self._device_cleanup:
-                        props, host_valid = cleanup_device(cfg, props, hw, self.device), False
-                    else:
-                        props = self._cleanup_host(props, hw, handoff, lambda: self._span("host_wait"))
-        if self.survival_hook is not None:
-            # benchmarking and testing knob: random weights leave degenerate
-            # NMS survival, a hook sets a representative bucket occupancy
-            props, host_valid = self.survival_hook(props), False
-        # a bundle the meta buffer does not describe (the survival hook's, or
-        # cleaned on the device, whose validity the reference's runner reads
-        # back too) is read once, here
-        return (props, meta_bucket(handoff)) if host_valid else self._read_bucket(props)
+                    props = self._cleanup_host(props, hw, handoff, lambda: self._span("host_wait"))
+        if self.survival_hook is None:
+            return props, meta_bucket(handoff)
+        # benchmarking and testing knob: random weights leave degenerate NMS
+        # survival, a hook sets a representative bucket occupancy; the meta
+        # buffer does not describe its bundle, which is read once, here
+        return self._read_bucket(self.survival_hook(props))
 
     def _cleanup_host(self, props: Proposals, hw, handoff: Optional[Handoff] = None,
                       wait=contextlib.nullcontext) -> Proposals:

@@ -55,7 +55,7 @@ def _stage_fn(stage: str, sam_model: str):
     # feature: crops + fusion + GEM features on a full bucket of random masks
     from ..core.params import cast_tree, init_clip
     from ..models.sam.amg import Proposals
-    from ..pipeline.runner import feature_stage
+    from ..pipeline.scoring import feature_stage
 
     cfg = PipelineConfig(fusion_mode="G2L")
     clip_params = cast_tree(init_clip(torch.Generator(device="cuda").manual_seed(0), cfg.clip), torch.bfloat16)

@@ -142,7 +142,8 @@ def test_rle_codec_agrees(native, monkeypatch):
 
 
 def forced_cleanup(mod, monkeypatch, *args):
-    """``cleanup_batch`` through the module's native library, whatever cv2 says."""
+    """The reference's ``cleanup_batch`` through its native library, whatever
+    cv2 says (the port's always runs its own)."""
     monkeypatch.setenv("HYBRIDGL_FORCE_NATIVE_CLEANUP", "1")
     monkeypatch.delenv("HYBRIDGL_NO_NATIVE_CLEANUP", raising=False)
     monkeypatch.setattr(mod, "_lib", None)
@@ -163,7 +164,7 @@ def test_region_cleanup_agrees(min_area, hw, monkeypatch):
     boxes = np.tile(np.float32([0, 0, hw[1], hw[0]]), (6, 1))
     valid = np.array([True, True, True, False, True, True])
     ma, mb = masks.copy(), masks.copy()
-    got = forced_cleanup(port_native, monkeypatch, ma, boxes, valid, hw, min_area)
+    got = port_native.cleanup_batch(ma, boxes, valid, hw, min_area)
     want = forced_cleanup(ref_native, monkeypatch, mb, boxes, valid, hw, min_area)
     np.testing.assert_array_equal(ma, mb)
     np.testing.assert_array_equal(got[0], want[0])

@@ -3,10 +3,13 @@ package's prepared path (the cases of tests/test_decoder_prepared.py).
 
 Every prepared product is an exact matmul reassociation or a value computed
 once instead of per chunk, so ``predict_masks`` over the prepared tree must
-match the raw tree to float tolerance on every route of the four decoder
-switches (f32: IoU atol 2e-5, logits atol 3e-4; bf16: 0.05 of the logit
-scale), on CPU, where the kernels run their plain versions. Weights and inputs
-from numpy seeds, through ``from_numpy_tree``.
+match the raw tree to float tolerance (f32: IoU atol 2e-5, logits atol 3e-4;
+bf16: 0.05 of the logit scale), on CPU, where the kernels run their plain
+versions. The port has one decoder route; each combination of the
+reference's four decoder switches, set for the JAX package alone, also holds
+both of the port's trees to the reference's ``predict_masks`` on that route
+(logits within 1e-3, IoU within 1e-4). Weights and inputs from numpy seeds,
+through ``from_numpy_tree``.
 """
 
 import numpy as np
@@ -42,6 +45,7 @@ def setup(seed=0):
 
 
 def set_switches(monkeypatch, values):
+    """The reference's four decoder switches (the port reads none of them)."""
     for name, v in zip(SWITCHES, values):
         monkeypatch.setenv(f"HYBRIDGL_FUSED_{name}", v)
 
@@ -53,10 +57,23 @@ def run(p, cfg, emb, pe, sparse, dense, **kw):
     return m.numpy(), iou.numpy()
 
 
+def run_jax(p_np, cfg, emb, pe, sparse, dense, **kw):
+    """The reference's predict_masks on its raw tree, on the route its switches select."""
+    m, iou = jax_predict_masks(jax.tree_util.tree_map(jnp.asarray, p_np), jnp.asarray(emb), jnp.asarray(pe),
+                               jnp.asarray(sparse), cfg, dense_prompts=jnp.asarray(dense), **kw)
+    return np.asarray(m), np.asarray(iou)
+
+
+def assert_near_jax(got, want):
+    np.testing.assert_allclose(got[1], want[1], atol=1e-4)
+    np.testing.assert_allclose(got[0], want[0], atol=1e-3)
+
+
 @pytest.mark.parametrize("switches", ["1111", "0111", "0000", "1000", "0100", "0010"])
 def test_prepared_matches_raw(monkeypatch, switches):
-    """Every route: the fused layer passes (K3), the per-site kernels (K7,
-    K8), the plain attention forms, with and without the fused tail (K4)."""
+    """The prepared tree against the raw one, and both against the reference
+    on each of its routes: the fused layer passes (K3), the per-site kernels
+    (K7, K8), the plain attention forms, with and without the fused tail (K4)."""
     set_switches(monkeypatch, switches)
     cfg, p_np, *inputs = setup()
     raw = from_numpy_tree(p_np)
@@ -67,11 +84,15 @@ def test_prepared_matches_raw(monkeypatch, switches):
         np.testing.assert_allclose(out_iou, ref_iou, atol=2e-5)
         np.testing.assert_allclose(out_m, ref_m, atol=3e-4)
         assert np.abs(ref_m).max() > 0.1
+        want = run_jax(p_np, cfg, *inputs, multimask_output=multimask)
+        assert_near_jax((ref_m, ref_iou), want)
+        assert_near_jax((out_m, out_iou), want)
 
 
 @pytest.mark.parametrize("switches", ["1111", "0000"])
 def test_prepared_matches_raw_batched_dense(monkeypatch, switches):
-    """Batched dense prompts take the per-prompt two-way path (layer 0 runs the generic sites)."""
+    """Batched dense prompts take the per-prompt two-way path (layer 0 runs the
+    generic sites): prepared against raw, and both against the reference."""
     set_switches(monkeypatch, switches)
     cfg, p_np, emb, pe, sparse, dense = setup(1)
     dense_b = np.broadcast_to(dense[None], (sparse.shape[0],) + dense.shape).copy()
@@ -80,12 +101,14 @@ def test_prepared_matches_raw_batched_dense(monkeypatch, switches):
     out_m, out_iou = run(prepare_decoder_params(raw, to_port(cfg)), cfg, emb, pe, sparse, dense_b)
     np.testing.assert_allclose(out_iou, ref_iou, atol=2e-5)
     np.testing.assert_allclose(out_m, ref_m, atol=3e-4)
+    want = run_jax(p_np, cfg, emb, pe, sparse, dense_b)
+    assert_near_jax((ref_m, ref_iou), want)
+    assert_near_jax((out_m, out_iou), want)
 
 
-def test_prepared_matches_raw_bf16(monkeypatch):
-    """The serving configuration: bf16 params, every kernel's route on. The
-    folded products are rounded to bf16 once more, so the bar is bf16-scale."""
-    set_switches(monkeypatch, "1111")
+def test_prepared_matches_raw_bf16():
+    """The serving configuration: bf16 params. The folded products are
+    rounded to bf16 once more, so the bar is bf16-scale."""
     cfg, p_np, *inputs = setup(2)
     raw = cast_tree(from_numpy_tree(p_np), torch.bfloat16)
     prep = prepare_decoder_params(raw, to_port(cfg))
@@ -102,8 +125,9 @@ def test_prepared_matches_raw_bf16(monkeypatch):
 @pytest.mark.parametrize("switches", ["1111", "0111"])
 def test_prepared_matches_jax_prepared(monkeypatch, switches):
     """The same weights prepared by both packages, through both predict_masks
-    (the reference's kernels in interpret mode): logits and IoU predictions
-    within 1e-3 / 1e-4, and the shared products equal to 1e-5."""
+    (the reference's kernels in interpret mode, on the route its switches
+    select): logits and IoU predictions within 1e-3 / 1e-4, and the shared
+    products equal to 1e-5."""
     set_switches(monkeypatch, switches)
     cfg, p_np, emb, pe, sparse, dense = setup(3)
     want_tree = jax_prepare(jax.tree_util.tree_map(jnp.asarray, p_np), cfg)

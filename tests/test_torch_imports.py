@@ -38,7 +38,7 @@ import hybridgl_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(hybridgl_tpu_torch.__path__, "hybridgl_tpu_torch.")]
 assert len(names) > 40, names
 for new in ("models.sam.predictor", "models.clip.resnet", "models.clip.preprocess", "pipeline.visual_prompts",
-            "kernels.connected", "utils.flops", "utils.buckets", "parallel.mesh", "parallel.full_eval",
+            "utils.flops", "utils.buckets", "parallel.mesh", "parallel.full_eval",
             "parallel.encoder_tp", "parallel.launch", "parallel.workers", "tools.dryrun", "tools.bench",
             "tools.profile_proposals", "tools.profile_multicrop", "tools.profile_trace", "tools.compare_parity",
             "tools.dump_reference_parity", "tools.flops_audit", "tools.probe_dp_cleanup"):

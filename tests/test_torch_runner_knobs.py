@@ -3,9 +3,9 @@ runner under the matching switch, on the tiny pipeline of
 tests/test_torch_pipeline.py (CPU, f32, same weights): the batched sentence
 stage (the port's only one; HYBRIDGL_BATCH_SENTENCES=1 in JAX), proposal
 buckets (against HYBRIDGL_NO_BUCKETING=1 in JAX), the survival hook, the
-cleanup on tensors (kernels/connected.py, which the runner takes under
-HYBRIDGL_CLEANUP=device, as JAX does) against the runner's host pass, the
-cleanup threads and the default expression parser. Selections must
+runner's one cleanup, its native host pass, against the JAX runner's
+cleanup on tensors (under HYBRIDGL_CLEANUP=device, which the port does not
+read), the cleanup threads and the default expression parser. Selections must
 be equal; IoUs agree to 1e-4 and accumulator sums to 1e-6 relative (1e-5
 absolute between one call and one call a sentence, which differ only in the
 shape of their matmuls)."""
@@ -203,7 +203,8 @@ def test_survival_hook_replaces_the_bundle_as_in_jax(pipelines):
 def cleanup_pipelines(pipelines):
     """The tiny pipelines with min_mask_region_area = 12 (the default 800
     exceeds the 24 x 32 image, so every mask takes the keep-largest fallback):
-    (the port, whose runner takes the host pass; JAX on its device pass)."""
+    (the port, whose runner takes its host pass; JAX under
+    HYBRIDGL_CLEANUP=device, on its pass on tensors)."""
     import dataclasses
     import os
 
@@ -225,81 +226,88 @@ def cleanup_pipelines(pipelines):
     return host, jax_device
 
 
-def tensor_pass(pipe, props, sample):
-    """kernels/connected.py on a raw proposal bundle, with the runner's arguments."""
-    from hybridgl_tpu_torch.kernels.connected import cleanup_proposals_jit
-    from hybridgl_tpu_torch.kernels.resize import valid_mask
+def jax_tensor_pass(cfg, props, hw):
+    """The JAX package's cleanup on tensors (what its runner runs under
+    HYBRIDGL_CLEANUP=device) on a port bundle, with the runner's arguments."""
+    from hybridgl_tpu.kernels.connected import cleanup_proposals_jit
+    from hybridgl_tpu.kernels.resize import valid_mask
 
-    amg, C = pipe.cfg.amg, pipe.cfg.canonical_size
-    return cleanup_proposals_jit(props, valid_mask((C, C), (sample.h, sample.w)), amg.min_mask_region_area,
+    amg, C = cfg.amg, cfg.canonical_size
+    bundle = jamg.Proposals(*(jax.numpy.asarray(t.numpy()) for t in props[:7]),
+                            num=jax.numpy.asarray(int(props.num), jax.numpy.int32), overflow=props.overflow)
+    return cleanup_proposals_jit(bundle, valid_mask((C, C), hw), amg.min_mask_region_area,
                                  max(amg.box_nms_thresh, amg.crop_nms_thresh))
+
+
+def assert_same_bundle(got, want):
+    """A port bundle from the host pass against a JAX bundle cleaned on tensors
+    (which clears a dead slot's pixels, where the host pass leaves them)."""
+    assert got.num == int(want.num) and got.num > 0
+    for name in ("valid", "boxes_xyxy"):
+        np.testing.assert_array_equal(getattr(got, name).numpy(), np.asarray(getattr(want, name)), err_msg=name)
+    np.testing.assert_array_equal((got.masks & got.valid[:, None, None]).numpy(), np.asarray(want.masks))
 
 
 @pytest.mark.parametrize("seed", [0, 1])
 def test_device_cleanup_matches_the_host_pass_and_jax(cleanup_pipelines, seed):
-    """The cleanup on tensors (kernels/connected.py) of the runner's raw
-    proposals equals the runner's host pass and the JAX runner's proposals
-    under HYBRIDGL_CLEANUP=device, and scores to the same selections."""
+    """The JAX runner under HYBRIDGL_CLEANUP=device (its cleanup on tensors)
+    against the port's runner and its host pass: the same proposals (count,
+    validity, boxes, masks), and run_image's selections, IoUs and sums."""
     host, jax_device = cleanup_pipelines
     sample = make_sample(runner, seed)
-    want = host.propose(sample)
-    got = tensor_pass(host, host._launch_proposals(sample), sample)
     ref = jax_device.propose(make_sample(jrunner, seed))
-    assert got.num == want.num == int(ref.num) and got.num > 0
-    for name in ("valid", "boxes_xyxy"):
-        assert torch.equal(getattr(got, name), getattr(want, name)), name
-        np.testing.assert_array_equal(getattr(got, name).numpy(), np.asarray(getattr(ref, name)), err_msg=name)
-    # a dead slot keeps its pixels on the host pass and loses them on the device pass
-    assert torch.equal(got.masks, want.masks & want.valid[:, None, None])
-    np.testing.assert_array_equal(got.masks.numpy(), np.asarray(ref.masks))
-    a, b, js = host.init_state(), host.init_state(), jax_device.init_state()
+    assert_same_bundle(host.propose(sample), ref)
+    a, js = host.init_state(), jax_device.init_state()
     r_host = runner.materialize_results(host.run_image(sample, a))
-    r_dev = runner.materialize_results(host._score_image(sample, got, b))
     r_jax = jrunner.materialize_results(jax_device.run_image(make_sample(jrunner, seed), js))
-    agree(r_dev, r_host, b, a)
-    agree(r_dev, r_jax, b, js)
+    assert_same_bundle(host.last_proposals, ref)
+    agree(r_host, r_jax, a, js)
 
 
-def test_device_cleanup_changes_something(cleanup_pipelines):
+def test_cleanup_changes_something(cleanup_pipelines):
     """The comparison above is not vacuous: at min_mask_region_area = 12 the
-    cleanup alters or suppresses at least one raw proposal of the two images."""
+    host pass alters or suppresses at least one raw proposal of the two images."""
     host, _ = cleanup_pipelines
     differs = False
     for seed in (0, 1):
         sample = make_sample(runner, seed)
         raw = host._launch_proposals(sample)
-        cleaned = tensor_pass(host, raw, sample)
-        differs |= not torch.equal(raw.masks & raw.valid[:, None, None], cleaned.masks) or raw.num != cleaned.num
+        cleaned = host.propose(sample)
+        live = lambda p: p.masks & p.valid[:, None, None]  # noqa: E731
+        differs |= not torch.equal(live(raw), live(cleaned)) or int(raw.num) != cleaned.num
     assert differs
 
 
-@pytest.mark.parametrize("value", [None, "host", "cpu"])
-def test_cleanup_is_the_host_pass_whatever_the_environment(cleanup_pipelines, monkeypatch, value):
-    """Unless HYBRIDGL_CLEANUP is ``device`` (unset, ``host`` or any other
-    value) the runner takes the native host pass, once an image, and never
-    the pass on tensors."""
-    from hybridgl_tpu_torch.kernels import connected
-
+@pytest.mark.parametrize("name,value", [
+    pytest.param(None, None, id="None"),
+    pytest.param("HYBRIDGL_CLEANUP", "host", id="host"),
+    pytest.param("HYBRIDGL_CLEANUP", "cpu", id="cpu"),
+    pytest.param("HYBRIDGL_CLEANUP", "device", id="device"),
+    pytest.param("HYBRIDGL_NO_NATIVE_CLEANUP", "1", id="no_native"),
+    pytest.param("HYBRIDGL_FORCE_NATIVE_CLEANUP", "0", id="force_native_0"),
+])
+def test_cleanup_is_the_host_pass_whatever_the_environment(cleanup_pipelines, monkeypatch, name, value):
+    """The reference's cleanup switches change nothing in the port: with any
+    of them set when the pipeline is built and its library loaded, the
+    runner takes its native host pass, once an image, through the native
+    library, and cleans as a runner built without them."""
     host, _ = cleanup_pipelines
-    if value is None:
-        monkeypatch.delenv("HYBRIDGL_CLEANUP", raising=False)
-    else:
-        monkeypatch.setenv("HYBRIDGL_CLEANUP", value)
-    pipe = device_pipeline(host)
-    calls = []
-    original = pipe._cleanup_host
-    monkeypatch.setattr(pipe, "_cleanup_host", lambda *a: calls.append(1) or original(*a))
-    monkeypatch.setattr(connected, "label_components", lambda *a: pytest.fail("the runner labelled on tensors"))
     sample = make_sample(runner, 0)
-    got = pipe.propose(sample)
     want = host.propose(sample)
-    assert calls == [1] and got.num == want.num and torch.equal(got.masks, want.masks)
-
-
-def device_pipeline(host):
-    """A runner on the host pipeline's config and weights, built now (it reads HYBRIDGL_CLEANUP once)."""
-    return runner.HybridGLPipeline(host.cfg, host.sam_params, host.clip_params, parser=host.parser,
+    for var in ("HYBRIDGL_CLEANUP", "HYBRIDGL_NO_NATIVE_CLEANUP", "HYBRIDGL_FORCE_NATIVE_CLEANUP"):
+        monkeypatch.delenv(var, raising=False)
+    if name is not None:
+        monkeypatch.setenv(name, value)
+    monkeypatch.setattr(postprocess.postprocess_native, "_lib", None)  # loaded anew under this environment
+    pipe = runner.HybridGLPipeline(host.cfg, host.sam_params, host.clip_params, parser=host.parser,
                                    tokenizer=host.tokenizer, device="cpu")
+    calls, native = [], []
+    original, batch = pipe._cleanup_host, postprocess.postprocess_native.cleanup_batch
+    monkeypatch.setattr(pipe, "_cleanup_host", lambda *a: calls.append(1) or original(*a))
+    monkeypatch.setattr(postprocess.postprocess_native, "cleanup_batch", lambda *a: native.append(1) or batch(*a))
+    got = pipe.propose(sample)
+    assert calls == [1] and native and postprocess.postprocess_native._lib is not None
+    assert got.num == want.num and torch.equal(got.masks, want.masks) and torch.equal(got.valid, want.valid)
 
 
 def speckled_survivors(cfg, n_live, seed, hw):
@@ -317,56 +325,33 @@ def speckled_survivors(cfg, n_live, seed, hw):
                           areas=masks.sum((-2, -1)).float())
 
 
-@pytest.mark.parametrize("seed", [0, 1])
-def test_device_cleanup_switch_in_run_image(cleanup_pipelines, monkeypatch, seed):
-    """HYBRIDGL_CLEANUP=device: the runner cleans on tensors (never the host
-    pass) and run_image gives the host pass's selections, IoUs and sums, on
-    its own proposals, as the JAX runner does under the same switch."""
-    host, jax_device = cleanup_pipelines
-    monkeypatch.setenv("HYBRIDGL_CLEANUP", "device")
-    pipe = device_pipeline(host)
-    monkeypatch.setattr(pipe, "_cleanup_host", lambda *a: pytest.fail("the runner took the host pass"))
-    sample = make_sample(runner, seed)
-    a, b, js = host.init_state(), pipe.init_state(), jax_device.init_state()
-    r_host = runner.materialize_results(host.run_image(sample, a))
-    r_dev = runner.materialize_results(pipe.run_image(sample, b))
-    r_jax = jrunner.materialize_results(jax_device.run_image(make_sample(jrunner, seed), js))
-    assert pipe.last_proposals.num == host.last_proposals.num
-    assert torch.equal(pipe.last_proposals.valid, host.last_proposals.valid)
-    agree(r_dev, r_host, b, a)
-    agree(r_dev, r_jax, b, js)
-
-
 @pytest.mark.parametrize("n_live", [7, 5, 8])
-def test_device_cleanup_switch_on_stamped_survivors(cleanup_pipelines, monkeypatch, n_live):
+def test_host_cleanup_matches_jax_on_stamped_survivors(cleanup_pipelines, monkeypatch, n_live):
     """The stamped survivors of the parallel tests (``workers.stamped_survivors``),
-    speckled, in place of the runner's proposals: under HYBRIDGL_CLEANUP=device
-    run_image cleans them on tensors to the host pass's masks, boxes and
-    validity, and selects as the host runner does."""
-    host, _ = cleanup_pipelines
+    speckled, in place of the runner's proposals: run_image's host pass
+    cleans them to the masks, boxes and validity of the JAX package's cleanup
+    on tensors, and selects as the JAX runner does on that cleaned bundle."""
+    host, jax_device = cleanup_pipelines
     sample = make_sample(runner, 30 + n_live)
     hw = (sample.h, sample.w)
-    stamp = lambda _: speckled_survivors(host.cfg, n_live, 100 + n_live, hw)  # noqa: E731
-    monkeypatch.setenv("HYBRIDGL_CLEANUP", "device")
-    pipe = device_pipeline(host)
-    out = {}
-    for name, p in (("host", host), ("device", pipe)):
-        monkeypatch.setattr(p, "_launch_proposals", stamp)
-        state = p.init_state()
-        out[name] = (runner.materialize_results(p.run_image(sample, state)), state, p.last_proposals)
-    (r_host, s_host, p_host), (r_dev, s_dev, p_dev) = out["host"], out["device"]
-    raw = stamp(None)
-    assert not torch.equal(p_host.masks & p_host.valid[:, None, None], raw.masks), "the cleanup changed nothing"
-    assert torch.equal(p_dev.masks, p_host.masks & p_host.valid[:, None, None])
-    assert torch.equal(p_dev.boxes_xyxy, p_host.boxes_xyxy) and torch.equal(p_dev.valid, p_host.valid)
-    assert p_dev.num == p_host.num
-    agree(r_dev, r_host, s_dev, s_host)
+    raw = speckled_survivors(host.cfg, n_live, 100 + n_live, hw)
+    monkeypatch.setattr(host, "_launch_proposals", lambda _: raw)
+    state = host.init_state()
+    r_host = runner.materialize_results(host.run_image(sample, state))
+    cleaned = host.last_proposals
+    assert not torch.equal(cleaned.masks & cleaned.valid[:, None, None], raw.masks), "the cleanup changed nothing"
+    want = jax_tensor_pass(host.cfg, raw, hw)
+    assert_same_bundle(cleaned, want)
+    monkeypatch.setattr(jax_device, "survival_hook", lambda _: want)
+    js = jax_device.init_state()
+    r_jax = jrunner.materialize_results(jax_device.run_image(make_sample(jrunner, 30 + n_live), js))
+    agree(r_host, r_jax, state, js)
 
 
 def test_cleanup_threads_env_and_equal_results(monkeypatch):
     """HYBRIDGL_CLEANUP_THREADS: the bundle's rows split between that many
     native calls give the one call's result exactly."""
-    from test_torch_connected import _bundle, _bundle_masks
+    from test_torch_region_cleanup import _bundle, _bundle_masks
 
     monkeypatch.delenv("HYBRIDGL_CLEANUP_THREADS", raising=False)
     import os

@@ -64,43 +64,89 @@ def test_encoder_matches_jax(name):
     assert np.abs(got - want).max() <= 1e-4
 
 
+# the reference's decoder switches, which the port does not read
+SWITCHES = tuple(f"HYBRIDGL_FUSED_{k}" for k in ("PASS", "I2T", "T2I", "UPSCALE"))
 ROUTES = {
     "all_on": {},
     "pass_off": {"HYBRIDGL_FUSED_PASS": "0"},
-    "all_off": {f"HYBRIDGL_FUSED_{k}": "0" for k in ("PASS", "I2T", "T2I", "UPSCALE")},
+    "all_off": {k: "0" for k in SWITCHES},
 }
+
+
+def decoder_inputs(cfg, dense, seed=3, B=4):
+    """(embedding, pe, dense prompts, sparse prompts) as numpy, the dense
+    prompt shared ([g, g, C]) or per prompt ([B, g, g, C])."""
+    rng = np.random.default_rng(seed)
+    g, C = cfg.embed_grid, cfg.prompt_dim
+    emb, pe = (rng.standard_normal((g, g, C)).astype(np.float32) * 0.5 for _ in range(2))
+    shape = (g, g, C) if dense == "shared" else (B, g, g, C)
+    dense_p = rng.standard_normal(shape).astype(np.float32) * 0.5
+    sparse = rng.standard_normal((B, 3, C)).astype(np.float32) * 0.5
+    return emb, pe, dense_p, sparse
+
+
+def port_predict(p_dec, cfg, emb, pe, dense_p, sparse, multimask=True):
+    return predict_masks(
+        from_numpy_tree(p_dec), torch.from_numpy(emb), torch.from_numpy(pe), torch.from_numpy(sparse),
+        to_port(cfg), dense_prompts=torch.from_numpy(dense_p), multimask_output=multimask,
+    )
 
 
 @pytest.mark.parametrize("dense", ["shared", "per_prompt"])
 @pytest.mark.parametrize("route", list(ROUTES))
 @pytest.mark.parametrize("multimask", [True, False])
 def test_predict_masks_matches_jax(monkeypatch, multimask, route, dense):
-    """The port's decoder against the reference on each switch route
+    """The port's one decoder route (K3 passes + K4; K7/K8 + K4 on the
+    per-prompt stream) against the reference on each of its switch routes
     (default: K3 passes + K4; FUSED_PASS=0: K7/K8 + K4; all off), with the
     dense prompt shared ([g, g, C]) or per prompt ([B, g, g, C], the
-    multicrop pass-2 form). The switches are set for both packages; the
-    JAX kernels run in interpret mode. Logits within 1e-3, IoU within 1e-4."""
+    multicrop pass-2 form). The switches are set for the JAX package, whose
+    kernels run in interpret mode; the port reads none of them. Logits
+    within 1e-3, IoU within 1e-4."""
     for k, v in ROUTES[route].items():
         monkeypatch.setenv(k, v)
     cfg = sam_preset("test-tiny")
     p_dec = noisy_params(cfg, 2)["decoder"]
-    rng = np.random.default_rng(3)
-    g, C, B = cfg.embed_grid, cfg.prompt_dim, 4
-    emb, pe = (rng.standard_normal((g, g, C)).astype(np.float32) * 0.5 for _ in range(2))
-    shape = (g, g, C) if dense == "shared" else (B, g, g, C)
-    dense_p = rng.standard_normal(shape).astype(np.float32) * 0.5
-    sparse = rng.standard_normal((B, 3, C)).astype(np.float32) * 0.5
+    emb, pe, dense_p, sparse = decoder_inputs(cfg, dense)
     want_m, want_i = jax_predict_masks(
         jax_tree(p_dec), jnp.asarray(emb), jnp.asarray(pe), jnp.asarray(sparse), cfg,
         dense_prompts=jnp.asarray(dense_p), multimask_output=multimask,
     )
-    got_m, got_i = predict_masks(
-        from_numpy_tree(p_dec), torch.from_numpy(emb), torch.from_numpy(pe), torch.from_numpy(sparse),
-        to_port(cfg), dense_prompts=torch.from_numpy(dense_p), multimask_output=multimask,
-    )
+    got_m, got_i = port_predict(p_dec, cfg, emb, pe, dense_p, sparse, multimask)
     assert got_m.shape == want_m.shape
     assert np.abs(got_m.numpy() - np.asarray(want_m)).max() <= 1e-3
     assert np.abs(got_i.numpy() - np.asarray(want_i)).max() <= 1e-4
+
+
+@pytest.mark.parametrize("switch", SWITCHES)
+def test_decoder_ignores_the_reference_switches(monkeypatch, switch):
+    """One of the reference's decoder switches at 0 changes nothing in the
+    port: the outputs are bit-equal to those with none set, and the decoder
+    still calls its kernels' operators, K3 twice and K4 once on the shared
+    image, K7 twice, K8 three times and K4 once on the per-prompt stream."""
+    from hybridgl_tpu_torch.models.sam import decoder
+
+    calls = {}
+    for name in ("i2t_ln_then_t2i", "i2t_ln_update", "t2i_ctx", "upscale_hyper"):
+        def counted(*a, _name=name, _fn=getattr(decoder, name), **kw):
+            calls[_name] = calls.get(_name, 0) + 1
+            return _fn(*a, **kw)
+
+        monkeypatch.setattr(decoder, name, counted)
+    cfg = sam_preset("test-tiny")
+    p_dec = noisy_params(cfg, 2)["decoder"]
+    want_calls = {"shared": {"i2t_ln_then_t2i": 2, "upscale_hyper": 1},
+                  "per_prompt": {"i2t_ln_update": 2, "t2i_ctx": 3, "upscale_hyper": 1}}
+    for dense, want in want_calls.items():
+        inputs = decoder_inputs(cfg, dense)
+        for k in SWITCHES:
+            monkeypatch.delenv(k, raising=False)
+        want_m, want_i = port_predict(p_dec, cfg, *inputs)
+        monkeypatch.setenv(switch, "0")
+        calls.clear()
+        got_m, got_i = port_predict(p_dec, cfg, *inputs)
+        assert calls == want, dense
+        assert torch.equal(got_m, want_m) and torch.equal(got_i, want_i), dense
 
 
 def test_generate_proposals_matches_jax():
