@@ -40,7 +40,9 @@ Phases (every phase asserts; any failure exits non-zero):
      settings with the quality thresholds zeroed as the reference bench
      does) on one warm-up and two measured synthetic images, checking
      finite outputs, that every kernel of the path launched, that NMS ran
-     on the card once an image, and that every launch of a wrapper with two
+     on the card once an image, that the SAM encoder's fused glue launched
+     its exact count (one ln_1 and five kernels a block of 32, an encoder
+     pass), and that every launch of a wrapper with two
      kernels (K3-K8) took its tensor-core one;
   6. PhraseCut pipeline: the same at AMG_PHRASECUT (pps 64, one crop layer,
      P = 128, canonical 1024), one warm-up and one measured image, NMS on
@@ -119,9 +121,9 @@ Phases (every phase asserts; any failure exits non-zero):
      the serving export (tools/export_serving.py) at full width: the ViT-H
      encoder and the ViT-B/16 G2L fusion at P = 64 exported with torch.export,
      saved, loaded here and in a fresh process that imports only the port;
-     28 + 4 and 15 kernel nodes; each loaded program once on the card against
-     eager (cos > 0.999), K1 +28, K2 +4 and K6 +15 launches, all on the
-     tensor cores; the .pt2 sizes and both times;
+     28 + 4 (and the SAM glue's 161) and 15 kernel nodes; each loaded program
+     once on the card against eager (cos > 0.999), K1 +28, K2 +4 and K6 +15
+     launches, all on the tensor cores; the .pt2 sizes and both times;
  16. the demo: ``python -m hybridgl_tpu_torch.cli.demo --random-weights`` at
      its defaults (SAM ViT-B, CLIP ViT-B/16, 8 x 8 points) on a synthetic
      480x640 image in a process of its own: exit code 0 and "no proposals
@@ -177,6 +179,13 @@ GLUE_LAUNCHES_PER_IMAGE = {k: G2L_NODES[k] + GEM_GLUE.get(k, 0) + TEXT_GLUE.get(
                            if k != "clip_attention"}
 # GEM's attention an image, exactly (kernels/gem_attention.py): one call a block of the tower
 GEM_ATTENTION_LAUNCHES_PER_IMAGE = 12
+# the SAM encoder block's fused glue an encoder pass, exactly (kernels/sam_glue.py): block 0's ln_1
+# alone, then a block's qkv bias + heads + rel-pos terms, head merge, out-projection residual + ln_2,
+# bias + GELU, and the MLP residual with the next block's ln_1 (31) or alone (the last block), 32 blocks
+SAM_GLUE_LAUNCHES_PER_IMAGE = {"sam_layer_norm": 1, "sam_qkv_heads": 32, "sam_merge_heads": 32,
+                               "sam_residual_layer_norm": 63, "sam_residual_add": 1, "sam_bias_gelu": 32}
+# encoder passes an image: RefCOCO's one; PhraseCut's five crops
+ENCODER_PASSES_PER_IMAGE = {"RefCOCO": 1, "PhraseCut": 5}
 # the same counts at any tower (tools/check_kernels.py:clip_launches_per_image): CLIP ViT-L/14@336 with
 # G2L from block 21 of 24, GEM depth 7, a 12-layer text tower launches K6 27 times an image (21 + 2 x 3)
 VIT_L14_336 = ("ViT-L/14@336", 24, 21, 7, 12)
@@ -193,6 +202,7 @@ MIN_LAUNCHES_PER_IMAGE = {
     "nms": 1,
     "gem_attention": GEM_ATTENTION_LAUNCHES_PER_IMAGE,
     **GLUE_LAUNCHES_PER_IMAGE,
+    **SAM_GLUE_LAUNCHES_PER_IMAGE,
 }
 # the PhraseCut path adds the pass-2 re-decode on the per-prompt route: two
 # K7 image->token updates and three K8 token->image attentions; its five
@@ -449,7 +459,8 @@ def phase_pipeline(tag, amg, canonical, n_images, min_launches, weights, clip_mo
     pass none of them), synthetic 480x640 images in the canonical frame; one
     warm-up image, then ``n_images`` measured. The CLIP glue's launches an
     image are exact (``tools/check_kernels.py:clip_launches_per_image``), and
-    K6's too past ViT-B/16."""
+    K6's too past ViT-B/16; so are the SAM glue's, once an encoder pass
+    (``SAM_GLUE_LAUNCHES_PER_IMAGE``)."""
     import dataclasses
 
     import numpy as np
@@ -470,6 +481,8 @@ def phase_pipeline(tag, amg, canonical, n_images, min_launches, weights, clip_mo
                                     cfg.clip.text_layers)
     if clip_model == "ViT-B/16":
         exact.pop("clip_attention")
+    passes = ENCODER_PASSES_PER_IMAGE[tag.split()[0]]
+    exact.update({k: n * passes for k, n in SAM_GLUE_LAUNCHES_PER_IMAGE.items()})
     pipe = HybridGLPipeline(cfg, *weights, HeuristicParser(), _tokenizer(), device=torch.device("cuda"))
     rng = np.random.default_rng(0)
     samples = [_sample(rng, 1024, canonical, 480, 640, 768, 1024, (100, 150, 300, 400)) for _ in range(n_images + 1)]
@@ -497,7 +510,7 @@ def phase_pipeline(tag, amg, canonical, n_images, min_launches, weights, clip_mo
             fail(f"{name}: kernels launched fewer times than the path needs: {short}")
         off = {k: (delta[k], n) for k, n in exact.items() if delta[k] != n}
         if off:
-            fail(f"{name}: the CLIP glue's launches (launched, expected) differ from the path's: {off}")
+            fail(f"{name}: the CLIP or SAM glue's launches (launched, expected) differ from the path's: {off}")
         nms = NMS_LAUNCHES_PER_IMAGE[tag.split()[0]]
         if delta["nms"] != nms:
             fail(f"{name}: NMS launched {delta['nms']} times on the card, expected {nms}")
@@ -1261,7 +1274,8 @@ def phase_export(weights, card):
     args = {"sam_encoder": (enc, image), "hybrid_fusion": (visual, local, glob, masks.to(dev))}
     mb = es.fusion_masking_block(cfg)
     eager = {"sam_encoder": es.SamEncoder(cfg.sam), "hybrid_fusion": es.HybridFusion(cfg.clip, cfg.fusion_mode, mb)}
-    want_nodes = {"sam_encoder": {"flash_windowed_fused": 28, "flash_attention_fused": 4},
+    want_nodes = {"sam_encoder": {"flash_windowed_fused": 28, "flash_attention_fused": 4,
+                                  **SAM_GLUE_LAUNCHES_PER_IMAGE},
                   "hybrid_fusion": G2L_NODES}
     want_tc = {name: {k: v for k, v in nodes.items() if k in tc_launch_counts()} for name, nodes in want_nodes.items()}
     with tempfile.TemporaryDirectory() as tmp:

@@ -4,9 +4,10 @@
 ``decoder_attn_t2i``, ``decoder_pass`` and ``upscale_hyper`` wrap the
 hand-written CUDA kernels in ``csrc/`` (built by ``_build``) that replace the
 ten TPU kernels, ``nms`` wraps the port's own NMS kernel (the reference's
-``nms`` is XLA), ``clip_glue`` the port's fused glue of the CLIP block
-(XLA's fusions in the reference) and ``gem_attention`` GEM's attention (plain
-XLA in the reference): each wrapper calls its registered operator,
+``nms`` is XLA), ``clip_glue`` and ``sam_glue`` the port's fused glue of the
+CLIP block and of the SAM encoder block (XLA's fusions in the reference) and
+``gem_attention`` GEM's attention (plain XLA in the reference): each wrapper
+calls its registered operator,
 ``torch.ops.hybridgl.<reference function's name>`` (``_ops``), whose CUDA
 implementation launches the kernel and whose CPU one runs the plain version.
 The other modules are the plain tensor primitives the reference wrote as
@@ -27,12 +28,15 @@ from __future__ import annotations
 # the fused glue of the CLIP block (``clip_glue``), by operator name
 GLUE = ("layer_norm", "residual_add", "residual_layer_norm", "inject_layer_norm", "qkv_heads", "merge_heads",
         "bias_quick_gelu")
+# the fused glue of the SAM encoder block (``sam_glue``), by operator name: ``sam_<wrapper name>``
+SAM_GLUE = ("sam_layer_norm", "sam_qkv_heads", "sam_merge_heads", "sam_residual_layer_norm", "sam_residual_add",
+            "sam_bias_gelu")
 
 
 def kernel_wrappers():
     """{name: wrapper} for every CUDA kernel of the port, by the name of its
-    operator; importing them registers the nineteen operators."""
-    from . import clip_glue
+    operator; importing them registers the twenty-five operators."""
+    from . import clip_glue, sam_glue
     from .clip_attention import clip_attention
     from .gem_attention import gem_attention
     from .decoder_attn import i2t_ln_update
@@ -57,6 +61,7 @@ def kernel_wrappers():
         "nms": nms,
         "gem_attention": gem_attention,
         **{name: getattr(clip_glue, name) for name in GLUE},
+        **{name: getattr(sam_glue, name.removeprefix("sam_")) for name in SAM_GLUE},
     }
 
 

@@ -64,6 +64,10 @@ _SIGNATURES = {
     "hgl_gem_attention": [_i] + [_vp] * 6 + [_i] * 4 + [_f, _f, _i, _vp],
     "hgl_gem_l2norm": [_i] + [_vp] * 4 + [_i, _i, _vp],
     "hgl_gem_tc_takes": [_i],
+    "hgl_sam_rows": [_i] + [_vp] * 7 + [_i] * 6 + [_f, _vp],
+    "hgl_sam_qkv_rel": [_i] + [_vp] * 9 + [_i] * 4 + [_vp],
+    "hgl_sam_merge_heads": [_i, _vp, _vp] + [_i] * 4 + [_vp],
+    "hgl_sam_bias_gelu": [_i] + [_vp] * 3 + [_i] * 2 + [_vp],
 }
 
 

@@ -11,6 +11,14 @@ windows of 8 <= size < 32 go to K1 (``flash_windowed_fused``), global
 grids of size >= 32 to K2 (``flash_attention_fused``), smaller sizes to the
 plain PyTorch version of the same math. ViT-H pads its 64x64 grid to 70x70,
 so a windowed block runs 25 windows of S = 196.
+
+The glue between a block's four matrix products and its attention kernel
+runs as the fused operators of ``kernels/sam_glue.py``: each LayerNorm is
+written by the kernel that writes the residual it normalises, straight into
+the layout of windows of the block that reads it, and each bias add, head
+split and merge, the rel-pos terms and the GELU ride on the kernel that
+reads the product. On a CPU tensor they run their plain versions, the
+sequence of PyTorch operations this module ran before, bit for bit.
 """
 
 from __future__ import annotations
@@ -20,22 +28,18 @@ import torch.nn.functional as F
 
 from ...core.config import SamConfig
 
+from ...kernels import sam_glue
 from ...kernels.flash_attention import (
     flash_attention_fused,
     flash_windowed_fused,
     reference_attention_rel_pos,
 )
-
-LN_EPS = 1e-6  # build_sam.py uses LayerNorm(eps=1e-6) throughout the encoder
+from ...kernels.sam_glue import LN_EPS
 
 
 def _ln(p, x, eps=LN_EPS):
     """LayerNorm over the last axis, computed in f32, returned in x's dtype."""
-    x32 = x.float()
-    mu = x32.mean(-1, keepdim=True)
-    var = (x32 - mu).square().mean(-1, keepdim=True)
-    y = (x32 - mu) * torch.rsqrt(var + eps) * p["scale"].float() + p["bias"].float()
-    return y.to(x.dtype)
+    return sam_glue.reference_layer_norm(x, p["scale"], p["bias"], 0, eps)
 
 
 def layer_norm_2d(p, x, eps=LN_EPS):
@@ -50,42 +54,37 @@ def get_rel_pos_table(size: int, rel_pos: torch.Tensor) -> torch.Tensor:
     return rel_pos[q - k + (size - 1)]
 
 
-def _attention(p_attn, x: torch.Tensor, num_heads: int, size: int) -> torch.Tensor:
-    """Windowed/global attention over [B, size, size, D] tiles with rel-pos."""
+def _rel_tables(p_attn, size: int):
+    """The block's [size, size, head_dim] f32 rel-pos tables (built once by prepare_sam_params)."""
+    if "rel_tab_h" in p_attn:
+        return p_attn["rel_tab_h"], p_attn["rel_tab_w"]
+    return (get_rel_pos_table(size, p_attn["rel_pos_h"].float()), get_rel_pos_table(size, p_attn["rel_pos_w"].float()))
+
+
+def _attention_product(p_attn, x: torch.Tensor, num_heads: int, size: int) -> torch.Tensor:
+    """Windowed/global attention over [B, size, size, D] tiles with rel-pos,
+    up to the output projection's product without its bias: [B, S, D]."""
     B = x.shape[0]
-    S = size * size
     dt = x.dtype
-    qkv = x.reshape(B, S, x.shape[-1]) @ p_attn["qkv_w"].to(dt) + p_attn["qkv_b"].to(dt)
+    y = x.reshape(B, size * size, x.shape[-1]) @ p_attn["qkv_w"].to(dt)
     # the attention width is the projection's: num_heads heads of the block's
     # own, or the local heads of a tensor-parallel shard (parallel/encoder_tp.py)
-    D = qkv.shape[-1] // 3
-    hd = D // num_heads
-
-    def heads(t):  # [B, S, D] -> [B*H, S, hd]
-        return t.reshape(B, S, num_heads, hd).transpose(1, 2).reshape(B * num_heads, S, hd).contiguous()
-
-    q, k, v = (heads(t) for t in qkv.split(D, dim=-1))
-    # the two rank-G bias terms from the unscaled q, kept in f32:
-    # rel_h[b, (qh, qw), kh] = q[b, qh, qw] . Rh[qh, kh], likewise rel_w
-    if "rel_tab_h" in p_attn:  # built once by prepare_sam_params
-        Rh, Rw = p_attn["rel_tab_h"], p_attn["rel_tab_w"]
-    else:
-        Rh = get_rel_pos_table(size, p_attn["rel_pos_h"].float())
-        Rw = get_rel_pos_table(size, p_attn["rel_pos_w"].float())
-    q6 = q.float().reshape(B * num_heads, size, size, hd)
-    rel_h = torch.einsum("bhwc,hkc->bhwk", q6, Rh).reshape(B * num_heads, S, size)
-    rel_w = torch.einsum("bhwc,wkc->bhwk", q6, Rw).reshape(B * num_heads, S, size)
-    scale = hd**-0.5
+    q, k, v, rel_h, rel_w = sam_glue.qkv_heads(y, p_attn["qkv_b"].to(dt), *_rel_tables(p_attn, size), num_heads)
+    scale = q.shape[-1] ** -0.5
     if 8 <= size < 32:
         attend = flash_windowed_fused
     elif size >= 32:
         attend = flash_attention_fused
     else:
         attend = reference_attention_rel_pos
-    out = attend(q, k, v, rel_h.contiguous(), rel_w.contiguous(), size, scale)
-    out = out.reshape(B, num_heads, S, hd).transpose(1, 2).reshape(B, S, D)
-    out = out @ p_attn["proj_w"].to(dt) + p_attn["proj_b"].to(dt)
-    return out.reshape(B, size, size, out.shape[-1])
+    out = attend(q, k, v, rel_h, rel_w, size, scale)
+    return sam_glue.merge_heads(out, B) @ p_attn["proj_w"].to(dt)
+
+
+def _attention(p_attn, x: torch.Tensor, num_heads: int, size: int) -> torch.Tensor:
+    """Windowed/global attention over [B, size, size, D] tiles with rel-pos."""
+    out = _attention_product(p_attn, x, num_heads, size) + p_attn["proj_b"].to(x.dtype)
+    return out.reshape(x.shape[0], size, size, out.shape[-1])
 
 
 def prepare_sam_params(sam_params, cfg: SamConfig):
@@ -115,27 +114,6 @@ def prepare_sam_params(sam_params, cfg: SamConfig):
     return out
 
 
-def window_partition(x: torch.Tensor, window: int):
-    """[B, H, W, C] -> [B*nW, win, win, C] with zero padding (image_encoder.py:243-264)."""
-    B, H, W, C = x.shape
-    pad_h = (window - H % window) % window
-    pad_w = (window - W % window) % window
-    x = F.pad(x, (0, 0, 0, pad_w, 0, pad_h))
-    Hp, Wp = H + pad_h, W + pad_w
-    x = x.reshape(B, Hp // window, window, Wp // window, window, C)
-    return x.permute(0, 1, 3, 2, 4, 5).reshape(-1, window, window, C), (Hp, Wp)
-
-
-def window_unpartition(wins: torch.Tensor, window: int, pad_hw, hw):
-    Hp, Wp = pad_hw
-    H, W = hw
-    C = wins.shape[-1]
-    B = wins.shape[0] // ((Hp // window) * (Wp // window))
-    x = wins.reshape(B, Hp // window, Wp // window, window, window, C)
-    x = x.permute(0, 1, 3, 2, 4, 5).reshape(B, Hp, Wp, C)
-    return x[:, :H, :W, :]
-
-
 def _mlp(p, x):
     dt = x.dtype
     h = x @ p["mlp_fc"]["w"].to(dt) + p["mlp_fc"]["b"].to(dt)
@@ -143,19 +121,23 @@ def _mlp(p, x):
     return h @ p["mlp_proj"]["w"].to(dt) + p["mlp_proj"]["b"].to(dt)
 
 
-def encoder_block(p, x: torch.Tensor, cfg: SamConfig, window: int) -> torch.Tensor:
-    """One ViTDet block; window == 0 means global attention (image_encoder.py:166-182)."""
-    shortcut = x
-    x = _ln(p["ln_1"], x)
-    if window > 0:
-        H, W = x.shape[1], x.shape[2]
-        wins, pad_hw = window_partition(x, window)
-        wins = _attention(p["attn"], wins, cfg.encoder_heads, window)
-        x = window_unpartition(wins, window, pad_hw, (H, W))
-    else:
-        x = _attention(p["attn"], x, cfg.encoder_heads, x.shape[1])
-    x = shortcut + x
-    return x + _mlp(p, _ln(p["ln_2"], x))
+def encoder_block(p, x: torch.Tensor, ln_x: torch.Tensor, cfg: SamConfig, window: int, next_ln=None,
+                  next_window: int = 0):
+    """One ViTDet block (image_encoder.py:166-182); window == 0 means global
+    attention. ``x`` is the residual stream [N, H, W, D] and ``ln_x`` its
+    ln_1, in the layout of windows of ``window`` (the grid where 0). Returns
+    the block's output and, given the next block's ln_1 params ``next_ln``,
+    its LayerNorm in the layout of windows of ``next_window`` (else None)."""
+    dt = x.dtype
+    y = _attention_product(p["attn"], ln_x, cfg.encoder_heads, window or x.shape[1])
+    x, h = sam_glue.residual_layer_norm(x, y, p["attn"]["proj_b"].to(dt), p["ln_2"]["scale"], p["ln_2"]["bias"],
+                                        window, 0)
+    h = sam_glue.bias_gelu(h @ p["mlp_fc"]["w"].to(dt), p["mlp_fc"]["b"].to(dt))
+    y = h @ p["mlp_proj"]["w"].to(dt)
+    if next_ln is None:
+        return sam_glue.residual_add(x, y, p["mlp_proj"]["b"].to(dt)), None
+    return sam_glue.residual_layer_norm(x, y, p["mlp_proj"]["b"].to(dt), next_ln["scale"], next_ln["bias"], 0,
+                                        next_window)
 
 
 def _conv_nhwc(x: torch.Tensor, w_hwio: torch.Tensor, stride: int, padding: int) -> torch.Tensor:
@@ -192,7 +174,11 @@ def encode_image(p, images: torch.Tensor, cfg: SamConfig) -> torch.Tensor:
     """images: [N, img, img, 3] preprocessed -> [N, g, g, prompt_dim] at the
     param dtype (bf16 params select bf16 serving, as in the reference)."""
     x = embed_patches(p, images, cfg)
-    for i, bp in enumerate(p["blocks"]):
-        window = 0 if i in cfg.encoder_global_idx else cfg.window_size
-        x = encoder_block(bp, x, cfg, window)
+    blocks = p["blocks"]
+    windows = [0 if i in cfg.encoder_global_idx else cfg.window_size for i in range(len(blocks))]
+    ln_x = sam_glue.layer_norm(x, blocks[0]["ln_1"]["scale"], blocks[0]["ln_1"]["bias"], windows[0])
+    for i, bp in enumerate(blocks):
+        nxt = i + 1 < len(blocks)
+        x, ln_x = encoder_block(bp, x, ln_x, cfg, windows[i], blocks[i + 1]["ln_1"] if nxt else None,
+                                windows[i + 1] if nxt else 0)
     return neck(p, x)

@@ -25,15 +25,8 @@ from __future__ import annotations
 import torch
 
 from ..core.config import SamConfig
-from ..models.sam.image_encoder import (
-    _attention,
-    _ln,
-    _mlp,
-    embed_patches,
-    neck,
-    window_partition,
-    window_unpartition,
-)
+from ..kernels.sam_glue import window_partition, window_unpartition
+from ..models.sam.image_encoder import _attention, _ln, _mlp, embed_patches, neck
 from .mesh import ProcessMesh
 
 

@@ -32,7 +32,12 @@ counted against the CUDA cores' f32 rate (no PyTorch call computes greedy
 NMS). The port's fused glue of the CLIP block (``csrc/clip_glue.cu``; XLA
 fuses it in the reference) is timed at ViT-B/16's trunk at proposal
 buckets 32 and 64, its bound by bytes, and checked at the main path's
-other rows (bucket 8, GEM, the text tower). GEM's attention
+other rows (bucket 8, GEM, the text tower). The port's fused glue of the
+SAM encoder block (``csrc/sam_glue.cu``; XLA fuses it in the reference) is
+timed at ViT-H's windowed and global blocks of one image (25 windows of
+196 x 1280 from a 64 -> 70 pad, the 4096 x 1280 grid, the 4096 x 5120
+hidden state) and checked at five images, its bound by bytes (the rel-pos
+products of its qkv kernel against the CUDA cores' f32 rate). GEM's attention
 (``csrc/gem_attention.cu``; plain XLA in the reference) is timed at GEM's 785
 and 1,025 tokens beside its plain version and beside the same function
 from library calls (two ``scaled_dot_product_attention`` calls, the unit
@@ -77,7 +82,7 @@ import sys
 
 import torch
 
-from ..kernels import GLUE
+from ..kernels import GLUE, SAM_GLUE
 from ..utils.flops import PEAK_FLOPS_BY_DEVICE
 
 # name -> (CUDA source of the kernel the main path launches, the TPU kernel it replaces)
@@ -99,6 +104,9 @@ KERNELS = {
     # the port's own: the CLIP block's glue, which XLA fuses in the reference
     **{name: ("hybridgl_tpu_torch/csrc/clip_glue.cu", "none: XLA's fusions in hybridgl_tpu/models/clip/layers.py")
        for name in GLUE},
+    # the port's own: the SAM encoder block's glue, which XLA fuses in the reference
+    **{name: ("hybridgl_tpu_torch/csrc/sam_glue.cu", "none: XLA's fusions in hybridgl_tpu/models/sam/image_encoder.py")
+       for name in SAM_GLUE},
 }
 # the glue's operands: x and the GEMM outputs (esize each), the LayerNorm params (pe), the
 # bias of width D (or F, 3D); (reads, writes) of [T, D] rows, and the ops a value
@@ -112,7 +120,7 @@ PEAK_BF16_FLOPS = PEAK_FLOPS_BY_DEVICE["NVIDIA H100"]
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 # kernels whose operations run in f32 on the CUDA cores (their bound uses PEAK_F32_FLOPS)
-CUDA_CORE_F32 = ("nms",)
+CUDA_CORE_F32 = ("nms", "sam_qkv_heads")
 
 
 def g2l_launches(vision_layers: int, masking_block: int) -> dict:
@@ -212,6 +220,26 @@ def kernel_work(name: str, **d) -> tuple[int, int]:
     if name == "bias_quick_gelu":  # [T, F] in and out, the bias; ~6 operations a value
         T, F, e = d["T"], d["F"], d.get("esize", 2)
         return 6 * T * F, 2 * T * F * e + F * e
+    if name in ("sam_layer_norm", "sam_residual_layer_norm", "sam_residual_add"):
+        # T grid rows of D in (x, and y where there is a residual), x' out; the LayerNorm's To rows out
+        # (the window layout's, pad rows included) and its params (pe); the bias once
+        T, D, e = d["T"], d["D"], d.get("esize", 2)
+        res = name != "sam_layer_norm"
+        ln_rows = d.get("To", T) if name != "sam_residual_add" else 0
+        ops = T * D * (2 * res + 8 * (name != "sam_residual_add"))
+        params = 2 * D * d.get("pe", 2) if ln_rows else 0
+        return ops, (1 + 2 * res) * T * D * e + ln_rows * D * e + params + res * D * e
+    if name == "sam_qkv_heads":  # [B, S, 3D] in, its bias; q, k, v out; the f32 tables and rel terms
+        B, S, D, H, G, e = d["B"], d["S"], d["D"], d["H"], d["G"], d.get("esize", 2)
+        hd = D // H
+        rel = 2 * B * H * S * G  # rel_h and rel_w: a dot product of hd (hd FMAs) each
+        return 3 * B * S * D + 2 * rel * hd, 2 * 3 * B * S * D * e + 3 * D * e + 2 * G * G * hd * 4 + rel * 4
+    if name == "sam_merge_heads":  # [B*H, S, hd] in, [B, S, D] out
+        T, D, e = d["T"], d["D"], d.get("esize", 2)
+        return 0, 2 * T * D * e
+    if name == "sam_bias_gelu":  # [T, F] in and out, the bias; ~10 operations a value (erf's polynomial counted as 5)
+        T, F, e = d["T"], d["F"], d.get("esize", 2)
+        return 10 * T * F, 2 * T * F * e + F * e
     if name == "nms":  # ~15 f32 operations an IoU of the upper triangle; boxes, valid, the mask, keep, the count
         N, W = d["N"], -(-d["N"] // 64)
         written = sum(min(64, N - 64 * rb) * (W - rb) for rb in range(W))  # the upper triangle's words
@@ -936,6 +964,101 @@ def _glue(run: _Run):
         torch.cuda.empty_cache()
 
 
+def sam_glue_matches(name: str, index: int, got, want) -> bool:
+    """The SAM glue's bar against its plain version: equal bit for bit, except
+    a LayerNorm's output (:func:`glue_matches`; the second of
+    ``sam_residual_layer_norm``'s) and the qkv kernel's f32 rel-pos terms
+    (its fourth and fifth), dot products summed in another order: within
+    1e-5 of the largest plain term and 1e-5 relative."""
+    if name == "sam_layer_norm" or (name == "sam_residual_layer_norm" and index == 1):
+        return glue_matches("layer_norm", got, want)
+    if name == "sam_qkv_heads" and index >= 3:
+        g, w = got.float(), want.float()
+        bar = 1e-5 * float(w.abs().max()) + 1e-5 * w.abs()
+        return got.dtype == want.dtype and got.shape == want.shape and bool(((g - w).abs() <= bar).all())
+    return got.dtype == want.dtype and got.shape == want.shape and torch.equal(got, want)
+
+
+def _sam_glue_cases(run: _Run, N: int, D: int = 1280, H: int = 16, win: int = 14, grid: int = 64):
+    """(name, label, kernel, plain, kernel_work arguments, library) of each SAM
+    glue operator at a ViT encoder's geometry over N images: the windowed
+    block (N * 25 windows of 196 tokens from the 64 -> 70 pad) and the global
+    block (the 64 x 64 grid), bf16 with bf16 LayerNorm params as the main
+    path runs them."""
+    from ..kernels import sam_glue as sg
+
+    r = lambda *shape, std=1.0: run.randn(*shape, std=std)  # noqa: E731
+    hd, T = D // H, N * grid * grid
+    nw = (-(-grid // win)) ** 2
+    B, S, To = N * nw, win * win, N * nw * win * win
+    x = r(N, grid, grid, D)
+    b, b3, b4 = r(D, std=0.5), r(3 * D, std=0.5), r(4 * D, std=0.5)
+    scale, bias = (1.0 + r(D, std=0.1).float()).to(torch.bfloat16), r(D, std=0.1)
+    tabs = {G: [torch.randn((G, G, hd), generator=run.gen, device=run.dev) * 0.2 for _ in range(2)]
+            for G in (win, grid)}
+    y_win, y_grid, m = r(B, S, D, std=2.0), r(N, grid * grid, D, std=2.0), r(N, grid, grid, D, std=2.0)
+    qkv_win, qkv_grid = r(B, S, 3 * D), r(N, grid * grid, 3 * D)
+    ctx_win, ctx_grid = r(B * H, S, hd), r(N * H, grid * grid, hd)
+    h = r(N, grid, grid, 4 * D, std=3.0)
+    rows = dict(T=T, D=D, esize=2, pe=2)
+    return [
+        ("sam_layer_norm", "ln_1 into 14 x 14 windows", lambda: sg.layer_norm(x, scale, bias, win),
+         lambda: sg.reference_layer_norm(x, scale, bias, win), dict(rows, To=To),
+         lambda: torch.nn.functional.layer_norm(x, (D,), scale, bias, 1e-6)),
+        ("sam_layer_norm", "ln_1 on the grid", lambda: sg.layer_norm(x, scale, bias, 0),
+         lambda: sg.reference_layer_norm(x, scale, bias, 0), None, None),
+        ("sam_qkv_heads", f"{B} windows of {S}", lambda: sg.qkv_heads(qkv_win, b3, *tabs[win], H),
+         lambda: sg.reference_qkv_heads(qkv_win, b3, *tabs[win], H), dict(B=B, S=S, D=D, H=H, G=win), None),
+        ("sam_qkv_heads", f"the {grid} x {grid} grid", lambda: sg.qkv_heads(qkv_grid, b3, *tabs[grid], H),
+         lambda: sg.reference_qkv_heads(qkv_grid, b3, *tabs[grid], H),
+         dict(B=N, S=grid * grid, D=D, H=H, G=grid), None),
+        ("sam_merge_heads", f"{B} windows", lambda: sg.merge_heads(ctx_win, B),
+         lambda: sg.reference_merge_heads(ctx_win, B), dict(T=B * S, D=D), None),
+        ("sam_merge_heads", "the grid", lambda: sg.merge_heads(ctx_grid, N),
+         lambda: sg.reference_merge_heads(ctx_grid, N), dict(T=T, D=D), None),
+        ("sam_residual_layer_norm", "out-projection from windows + ln_2",
+         lambda: sg.residual_layer_norm(x, y_win, b, scale, bias, win, 0),
+         lambda: sg.reference_residual_layer_norm(x, y_win, b, scale, bias, win, 0), rows, None),
+        ("sam_residual_layer_norm", "MLP + the next ln_1 into windows",
+         lambda: sg.residual_layer_norm(x, m, b, scale, bias, 0, win),
+         lambda: sg.reference_residual_layer_norm(x, m, b, scale, bias, 0, win), dict(rows, To=To), None),
+        ("sam_residual_layer_norm", "global out-projection + ln_2",
+         lambda: sg.residual_layer_norm(x, y_grid, b, scale, bias, 0, 0),
+         lambda: sg.reference_residual_layer_norm(x, y_grid, b, scale, bias, 0, 0), None, None),
+        ("sam_residual_add", "the last block's MLP", lambda: sg.residual_add(x, m, b),
+         lambda: sg.reference_residual_add(x, m, b), rows, None),
+        ("sam_bias_gelu", f"[{T}, {4 * D}]", lambda: sg.bias_gelu(h, b4), lambda: sg.reference_bias_gelu(h, b4),
+         dict(T=T, F=4 * D), lambda: torch.nn.functional.gelu(h)),
+    ]
+
+
+def _sam_glue(run: _Run):
+    """The SAM encoder block's fused glue against its plain version (bias
+    adds, residuals, window partition and unpartition, head split, merge and
+    GELU equal bit for bit, LayerNorm within one rounding step, the rel-pos
+    terms within f32 rounding: :func:`sam_glue_matches`), timed at ViT-H's
+    blocks over one image and checked untimed over five (PhraseCut's crop
+    batch). The library yardsticks: one ``F.layer_norm`` (no partition), one
+    ``F.gelu`` (no bias)."""
+    for N, timed in ((1, True), (5, False)):
+        for name, label, kernel, plain, work, library in _sam_glue_cases(run, N):
+            got, want = kernel(), plain()
+            torch.cuda.synchronize()
+            got, want = ([t] if isinstance(t, torch.Tensor) else list(t) for t in (got, want))
+            ok = all(sam_glue_matches(name, i, g, w) for i, (g, w) in enumerate(zip(got, want, strict=True)))
+            err = max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want))
+            moved = sum(int((g != w).sum()) for g, w in zip(got, want))
+            run.verdict(f"{name} ({label}, {N} image{'s' * (N > 1)})", ok,
+                        f"outputs that differ {moved} of {sum(g.numel() for g in got)}, max|d| {err:.3e}")
+            if timed and work is not None:
+                run.record(name, ok, err, kernel, plain, label, work, library=library)
+            else:
+                run.results[name]["ok"] = run.results[name]["ok"] and ok
+                run.results[name]["max_abs_err"] = max(run.results[name]["max_abs_err"], err)
+            del got, want
+        torch.cuda.empty_cache()
+
+
 # what run_checks reports for each kernel (library_ms is None where no
 # PyTorch call computes the kernel's function; GEM's is two and their glue)
 RESULT_KEYS = ("ok", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -949,11 +1072,12 @@ _GROUPS = (
     (("nms",), _nms),
     (("gem_attention",), _gem),
     (GLUE, _glue),
+    (SAM_GLUE, _sam_glue),
 )
 
 
 def run_checks(names=None, log=print) -> dict:
-    """Check the named kernels (default: all nineteen) on the card.
+    """Check the named kernels (default: all twenty-five) on the card.
 
     Returns {name: dict of RESULT_KEYS}; raises where no CUDA card is
     present."""

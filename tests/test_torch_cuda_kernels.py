@@ -1126,7 +1126,8 @@ def test_exported_encoder_on_the_card_equals_eager(dev, tmp_path):
     """A two-block bf16 encoder at ViT-H's attention geometry (hd 80, windows
     of 14 on a 64-grid: K1 on the resident tensor-core kernel, K2 on the
     stream kernel) exported on the card, saved and reloaded: equal to the
-    eager port on the card, and every launch of its run on the tensor cores."""
+    eager port on the card, every attention launch of its run on the tensor
+    cores, and the SAM glue around the two blocks launched once a node."""
     from hybridgl_tpu_torch.core.config import PipelineConfig, SamConfig, clip_preset
     from hybridgl_tpu_torch.core.params import cast_tree, init_sam
     from hybridgl_tpu_torch.kernels import launch_counts, reset_launch_counts, tc_launch_counts
@@ -1143,7 +1144,10 @@ def test_exported_encoder_on_the_card_equals_eager(dev, tmp_path):
             blk["attn"][key] = torch.randn(blk["attn"][key].shape, generator=g, device=dev) * 0.2
     image = torch.randn((1, 1024, 1024, 3), generator=g, device=dev)
     program = export_serving.export_encoder(cfg, enc, dev)
-    assert export_serving.kernel_nodes(program) == {"flash_windowed_fused": 1, "flash_attention_fused": 1}
+    attention = {"flash_windowed_fused": 1, "flash_attention_fused": 1}
+    nodes = dict(attention, sam_layer_norm=1, sam_qkv_heads=2, sam_merge_heads=2, sam_residual_layer_norm=3,
+                 sam_residual_add=1, sam_bias_gelu=2)
+    assert export_serving.kernel_nodes(program) == nodes
     path = tmp_path / "sam_encoder.pt2"
     torch.export.save(program, path)
     loaded = export_serving.load_exported(path).module()
@@ -1152,9 +1156,8 @@ def test_exported_encoder_on_the_card_equals_eager(dev, tmp_path):
         reset_launch_counts()
         got = loaded(enc, image)
     torch.cuda.synchronize()
-    counts = {k: v for k, v in launch_counts().items() if v}
-    assert counts == {k: v for k, v in tc_launch_counts().items() if v} == {
-        "flash_windowed_fused": 1, "flash_attention_fused": 1}
+    assert {k: v for k, v in launch_counts().items() if v} == nodes
+    assert {k: v for k, v in tc_launch_counts().items() if v} == attention
     assert torch.equal(got, want) and torch.isfinite(got.float()).all()
 
 

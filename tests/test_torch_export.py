@@ -92,12 +92,16 @@ def eager(name, cfg):
 # the local stream's blocks and the global stream's last (3).
 FUSION_NODES = {"clip_attention": 5, "qkv_heads": 5, "merge_heads": 5, "bias_quick_gelu": 5, "layer_norm": 4,
                 "residual_layer_norm": 7, "inject_layer_norm": 2, "residual_add": 3}
+# the encoder's two blocks, one windowed (K1) and one global (K2), with the SAM glue around them: block 0's
+# ln_1 alone; a block's qkv heads, merge, out-projection residual + ln_2 and bias + GELU; block 0's MLP
+# residual with block 1's ln_1, block 1's alone
+ENCODER_NODES = {"flash_windowed_fused": 1, "flash_attention_fused": 1, "sam_layer_norm": 1, "sam_qkv_heads": 2,
+                 "sam_merge_heads": 2, "sam_residual_layer_norm": 3, "sam_residual_add": 1, "sam_bias_gelu": 2}
 
 
-@pytest.mark.parametrize("name,nodes", [("sam_encoder", {"flash_windowed_fused": 1, "flash_attention_fused": 1}),
-                                        ("hybrid_fusion", FUSION_NODES)])
+@pytest.mark.parametrize("name,nodes", [("sam_encoder", ENCODER_NODES), ("hybrid_fusion", FUSION_NODES)])
 def test_graph_holds_the_kernel_operators(exported, name, nodes):
-    """Encoder: one windowed and one global block; the fusion: ``FUSION_NODES``."""
+    """Encoder: one windowed and one global block (``ENCODER_NODES``); the fusion: ``FUSION_NODES``."""
     _, _, _, programs, _ = exported
     assert export_serving.kernel_nodes(programs[name]) == nodes
     targets = {str(n.target) for n in programs[name].graph.nodes if n.op == "call_function"}
@@ -135,7 +139,7 @@ def test_fresh_process_loads_with_only_the_port(exported, tmp_path):
 import torch
 from hybridgl_tpu_torch.tools.export_serving import kernel_nodes, load_exported
 enc, fus = load_exported({paths["sam_encoder"]!r}), load_exported({paths["hybrid_fusion"]!r})
-assert kernel_nodes(enc) == {{"flash_windowed_fused": 1, "flash_attention_fused": 1}}, kernel_nodes(enc)
+assert kernel_nodes(enc) == {ENCODER_NODES!r}, kernel_nodes(enc)
 assert kernel_nodes(fus) == {FUSION_NODES!r}, kernel_nodes(fus)
 torch.save(fus.module()(*torch.load({str(tmp_path / "args.pt")!r})), {str(tmp_path / "out.pt")!r})
 assert not {{"jax", "jaxlib", "hybridgl_tpu"}} & set(sys.modules)

@@ -179,6 +179,8 @@ def test_kernel_work_covers_every_kernel():
     from hybridgl_tpu_torch.kernels import GLUE
     from hybridgl_tpu_torch.tools.check_kernels import KERNELS, kernel_work
 
+    vit_h = dict(T=4096, D=1280, esize=2)  # one image's 64 x 64 grid
+
     shapes = {
         "flash_windowed_fused": dict(BH=400, S=196, hd=80, G=14, esize=2),
         "flash_attention_fused": dict(BH=16, S=4096, hd=80, G=64, esize=2),
@@ -194,10 +196,17 @@ def test_kernel_work_covers_every_kernel():
         **{name: dict(T=64 * 197, D=768, esize=2) for name in GLUE},
         "bias_quick_gelu": dict(T=64 * 197, F=3072, esize=2),
         "gem_attention": dict(BH=16, S=1025, hd=64, esize=2, ensemble=True, iters=1),
+        "sam_layer_norm": dict(vit_h, To=4900),
+        "sam_qkv_heads": dict(B=25, S=196, D=1280, H=16, G=14),
+        "sam_merge_heads": dict(T=4900, D=1280),
+        "sam_residual_layer_norm": dict(vit_h, To=4900),
+        "sam_residual_add": vit_h,
+        "sam_bias_gelu": dict(T=4096, F=5120),
     }
     assert set(shapes) == set(KERNELS)
     work = {name: kernel_work(name, **shape) for name, shape in shapes.items()}
-    assert all(ops > 0 and nbytes > 0 for name, (ops, nbytes) in work.items() if name != "merge_heads")
+    assert all(ops > 0 and nbytes > 0 for name, (ops, nbytes) in work.items()
+               if name not in ("merge_heads", "sam_merge_heads"))
     # the glue moves bytes: a block's at bucket 32, ~0.47 GB (twice the rows of
     # D through the two residual + LayerNorm kernels, three times the rows of
     # D in and out of the head split, once in and out of the merge, four
@@ -205,6 +214,11 @@ def test_kernel_work_covers_every_kernel():
     block = sum(work[k][1] for k in ("qkv_heads", "merge_heads", "bias_quick_gelu")) + 2 * work["residual_layer_norm"][1]
     assert 0.46e9 < block < 0.47e9
     assert work["flash_attention_rel_pos"] == work["flash_attention_fused"]
+    # the SAM glue moves bytes too: a windowed ViT-H block's ~281 MB of one image (the qkv product in and
+    # the heads out, 75 MB, with the f32 rel terms, 8.8 MB; the merge in the padded layout, 25 MB; two
+    # residuals and LayerNorms, 44 MB each; the 4096 x 5120 GELU in and out, 84 MB)
+    sam = ("sam_qkv_heads", "sam_merge_heads", "sam_residual_layer_norm", "sam_residual_layer_norm", "sam_bias_gelu")
+    assert 0.28e9 < sum(work[k][1] for k in sam) < 0.285e9
     # K3 pass B: four [S, 64] x [64 or 256, 256] products per prompt, ~34 GFLOP;
     # the per-prompt keys in and out (268 MB) dominate its 285 MB
     assert work["i2t_ln_then_t2i"][0] == 2 * 64 * 4096 * 64 * (256 + 3 * 256)

@@ -364,14 +364,21 @@ def test_k6_variant(dtype, L, hd, kind):
 
 
 def test_tensor_core_launch_counts_reset_with_the_others():
-    from hybridgl_tpu_torch.kernels import GLUE, kernel_wrappers, launch_counts, reset_launch_counts, tc_launch_counts
+    from hybridgl_tpu_torch.kernels import (
+        GLUE,
+        SAM_GLUE,
+        kernel_wrappers,
+        launch_counts,
+        reset_launch_counts,
+        tc_launch_counts,
+    )
 
     wrappers = kernel_wrappers()
     # every wrapper of a TPU kernel, and GEM's attention, has a tensor-core kernel behind it (K1, K2
     # and K9 count theirs since the tensor-parallel encoder checks that its head shards still take it);
-    # the port's own NMS kernel and the CLIP block's fused glue run on the CUDA cores and count their
-    # launches only
-    assert set(tc_launch_counts()) == set(wrappers) - {"nms", *GLUE} and len(wrappers) == 19
+    # the port's own NMS kernel and the CLIP and SAM blocks' fused glue run on the CUDA cores and count
+    # their launches only
+    assert set(tc_launch_counts()) == set(wrappers) - {"nms", *GLUE, *SAM_GLUE} and len(wrappers) == 25
     assert launch_counts()["nms"] == 0
     wrappers["pass1_stats_half"].launches = wrappers["pass1_stats_half"].tc_launches = 3
     wrappers["layer_norm"].launches = 2

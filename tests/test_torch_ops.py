@@ -1,5 +1,5 @@
-"""The ten kernels, the port's NMS kernel, the CLIP block's fused glue and
-GEM's attention as registered PyTorch operators,
+"""The ten kernels, the port's NMS kernel, the CLIP and SAM blocks' fused glue
+and GEM's attention as registered PyTorch operators,
 ``torch.ops.hybridgl.*`` (``hybridgl_tpu_torch/kernels/_ops.py``), on the CPU: for each operator
 ``torch.library.opcheck`` (``test_schema``: the schema's aliasing and
 mutation claims hold; ``test_faketensor``: the fake implementation gives the
@@ -8,8 +8,8 @@ real outputs' shapes, strides and dtypes; ``test_autograd_registration``;
 symbolic shapes, where its fake implementation can take them), the operator
 equal bit for bit to its plain version and to its public wrapper, and the
 fake outputs' shapes and dtypes against the real ones. Small shapes, inputs
-from a numpy seed; the five attention operators and the seven glue operators
-also in bf16 (pass 1 runs in its bf16 stats dtype).
+from a numpy seed; the five attention operators and the thirteen glue
+operators also in bf16 (pass 1 runs in its bf16 stats dtype).
 """
 
 import numpy as np
@@ -17,7 +17,7 @@ import pytest
 import torch
 from torch._subclasses.fake_tensor import FakeTensorMode
 
-from hybridgl_tpu_torch.kernels import GLUE, clip_glue, kernel_wrappers
+from hybridgl_tpu_torch.kernels import GLUE, SAM_GLUE, clip_glue, kernel_wrappers, sam_glue
 from hybridgl_tpu_torch.kernels.clip_attention import clip_attention, reference_clip_attention
 from hybridgl_tpu_torch.kernels.decoder_attn import i2t_ln_update, reference_i2t_ln_update
 from hybridgl_tpu_torch.kernels.decoder_attn_t2i import reference_t2i_ctx, t2i_ctx
@@ -41,7 +41,7 @@ from hybridgl_tpu_torch.kernels.upscale_hyper import reference_upscale_hyper, up
 OPS = torch.ops.hybridgl
 NAMES = ["flash_windowed_fused", "flash_attention_fused", "flash_attention_rel_pos", "clip_attention",
          "pass1_stats_half", "pass1_stats", "i2t_ln_then_t2i", "i2t_ln_update", "t2i_ctx", "upscale_hyper_blocked",
-         "nms", "gem_attention", *GLUE]
+         "nms", "gem_attention", *GLUE, *SAM_GLUE]
 # K4's fake output side is isqrt(g * g): a symbolic size has no integer square root
 NOT_SYMBOLIC = {"upscale_hyper_blocked"}
 WINDOW = torch.tensor([2.0, 3.0, 10.0, 12.0])  # the operators take the window as a [4] f32 tensor
@@ -109,6 +109,8 @@ def case(name, dtype=torch.float32, seed=0):
         return args, lambda: reference_i2t_ln_then_t2i(*args), lambda: i2t_ln_then_t2i(*args)
     if name in GLUE:
         return glue_case(name, rng, dtype)
+    if name in SAM_GLUE:
+        return sam_glue_case(name, rng, dtype)
     if name == "nms":  # boxes in descending-score order, the padding last: the wrapper's sort is the identity
         xy = rng.random((40, 2)).astype(np.float32) * 40
         boxes = torch.from_numpy(np.concatenate([xy, xy + 4 + rng.random((40, 2)).astype(np.float32) * 20], 1))
@@ -143,6 +145,24 @@ def glue_case(name, rng, dtype, N=2, L=5, D=16, H=2):
             lambda: getattr(clip_glue, name)(*args))
 
 
+def sam_glue_case(name, rng, dtype, N=2, grid=5, window=2, D=16, H=2):
+    """A SAM glue operator's arguments, plain version and wrapper: the [N, grid, grid, D]
+    token grid padded to windows of 2, LayerNorm params and biases in the activation dtype."""
+    x = _t(rng, N, grid, grid, D, dtype=dtype)
+    b, scale, bias = _t(rng, D, dtype=dtype), (1.0 + _t(rng, D, std=0.1)).to(dtype), _t(rng, D, std=0.1, dtype=dtype)
+    wins = N * (-(-grid // window)) ** 2
+    args = {"sam_layer_norm": (x, scale, bias, window, 1e-6),
+            "sam_qkv_heads": (_t(rng, wins, window * window, 3 * D, dtype=dtype), _t(rng, 3 * D, dtype=dtype),
+                              _t(rng, window, window, D // H), _t(rng, window, window, D // H), H),
+            "sam_merge_heads": (_t(rng, wins * H, window * window, D // H, dtype=dtype), wins),
+            "sam_residual_layer_norm": (x, _t(rng, wins, window * window, D, dtype=dtype), b, scale, bias, window,
+                                        window, 1e-6),
+            "sam_residual_add": (x, _t(rng, N, grid, grid, D, dtype=dtype), b),
+            "sam_bias_gelu": (_t(rng, N, grid, grid, 4 * D, dtype=dtype, std=2.0), _t(rng, 4 * D, dtype=dtype))}[name]
+    short = name.removeprefix("sam_")
+    return (args, lambda: getattr(sam_glue, f"reference_{short}")(*args), lambda: getattr(sam_glue, short)(*args))
+
+
 def flat(out):
     return [out] if isinstance(out, torch.Tensor) else list(out)
 
@@ -153,9 +173,9 @@ def pass1_outputs(stab, flags):
 
 
 def test_the_ten_operators_are_registered_under_the_reference_names():
-    # the ten TPU kernels' operators, the port's own NMS kernel's, GEM's attention and the seven of the CLIP
-    # block's glue
-    assert set(NAMES) == set(kernel_wrappers()) and len(NAMES) == 19
+    # the ten TPU kernels' operators, the port's own NMS kernel's, GEM's attention, the seven of the CLIP
+    # block's glue and the six of the SAM encoder block's
+    assert set(NAMES) == set(kernel_wrappers()) and len(NAMES) == 25
     for name in NAMES:
         assert getattr(OPS, name).default.name() == f"hybridgl::{name}"
 
@@ -171,7 +191,7 @@ def test_opcheck(name):
 
 
 @pytest.mark.parametrize("name,dtype", [(n, torch.float32) for n in NAMES] + [
-    (n, torch.bfloat16) for n in NAMES[:4] + ["gem_attention", *GLUE]])
+    (n, torch.bfloat16) for n in NAMES[:4] + ["gem_attention", *GLUE, *SAM_GLUE]])
 def test_operator_equals_its_plain_version_and_its_wrapper(name, dtype):
     args, plain, wrapper = case(name, dtype)
     got = flat(getattr(OPS, name)(*args))
