@@ -9,7 +9,10 @@ seeded weights, and reads the program's outputs only to judge them.
   at the row's grid point whose mask overlaps the row's mask most, and held
   against it: ``iou_pred_err`` (the predicted IoU), ``mask_err`` (1 - the
   masks' IoU), ``stab_err`` (the stability score), each the mean over the
-  rows;
+  rows. Where overlaps tie, as they do at 0 for a mask of a pixel or two
+  whose own channel in the reference is empty or elsewhere, the candidate
+  nearest the row's mask in area is its match; ``tie_rows`` counts the rows
+  where that is not the first of the tied candidates;
 * the feature stage, on the proposal masks the stage was handed: ``feat_err``,
   the mean relative error of the live proposals' G2L features (a single
   feature of a tiny mask is ill-conditioned: its worst swings), and
@@ -47,10 +50,12 @@ from benchref.tokenizer import tokenize
 MISSING = 10.0
 ROWS = 8  # the proposal stage's rows judged an image, in its order
 # every number the comparison reads; the limits file of a cell holds those it compares
-# numbers taken as the mean over all their readings in the checked images (the others: the worst)
+# numbers taken as the mean over all their readings in the checked images, those summed over the images;
+# the others: the worst
 MEAN_NUMBERS = ("iou_pred_err", "mask_err", "stab_err", "feat_err", "score_err")
+SUM_NUMBERS = ("tie_rows",)
 NUMBERS = ("iou_pred_err", "mask_err", "stab_err", "feat_err", "gem_err", "score_err", "pure_gap", "final_gap",
-           "pure_pick", "final_topk", "iou_exact")
+           "pure_pick", "final_topk", "iou_exact", "tie_rows")
 
 
 @dataclass
@@ -113,13 +118,13 @@ def top_k1(score: torch.Tensor, k1: int) -> list:
 
 
 class Reference:
-    """The float32 reference of one configuration: SAM, CLIP and the settings."""
+    """The float32 reference of one configuration: the proposal model, CLIP and the settings."""
 
     def __init__(self, sam, clip, cfg: dict, settings):
         self.sam, self.clip, self.cfg, self.settings = sam, clip, cfg, settings
         from benchlib.config import amg_settings
 
-        self.amg = ReferenceAMG(sam, settings.sam, amg_settings(cfg))
+        self.amg = ReferenceAMG(sam, settings.sam, amg_settings(cfg), settings.family)
         self.device = next(clip.parameters()).device
 
     def image(self, sample):
@@ -148,7 +153,7 @@ class Reference:
     def proposals(self, sample):
         """The reference's AMG on the sample (call it inside ``benchref.quant.fp8`` for
         the control's): (its rows before the cleanup as ``Rows``, the cleaned survivors' masks)."""
-        res = self.amg.run(self.image(sample).cpu().numpy(), sample.image_1024)
+        res = self.amg.run(self.image(sample).cpu().numpy(), frame_of(sample))
         kept = res.kept[:ROWS]
         pts = [res.crops[c].points[j // 3] + np.array(res.crops[c].box[:2]) for c, j in kept]
         rows = Rows(np.array(pts, np.float64).reshape(-1, 2),
@@ -173,6 +178,11 @@ class Reference:
         return ImageOut(rows, live_masks, live_boxes, feats, gem, sents, (acc_in, acc), k)
 
 
+def frame_of(sample) -> tuple:
+    """The sample's frame of the proposal model, as the program is handed it: (frame, rh, rw)."""
+    return sample.image_1024, sample.rh, sample.rw
+
+
 def pick_iu(mask: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
     """(I, U, IoU) of one mask against the ground truth in float32, as the accumulators take them."""
     i = (mask & gt).sum().float()
@@ -184,24 +194,27 @@ def pick_iu(mask: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
 def proposal_gaps(ref: Reference, sample, rows: Rows) -> dict:
     """Each row against the reference's candidate of its own crop and mask
     channel: of the candidates at the row's grid point (every crop whose grid
-    holds it), the one whose mask overlaps the row's mask most."""
+    holds it), the one whose mask overlaps the row's mask most; of candidates
+    that overlap it alike, the one nearest it in area, then the first."""
     image = ref.image(sample).cpu().numpy()
-    out = {"iou_pred_err": [], "mask_err": [], "stab_err": []}
+    out = {"iou_pred_err": [], "mask_err": [], "stab_err": [], "tie_rows": 0.0}
     ref.amg.forget()
     for pt, iou, stab, mask in zip(rows.points, rows.iou, rows.stability, rows.masks):
-        best = None
-        for _, ious, stabs, masks in ref.amg.point_candidates(image, sample.image_1024, pt):
+        cands = []  # (overlap, -area gap, iou, stability) of every candidate, in order
+        area = float(mask.sum())
+        for _, ious, stabs, masks in ref.amg.point_candidates(image, frame_of(sample), pt):
             inter = (masks & mask).flatten(1).sum(1).float()
             union = (masks | mask).flatten(1).sum(1).float()
             overlap = torch.where(union > 0, inter / union.clamp_min(1), 1.0)
-            ch = int(torch.argmax(overlap))
-            if best is None or float(overlap[ch]) > best[0]:
-                best = (float(overlap[ch]), float(ious[ch]), float(stabs[ch]))
-        if best is None:  # no crop's grid holds the row's point
-            best = (1.0 - MISSING, float(iou) + MISSING, float(stab) + MISSING)
+            gap = (masks.flatten(1).sum(1).float() - area).abs()
+            cands += [(float(o), -float(g), float(i), float(s)) for o, g, i, s in zip(overlap, gap, ious, stabs)]
+        if not cands:  # no crop's grid holds the row's point
+            cands = [(1.0 - MISSING, 0.0, float(iou) + MISSING, float(stab) + MISSING)]
+        best = max(cands, key=lambda c: c[:2])  # the first of the highest
+        out["tie_rows"] += float(max(cands, key=lambda c: c[0]) is not best)  # the area decided
         out["mask_err"].append(1.0 - best[0])
-        out["iou_pred_err"].append(abs(best[1] - float(iou)))
-        out["stab_err"].append(abs(best[2] - float(stab)))
+        out["iou_pred_err"].append(abs(best[2] - float(iou)))
+        out["stab_err"].append(abs(best[3] - float(stab)))
     ref.amg.forget()
     return out
 
@@ -262,10 +275,13 @@ def judge(ref: Reference, sample, out: ImageOut, expected_k: tuple) -> dict:
 
 def reduce(per_image: dict) -> dict:
     """The run's numbers from its checked images' readings: the mean of all
-    readings for ``MEAN_NUMBERS``, the worst for the others."""
+    readings for ``MEAN_NUMBERS``, the sum for ``SUM_NUMBERS``, the worst for
+    the others."""
     out = {}
     for k in NUMBERS:
-        if k in MEAN_NUMBERS:
+        if k in SUM_NUMBERS:
+            out[k] = float(sum(n.get(k, 0.0) for n in per_image.values()))
+        elif k in MEAN_NUMBERS:
             vals = [v for n in per_image.values() for v in n.get(k, [])]
             out[k] = float(np.mean(vals)) if vals else 0.0
         else:

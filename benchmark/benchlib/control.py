@@ -29,11 +29,11 @@ def control_numbers(workload: str, seed: int, device="cuda", bench=None, cfg=Non
     w, conf = cell(bench, workload)
     cfg = cfg or load_json(conf["file"])
     mix = mix or traffic(w["traffic"])
-    settings = model_settings(cfg)
+    settings = model_settings(cfg, conf["file"])
     dev = torch.device(device)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    stream = Stream(mix, cfg, seed)
+    stream = Stream(mix, cfg, seed, settings)
     sam, clip = reference_models(cfg, settings, seed, dev)
     ref = check.Reference(sam, clip, cfg, settings)
     stamp = Stamp(stream.sizes, cfg["canonical_size"], mix["stamp_pool"], len(stream), dev, seed) \

@@ -33,7 +33,7 @@ from .config import ROOT, benchmark_file, cell, load_json, model_settings, port_
 from .flops import pipeline_flops_per_image
 from .stamp import Stamp
 from .traffic import Stream
-from .weights import cast, clip_tree, sam_tree, seeded_model
+from .weights import cast, clip_tree, seeded_model
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "hybridgl_tpu")
 LAST = {}  # the last run's numbers by checked image, for the readings tool
@@ -48,12 +48,11 @@ def forbidden_modules() -> list:
 
 
 def reference_models(cfg: dict, settings, seed: int, device):
-    """The seeded float32 SAM and CLIP (one generator, SAM drawn first)."""
+    """The seeded float32 proposal model (its family's) and CLIP: one generator, the proposal model drawn first."""
     from benchref.clip import CLIP
-    from benchref.sam import SAM
 
     gen = torch.Generator(device=device).manual_seed(seed)
-    sam = seeded_model(SAM, settings.sam, gen, device)
+    sam = settings.family.reference_model(settings.sam, gen, device)
     clip = seeded_model(CLIP, settings.clip, gen, device)
     return sam, clip
 
@@ -199,7 +198,7 @@ def run(workload: str, seed: int, seconds: float, traced: bool, t_start: float, 
     cfg = cfg or load_json(conf["file"])
     mix = mix or traffic(w["traffic"])
     lims = lims if lims is not None else limits(workload)
-    settings = model_settings(cfg)
+    settings = model_settings(cfg, conf["file"])
     dev = torch.device(device)
     cuda = dev.type == "cuda"
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -219,18 +218,19 @@ def run(workload: str, seed: int, seconds: float, traced: bool, t_start: float, 
     with torch.no_grad():
         sam_ref, clip_ref = reference_models(cfg, settings, seed, dev)
         dtype = torch.bfloat16 if cfg["compute_dtype"] == "bfloat16" else torch.float32
-        sam_params, clip_params = cast(sam_tree(sam_ref), dtype), cast(clip_tree(clip_ref), dtype)
+        sam_params = cast(settings.family.program_tree(sam_ref), dtype)
+        clip_params = cast(clip_tree(clip_ref), dtype)
         del sam_ref, clip_ref
     if cuda:
         torch.cuda.synchronize()
     phases["weights"], t = time.perf_counter() - t, time.perf_counter()
-    stream = Stream(mix, cfg, seed)
+    stream = Stream(mix, cfg, seed, settings)
     phases["samples"], t = time.perf_counter() - t, time.perf_counter()
     from hybridgl_tpu_torch.lang import HeuristicParser
     from hybridgl_tpu_torch.models.clip.tokenizer import default_tokenizer
     from hybridgl_tpu_torch.pipeline.runner import HybridGLPipeline
 
-    pipe = HybridGLPipeline(port_config(cfg), sam_params, clip_params,
+    pipe = HybridGLPipeline(port_config(cfg, settings), sam_params, clip_params,
                             HeuristicParser(rela_right_bug=cfg["compat"]["rela_right_bug"]), default_tokenizer(),
                             device=dev)
     del sam_params, clip_params
@@ -428,7 +428,7 @@ def _traced_tail(inst: Instrument, stream, settings, cfg, mix, start: int) -> di
     launches = []
     for kind, pos, what in inst.launched:
         if kind == "proposal":
-            launches += kernels.proposal_launches(settings, _windows(settings, *what))
+            launches += settings.family.proposal_launches(settings, _windows(settings, *what))
         else:
             launches += kernels.feature_launches(settings, what)
     own = [e for e in items if e["cat"] == "kernel" and trace.own_kernel(e["name"])]

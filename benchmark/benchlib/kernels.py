@@ -6,14 +6,13 @@ launches one image makes at a configuration's shapes.
 count 2, every input byte read once and every output byte written once;
 the bound is the larger of operations over the peak rate and bytes over the
 memory rate). The peaks are the H100 SXM's published dense rates. The
-launches and shapes an image makes (:func:`image_launches`) follow the
-kernel table of ``PERF.md``; where the work depends on the data (the NMS
-sweep's words), the least is counted, so a bound is never too high.
+launches and shapes an image makes follow the kernel table of ``PERF.md``:
+the proposal stage's are its family's (``families/<name>.py:proposal_launches``),
+the feature stage's :func:`feature_launches`; where the work depends on the
+data (the NMS sweep's words), the least is counted, so a bound is never too high.
 """
 
 from __future__ import annotations
-
-import math
 
 PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12
@@ -74,45 +73,6 @@ def bound_ms(operations: int, nbytes: int, peak_flops: float = PEAK_BF16_FLOPS) 
     """The least time the card could take, in ms, and what sets it."""
     by_ops, by_bytes = operations / peak_flops * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
     return (by_ops, "operations") if by_ops >= by_bytes else (by_bytes, "bytes")
-
-
-def _sam_frames(amg) -> list:
-    return [0] if amg.crop_n_layers == 0 else [0, 1, 2, 3, 4]
-
-
-def proposal_launches(settings, windows) -> list:
-    """[(kernel, shapes)] of one image's proposal stage; ``windows`` the
-    (height, width) of each crop's window in the canonical frame (the full
-    image first)."""
-    sam, amg = settings.sam, settings.amg
-    g, ws, d, heads = sam.embed_grid, sam.window_size, sam.encoder_width, sam.encoder_heads
-    hd = d // heads
-    n_win = math.ceil(g / ws) ** 2
-    n_global = len(sam.encoder_global_idx)
-    C, S, B = sam.prompt_dim, g * g, amg.points_per_batch
-    out = []
-    for _ in windows:  # one encoder pass a crop
-        out += [("flash_windowed_fused", dict(BH=n_win * heads, S=ws * ws, hd=hd, G=ws, esize=2))] * (
-            sam.encoder_depth - n_global)
-        out += [("flash_attention_fused", dict(BH=heads, S=S, hd=hd, G=g, esize=2))] * n_global
-    sides = [amg.points_per_side] + [int(amg.points_per_side / amg.crop_n_points_downscale_factor)] * (len(windows) - 1)
-    n_low = 4 * g
-    for (dh, dw), side in zip(windows, sides):
-        chunks = -(-side * side // B)
-        for _ in range(chunks):
-            out.append(("i2t_ln_then_t2i", dict(B=B, S=S, C=C, Cq=C // 2, GT=64, shared=True, esize=2)))
-            out.append(("i2t_ln_then_t2i", dict(B=B, S=S, C=C, Cq=C, GT=64, shared=False, esize=2)))
-            out.append(("upscale_hyper_blocked", dict(B=B, S=S, C=C, c4=C // 4, c8=C // 8, m=3, esize=2)))
-            out.append(("pass1_stats_half", dict(B=B * 3, n=n_low, C=settings.canonical_size, dh=dh, dw=dw,
-                                                 esize=2)))
-        out.append(("nms", dict(N=chunks * B * 3, read_words=chunks * B * 3)))
-    if len(windows) > 1:  # cross-crop NMS and the batched pass-2 re-decode
-        K, P = amg.max_candidates_per_crop, amg.max_proposals
-        out.append(("nms", dict(N=len(windows) * K, read_words=len(windows) * K)))
-        out += [("i2t_ln_update", dict(B=P, S=S, C=C, Cq=C, GT=64))] * 2
-        out += [("t2i_ctx", dict(B=P, S=S, C=C, Cq=C, GT=64))] * 3
-        out.append(("upscale_hyper_blocked", dict(B=P, S=S, C=C, c4=C // 4, c8=C // 8, m=3, esize=2)))
-    return out
 
 
 def feature_launches(settings, bucket: int) -> list:

@@ -1,22 +1,23 @@
 """Referring samples made from the seed: images, ground-truth regions and
 expressions, as the measured program's ``ImageSample`` takes them.
 
-``longest_side_resize``, ``to_padded_frame`` and ``build_image_sample`` are a
-frozen copy of the program's sample builder (``data/datasets.py``), which
-returns the program's own ``ImageSample`` type; the copy returns the same
-fields as a plain tuple of this module, which the harness converts.
+``to_padded_frame`` and ``build_image_sample`` are a frozen copy of the
+program's sample builder (``data/datasets.py``), which returns the program's
+own ``ImageSample`` type; the copy returns the same fields as a plain tuple
+of this module, which the harness converts. The proposal model's frame is its
+family's (``families/<name>.py:frame``).
 """
 
 from __future__ import annotations
 
-from typing import List, NamedTuple, Optional
+from typing import Callable, List, NamedTuple, Optional
 
 import numpy as np
 from PIL import Image
 
 
 class Sample(NamedTuple):
-    image_1024: np.ndarray  # [S, S, 3] uint8, long-side resized + padded
+    image_1024: np.ndarray  # [S, S, 3] uint8, the proposal model's frame (its family's)
     rh: int
     rw: int
     image_canonical: np.ndarray  # [C, C, 3] uint8
@@ -26,13 +27,6 @@ class Sample(NamedTuple):
     sentences: List[str]
 
 
-def longest_side_resize(img: np.ndarray, target: int) -> np.ndarray:
-    h, w = img.shape[:2]
-    scale = target / max(h, w)
-    nh, nw = int(h * scale + 0.5), int(w * scale + 0.5)
-    return np.asarray(Image.fromarray(img).resize((nw, nh), Image.BILINEAR))
-
-
 def to_padded_frame(img: np.ndarray, frame: int) -> np.ndarray:
     out = np.zeros((frame, frame) + img.shape[2:], img.dtype)
     out[: img.shape[0], : img.shape[1]] = img
@@ -40,7 +34,8 @@ def to_padded_frame(img: np.ndarray, frame: int) -> np.ndarray:
 
 
 def build_image_sample(image_rgb: np.ndarray, sentences: List[str], gt_mask: Optional[np.ndarray],
-                       sam_img_size: int, canonical: int) -> Sample:
+                       frame: Callable, canonical: int) -> Sample:
+    """``frame(image) -> (frame [S, S, 3] uint8, rh, rw)``: the proposal model's frame of the image."""
     h, w = image_rgb.shape[:2]
     if max(h, w) > canonical:
         scale = canonical / max(h, w)
@@ -49,9 +44,8 @@ def build_image_sample(image_rgb: np.ndarray, sentences: List[str], gt_mask: Opt
         if gt_mask is not None:
             gt_mask = np.asarray(Image.fromarray(gt_mask.astype(np.uint8) * 255).resize((nw, nh), Image.BILINEAR)) > 127
         h, w = nh, nw
-    resized = longest_side_resize(image_rgb, sam_img_size)
-    rh, rw = resized.shape[:2]
-    return Sample(to_padded_frame(resized, sam_img_size), rh, rw, to_padded_frame(image_rgb, canonical), h, w,
+    framed, rh, rw = frame(image_rgb)
+    return Sample(framed, rh, rw, to_padded_frame(image_rgb, canonical), h, w,
                   to_padded_frame(gt_mask.astype(bool), canonical) if gt_mask is not None else None, sentences)
 
 

@@ -67,7 +67,7 @@ class Stream:
     """The cycle of samples of one cell and seed: ``sample(i)`` for the i-th
     image of the stream, ``specs[i % cycle]`` its spec."""
 
-    def __init__(self, mix: dict, cfg: dict, seed: int):
+    def __init__(self, mix: dict, cfg: dict, seed: int, settings):
         rng = np.random.default_rng(seed)
         n = mix["cycle"]
         self.sizes = image_sizes(cfg["images"])
@@ -87,7 +87,8 @@ class Stream:
             img, gt = scene(rng, h, w, int(rng.integers(lo, hi + 1)))
             sents = [expression(rng, int(others[rng.choice(len(others), p=p / p.sum())][0]))
                      for _ in range(spec.n_expr)]
-            self.samples.append(build_image_sample(img, sents, gt, cfg["sam"]["img_size"], cfg["canonical_size"]))
+            self.samples.append(build_image_sample(img, sents, gt, lambda im: settings.family.frame(settings.sam, im),
+                                                   cfg["canonical_size"]))
         self.stamped = pattern is not None
 
     def __len__(self):

@@ -1,4 +1,4 @@
-"""Seeded weights for SAM and CLIP, made on the device in one draw each.
+"""Seeded weights for the proposal model and CLIP, made on the device in one draw each.
 
 The plain reference models (``benchref``) are built without storage, given
 storage on the device, and filled from one ``torch.randn`` over all their
@@ -8,6 +8,7 @@ and relative-position tables nonzero). The same values go to the measured
 program in its own parameter layout (input-major matrices, HWIO kernels),
 re-laid-out on the device (the layout of ``core/convert.py``) and cast to
 the serving dtype; ``logit_scale`` stays float32, as the program serves it.
+The proposal model's layout is its family's (``families/<name>.py:program_tree``).
 """
 
 from __future__ import annotations
@@ -18,13 +19,12 @@ import torch
 import torch.nn as nn
 
 from benchref.clip import CLIP
-from benchref.sam import SAM, LayerNorm2d
 
 
 def _std(module: nn.Module, pname: str, p: torch.Tensor, names: dict):
     """(mean, std) of one parameter's draw."""
     full = names[id(p)]
-    if isinstance(module, (nn.LayerNorm, LayerNorm2d)):
+    if hasattr(module, "eps"):  # a normalisation layer: nn.LayerNorm, a family's channel LayerNorm
         return (1.0, 0.02) if pname == "weight" else (0.0, 0.02)
     if pname.endswith("bias"):
         return 0.0, 0.02
@@ -109,64 +109,6 @@ def clip_tree(model: CLIP) -> dict:
             "blocks": [_clip_block(sd, f"transformer.resblocks.{i}") for i in range(cfg.text_layers)],
             "ln_final": _ln(sd, "ln_final"), "text_projection": sd["text_projection"]}
     return {"visual": visual, "text": text, "logit_scale": sd["logit_scale"].reshape(())}
-
-
-def _twoway(sd, p):
-    return {k: _lin(sd, f"{p}.{n}") for k, n in (("q", "q_proj"), ("k", "k_proj"), ("v", "v_proj"),
-                                                  ("out", "out_proj"))}
-
-
-def sam_tree(model: SAM) -> dict:
-    sd = {k: v.detach() for k, v in model.upstream_names().items()}
-    cfg = model.cfg
-    enc, pe, de = "image_encoder", "prompt_encoder", "mask_decoder"
-
-    def block(p):
-        return {"ln_1": _ln(sd, f"{p}.norm1"),
-                "attn": {"qkv_w": _t(sd[f"{p}.attn.qkv.weight"]), "qkv_b": sd[f"{p}.attn.qkv.bias"],
-                         "proj_w": _t(sd[f"{p}.attn.proj.weight"]), "proj_b": sd[f"{p}.attn.proj.bias"],
-                         "rel_pos_h": sd[f"{p}.attn.rel_pos_h"], "rel_pos_w": sd[f"{p}.attn.rel_pos_w"]},
-                "ln_2": _ln(sd, f"{p}.norm2"), "mlp_fc": _lin(sd, f"{p}.mlp.lin1"),
-                "mlp_proj": _lin(sd, f"{p}.mlp.lin2")}
-
-    def conv(p, bias=True):
-        out = {"w": _hwio(sd[f"{p}.weight"])}
-        if bias:
-            out["b"] = sd[f"{p}.bias"]
-        return out
-
-    def deconv(p):  # ConvTranspose2d [in, out, kh, kw] -> [kh, kw, in, out]
-        return {"w": sd[f"{p}.weight"].permute(2, 3, 0, 1).contiguous(), "b": sd[f"{p}.bias"]}
-
-    encoder = {"patch_embed": conv(f"{enc}.patch_embed.proj"), "pos_embed": sd[f"{enc}.pos_embed"],
-               "blocks": [block(f"{enc}.blocks.{i}") for i in range(cfg.encoder_depth)],
-               "neck": {"conv1_w": _hwio(sd[f"{enc}.neck.0.weight"]), "ln1": _ln(sd, f"{enc}.neck.1"),
-                        "conv2_w": _hwio(sd[f"{enc}.neck.2.weight"]), "ln2": _ln(sd, f"{enc}.neck.3")}}
-    prompt = {"pe_gaussian": sd[f"{pe}.pe_layer.positional_encoding_gaussian_matrix"],
-              "point_embeddings": torch.stack([sd[f"{pe}.point_embeddings.{i}.weight"][0] for i in range(4)]),
-              "not_a_point_embed": sd[f"{pe}.not_a_point_embed.weight"][0],
-              "no_mask_embed": sd[f"{pe}.no_mask_embed.weight"][0],
-              "mask_downscaling": {"conv1": conv(f"{pe}.mask_downscaling.0"), "ln1": _ln(sd, f"{pe}.mask_downscaling.1"),
-                                   "conv2": conv(f"{pe}.mask_downscaling.3"),
-                                   "ln2": _ln(sd, f"{pe}.mask_downscaling.4"),
-                                   "conv3": conv(f"{pe}.mask_downscaling.6")}}
-    tr = f"{de}.transformer"
-    layers = [{"self_attn": _twoway(sd, f"{tr}.layers.{i}.self_attn"), "norm1": _ln(sd, f"{tr}.layers.{i}.norm1"),
-               "cross_t2i": _twoway(sd, f"{tr}.layers.{i}.cross_attn_token_to_image"),
-               "norm2": _ln(sd, f"{tr}.layers.{i}.norm2"), "mlp_fc": _lin(sd, f"{tr}.layers.{i}.mlp.lin1"),
-               "mlp_proj": _lin(sd, f"{tr}.layers.{i}.mlp.lin2"), "norm3": _ln(sd, f"{tr}.layers.{i}.norm3"),
-               "norm4": _ln(sd, f"{tr}.layers.{i}.norm4"),
-               "cross_i2t": _twoway(sd, f"{tr}.layers.{i}.cross_attn_image_to_token")}
-              for i in range(cfg.decoder_depth)]
-    decoder = {"iou_token": sd[f"{de}.iou_token.weight"], "mask_tokens": sd[f"{de}.mask_tokens.weight"],
-               "transformer": {"layers": layers, "final_attn": _twoway(sd, f"{tr}.final_attn_token_to_image"),
-                               "norm_final": _ln(sd, f"{tr}.norm_final_attn")},
-               "upscale": {"deconv1": deconv(f"{de}.output_upscaling.0"), "ln": _ln(sd, f"{de}.output_upscaling.1"),
-                           "deconv2": deconv(f"{de}.output_upscaling.3")},
-               "hyper_mlps": [[_lin(sd, f"{de}.output_hypernetworks_mlps.{i}.layers.{j}") for j in range(3)]
-                              for i in range(cfg.num_mask_tokens)],
-               "iou_head": [_lin(sd, f"{de}.iou_prediction_head.layers.{j}") for j in range(3)]}
-    return {"encoder": encoder, "prompt": prompt, "decoder": decoder}
 
 
 def cast(tree, dtype: torch.dtype):

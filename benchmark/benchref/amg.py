@@ -9,9 +9,11 @@ masks).
 
 Departures from upstream, each one the reference package's, which the
 measured program keeps: empty masks are dropped with the filters (upstream
-keeps them with a zero box), ties in NMS scores keep the lower index, and a
-layer-1 crop is resized into SAM's frame by a bilinear resize of the image
-without rounding (upstream rounds it through PIL).
+keeps them with a zero box) and ties in NMS scores keep the lower index.
+What differs between SAM's model families is the family's, handed in as an
+adapter object (the harness's ``families/<name>.py``): an image's or crop's
+frame, its embedding, the decoding of point prompts, and the way from the
+decoder's logits back to a crop.
 The cleanup labels components with ``scipy.ndimage.label`` at
 8-connectivity, as upstream's ``cv2.connectedComponentsWithStats(.., 8)``.
 Everything runs in float32 on the device the model is on; nothing of the
@@ -26,7 +28,6 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 from scipy import ndimage
 
 EIGHT = np.ones((3, 3), bool)
@@ -59,11 +60,6 @@ def crop_boxes(h: int, w: int, n_layers: int, overlap_ratio: float):
             boxes.append((x0, y0, min(x0 + cw, w), min(y0 + ch, h)))
             layers.append(layer + 1)
     return boxes, layers
-
-
-def preprocess_shape(h: int, w: int, long_side: int):
-    scale = long_side / max(h, w)
-    return int(h * scale + 0.5), int(w * scale + 0.5)
 
 
 def mask_boxes(masks: torch.Tensor) -> torch.Tensor:
@@ -140,7 +136,7 @@ class Crop(NamedTuple):
     box: tuple  # (x0, y0, x1, y1) in the image
     shape: tuple  # (crh, crw): the crop resized into the frame
     points: np.ndarray  # [n, 2] in the crop, before resizing
-    embedding: torch.Tensor  # [1, C, g, g]
+    embedding: object  # the family's embedding of the crop's frame
     iou: torch.Tensor  # [n * 3]
     stability: torch.Tensor
     boxes: torch.Tensor  # [n * 3, 4] XYXY in the image
@@ -156,50 +152,27 @@ class AmgResult(NamedTuple):
 
 
 class ReferenceAMG:
-    """The automatic mask generator on a plain SAM (``benchref.sam.SAM``) in float32."""
+    """The automatic mask generator on a plain float32 SAM of a family (``family``:
+    its ``frame``, ``encode``, ``decode`` and ``to_crop``; ``spec``: its settings)."""
 
-    def __init__(self, sam, spec, amg: dict, batch: int = 64):
-        self.sam, self.spec, self.amg, self.batch = sam, spec, amg, batch
-        dev = next(sam.parameters()).device
-        self.mean = torch.tensor(spec.pixel_mean, device=dev)[:, None, None]
-        self.std = torch.tensor(spec.pixel_std, device=dev)[:, None, None]
-        self.device = dev
+    def __init__(self, sam, spec, amg: dict, family, batch: int = 64):
+        self.sam, self.spec, self.amg, self.family, self.batch = sam, spec, amg, family, batch
+        self.device = next(sam.parameters()).device
         self._embedded = {}
 
-    def _frame(self, resized) -> torch.Tensor:
-        S = self.spec.img_size
-        x = torch.as_tensor(np.array(resized) if isinstance(resized, np.ndarray) else resized, device=self.device)
-        x = x.permute(2, 0, 1).float()
-        x = (x - self.mean) / self.std
-        return F.pad(x, (0, S - x.shape[2], 0, S - x.shape[1]))[None]
-
-    @torch.no_grad()
-    def _decode(self, crop_emb, coords: torch.Tensor):
-        """Points [n, 2] in the resized frame -> (logits [n, 3, 4g, 4g], iou [n, 3])."""
-        pe = self.sam.prompt_encoder
-        sparse = pe.embed_points(coords[:, None, :], torch.ones(len(coords), 1, device=self.device))
-        return self.sam.mask_decoder(crop_emb[0], pe.dense_pe(), sparse, pe.no_mask_dense(), multimask=True)
-
-    def _to_crop(self, logits, shape, crop_hw):
-        """Upstream postprocess_masks: up to the frame, its valid corner, down to the crop's size."""
-        S = self.spec.img_size
-        x = F.interpolate(logits, (S, S), mode="bilinear", align_corners=False)[..., : shape[0], : shape[1]]
-        return F.interpolate(x, crop_hw, mode="bilinear", align_corners=False)
-
-    def _embed(self, image: np.ndarray, image_1024, box):
-        """(frame shape (crh, crw), embedding [1, C, g, g]) of one crop box."""
+    def _embed(self, image: np.ndarray, full, box):
+        """(the frame's content shape (rh, rw), the family's embedding) of one crop box;
+        ``full`` (frame, rh, rw) the sample's frame for the full image, None for a crop."""
         x0, y0, x1, y1 = box
-        shape = preprocess_shape(y1 - y0, x1 - x0, self.spec.img_size)
-        if image_1024 is not None:  # the full image: the frame the sample was built with
-            frame = self._frame(image_1024[: shape[0], : shape[1]])
-        else:  # a crop: bilinear from the image, unrounded (the reference package's; upstream rounds through PIL)
+        if full is not None:  # the full image: the frame the sample was built with
+            frame, rh, rw = full
+        else:  # a crop: cut from the image on the device, framed by the family
             cut = torch.from_numpy(np.ascontiguousarray(image[y0:y1, x0:x1])).to(self.device)
-            cut = F.interpolate(cut.permute(2, 0, 1)[None].float(), shape, mode="bilinear", align_corners=False)
-            frame = self._frame(cut[0].permute(1, 2, 0))
-        return shape, self.sam.image_encoder(frame)
+            frame, rh, rw = self.family.frame(self.spec, cut)
+        return (rh, rw), self.family.encode(self.sam, frame, rh, rw)
 
     @torch.no_grad()
-    def point_candidates(self, image: np.ndarray, image_1024, point) -> list:
+    def point_candidates(self, image: np.ndarray, full, point) -> list:
         """For a point (image coordinates), [(crop index, predicted IoUs [3],
         stability [3], masks [3, h, w] bool before the cleanup)] of every crop
         whose grid has a point there (within half a pixel)."""
@@ -216,12 +189,12 @@ class ReferenceAMG:
             if not len(hit):
                 continue
             if ci not in self._embedded:
-                self._embedded[ci] = self._embed(image, image_1024 if ci == 0 else None, box)
+                self._embedded[ci] = self._embed(image, full if ci == 0 else None, box)
             shape, emb = self._embedded[ci]
             coords = torch.tensor(grid[hit[:1]] * np.array([shape[1], shape[0]]), dtype=torch.float32,
                                   device=self.device)
-            logits, iou = self._decode(emb, coords)
-            m = self._to_crop(logits, shape, (y1 - y0, x1 - x0))[0]
+            logits, iou = self.family.decode(self.sam, emb, coords)
+            m = self.family.to_crop(self.spec, logits, shape, (y1 - y0, x1 - x0))[0]
             thr, off = self.spec.mask_threshold, self.amg["stability_score_offset"]
             stab = (m > thr + off).sum((-1, -2)).float() / (m > thr - off).sum((-1, -2)).float()
             full = torch.zeros((3, h, w), dtype=torch.bool, device=self.device)
@@ -234,10 +207,10 @@ class ReferenceAMG:
         self._embedded = {}
 
     @torch.no_grad()
-    def _crop(self, image: np.ndarray, image_1024, box, n_side: int) -> Crop:
+    def _crop(self, image: np.ndarray, full, box, n_side: int) -> Crop:
         x0, y0, x1, y1 = box
         ch, cw = y1 - y0, x1 - x0
-        shape, emb = self._embed(image, image_1024, box)
+        shape, emb = self._embed(image, full, box)
         points = point_grid(n_side) * np.array([cw, ch], np.float64)
         coords_all = torch.tensor(point_grid(n_side) * np.array([shape[1], shape[0]]), dtype=torch.float32,
                                   device=self.device)
@@ -246,8 +219,8 @@ class ReferenceAMG:
         img_box = torch.tensor([0, 0, image.shape[1], image.shape[0]], dtype=torch.float32, device=self.device)
         ious, stabs, boxes, valids = [], [], [], []
         for s in range(0, len(coords_all), self.batch):
-            logits, iou = self._decode(emb, coords_all[s: s + self.batch])
-            m = self._to_crop(logits, shape, (ch, cw)).flatten(0, 1)
+            logits, iou = self.family.decode(self.sam, emb, coords_all[s: s + self.batch])
+            m = self.family.to_crop(self.spec, logits, shape, (ch, cw)).flatten(0, 1)
             iou = iou.flatten()
             thr, off = self.spec.mask_threshold, a["stability_score_offset"]
             inter = (m > thr + off).sum((-1, -2)).float()
@@ -275,24 +248,24 @@ class ReferenceAMG:
         x0, y0, x1, y1 = crop.box
         pt = torch.tensor(crop.points[cand // 3] * np.array([crop.shape[1] / (x1 - x0), crop.shape[0] / (y1 - y0)]),
                           dtype=torch.float32, device=self.device)
-        logits, _ = self._decode(crop.embedding, pt[None])
-        m = self._to_crop(logits[:, cand % 3: cand % 3 + 1], crop.shape, (y1 - y0, x1 - x0))[0, 0]
+        logits, _ = self.family.decode(self.sam, crop.embedding, pt[None])
+        m = self.family.to_crop(self.spec, logits[:, cand % 3: cand % 3 + 1], crop.shape, (y1 - y0, x1 - x0))[0, 0]
         m = m > self.spec.mask_threshold
         full = np.zeros((h, w), bool)
         full[y0:y1, x0:x1] = m.cpu().numpy()
         return full
 
     @torch.no_grad()
-    def run(self, image: np.ndarray, image_1024: np.ndarray) -> AmgResult:
-        """``image`` [h, w, 3] uint8 at its own resolution, ``image_1024`` the
-        sample's long-side-resized, padded SAM frame."""
+    def run(self, image: np.ndarray, full) -> AmgResult:
+        """``image`` [h, w, 3] uint8 at its own resolution, ``full`` the
+        sample's frame of it (frame, rh, rw), as the family made it."""
         a = self.amg
         h, w = image.shape[:2]
         boxes, layers = crop_boxes(h, w, a["crop_n_layers"], a["crop_overlap_ratio"])
         crops, kept = [], []
         for ci, (box, layer) in enumerate(zip(boxes, layers)):
             n_side = int(a["points_per_side"] / a["crop_n_points_downscale_factor"] ** layer)
-            crop = self._crop(image, image_1024 if ci == 0 else None, box, n_side)
+            crop = self._crop(image, full if ci == 0 else None, box, n_side)
             crops.append(crop)
             kept += [(ci, c) for c in greedy_nms(crop.boxes - torch.tensor([box[0], box[1]] * 2, device=self.device),
                                                  crop.iou, a["box_nms_thresh"], crop.valid)]

@@ -7,7 +7,7 @@ import pytest
 import torch
 
 import tiny
-from benchlib.config import load_json
+from benchlib.config import load_json, model_settings
 from benchlib.stamp import Stamp
 from benchlib.traffic import Stream
 from benchref.parser import HeuristicParser
@@ -17,7 +17,8 @@ SEEDS = (0, 7, 2**31 + 11, 2**33 + 5)
 
 @pytest.mark.parametrize("seed", SEEDS)
 def test_the_same_seed_gives_the_same_samples(seed):
-    a, b = Stream(tiny.mix(), tiny.config(), seed), Stream(tiny.mix(), tiny.config(), seed)
+    cfg = tiny.config()
+    a, b = Stream(tiny.mix(), cfg, seed, model_settings(cfg)), Stream(tiny.mix(), cfg, seed, model_settings(cfg))
     assert a.specs == b.specs
     for x, y in zip(a.samples, b.samples):
         assert np.array_equal(x.image_canonical, y.image_canonical) and np.array_equal(x.gt_mask, y.gt_mask)
@@ -30,7 +31,7 @@ def test_every_seed_gets_the_same_work_in_the_same_order():
     cfg = dict(cfg, images=dict(cfg["images"]))
     multisets = set()
     for seed in SEEDS[:3]:
-        s = Stream(dict(mix, cycle=64), cfg, seed)
+        s = Stream(dict(mix, cycle=64), cfg, seed, model_settings(cfg))
         multisets.add(tuple((s.sizes[x.size], x.n_expr, x.live) for x in s.specs))
         assert np.mean([x.n_expr for x in s.specs]) == pytest.approx(2.84, abs=0.01)
     assert len(multisets) == 1
@@ -41,7 +42,7 @@ def test_expressions_cover_the_parser_flags():
     parser = HeuristicParser()
     seen = collections.Counter()
     for seed in (1, 2):
-        for s in Stream(mix, cfg, seed).samples:
+        for s in Stream(mix, cfg, seed, model_settings(cfg)).samples:
             for sent in s.sentences:
                 p = parser.parse(sent)
                 seen[("dir", p.dir_flag)] += 1

@@ -62,7 +62,7 @@ def test_image_launches_match_the_kernel_table(config, counts):
 
     s = settings(config)
     got = {}
-    for name, _ in kernels.proposal_launches(s, _windows(s, 480, 640)):
+    for name, _ in s.family.proposal_launches(s, _windows(s, 480, 640)):
         got[name] = got.get(name, 0) + 1
     assert got == counts
     assert len(kernels.feature_launches(s, 8)) == 15
@@ -74,7 +74,7 @@ def test_roofline_is_silent_where_the_trace_is_not_the_model():
     from benchlib.harness import _windows, read_metric
 
     s = settings("refcoco-samh-clipb16")
-    modelled = kernels.launches_by_label(kernels.proposal_launches(s, _windows(s, 480, 640))
+    modelled = kernels.launches_by_label(s.family.proposal_launches(s, _windows(s, 480, 640))
                                          + kernels.feature_launches(s, 8))
     assert modelled == {"K1 flash_windowed_fused": 28, "K2 flash_attention_fused": 4, "K3/K7/K8 decoder attention": 2,
                         "K3/K8 t2i_combine": 2, "K4 upscale_hyper_blocked": 1, "K5 pass1_stats_half": 1,
